@@ -1,0 +1,312 @@
+"""Wide (8-ary) BVH traversal over the fat-row table.
+
+Port of ``cudatracerlib_tpu/ops/traversal8.py``. Two implementations of one
+traversal, with the same per-ray semantics, step counts and flags:
+
+- ``intersect_wide_cuda``: the wrapper of the hand-written Hopper kernel
+  ``csrc/traversal8.cu``, which replaces the TPU kernel
+  ``cudatracerlib_tpu/ops/traversal_pl.py::_traverse_kernel``. It takes CUDA
+  tensors only.
+- ``intersect_wide``: its plain PyTorch version, a lockstep batch loop like
+  the JAX ``intersect_wide``. It serves CPU tensors, and the tests and
+  ``chip_smoke.py`` hold the kernel against it.
+
+``intersect_scene`` picks one of the two by the table's device.
+
+Per ray: a stack entry is (row << 8) | unvisited-child mask; the stack is a
+ring of ``stack_depth`` entries that drops its oldest entry when a push
+finds it full (flag bit 1); a ray still running after ``max_iters`` steps
+keeps its best hit so far (flag bit 0). One step fetches one 512-byte row,
+so a ray's step count is also its count of rows read. These are per-ray
+counts, not the TPU kernel's lockstep iterations.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from .traversal import Hit, Rays, _safe_inv
+
+Tensor = torch.Tensor
+
+DONE = -1
+POP = -0x40000000
+STACK_DEPTH = 24
+MAX_ITERS = 4096
+FLAG_CAPPED = 1
+FLAG_OVERFLOW = 2
+_INF = float("inf")
+
+
+def pack_unified(bvh8_nodes, bvh8_leaves):
+    """Concatenate node+leaf rows into one table, remapping leaf links."""
+    n8 = bvh8_nodes.shape[0]
+    nodes = bvh8_nodes.copy()
+    links = nodes[:, 48:56].view(np.int32)
+    leaf = links <= -2
+    links[leaf] = -2 - (n8 + (-2 - links[leaf]))
+    return np.concatenate([nodes, bvh8_leaves], axis=0)
+
+
+def _check_args(any_hit, stack_depth, any_mask):
+    if any_hit and any_mask is not None:
+        raise ValueError("any_hit and any_mask are exclusive")
+    if not 1 <= stack_depth <= 64:   # kMaxStack in csrc/traversal8.cu
+        raise ValueError(f"stack_depth {stack_depth} outside [1, 64]")
+
+
+def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
+                   stack_depth: int = STACK_DEPTH,
+                   max_iters: int = MAX_ITERS, roots: Tensor = None,
+                   with_iters: bool = False, any_mask: Tensor = None):
+    """Plain PyTorch traversal of the (R, 128) fat-row table.
+
+    any_mask: optional (B,) bool giving per-lane any-hit semantics (lanes
+    True stop at their first leaf hit), so one call traces a mixed
+    closest+shadow wavefront. Returns a Hit, or with with_iters
+    (hit, steps (B,) int32, flags (B,) uint8)."""
+    _check_args(any_hit, stack_depth, any_mask)
+    if table.is_cuda:
+        intersect_wide.cuda_calls += 1
+    dev = table.device
+    B = rays.o.shape[0]
+    n_rows = table.shape[0]
+    inv_d = _safe_inv(rays.d)
+    ox, oy, oz = (rays.o[:, k:k + 1] for k in range(3))     # (B, 1)
+    ix, iy, iz = (inv_d[:, k:k + 1] for k in range(3))
+    dx, dy, dz = (rays.d[:, k:k + 1] for k in range(3))
+    tmn = rays.tmin[:, None]
+    if roots is None:
+        roots = torch.zeros(B, dtype=torch.int32, device=dev)
+    if any_hit:
+        anyh = torch.ones(B, dtype=torch.bool, device=dev)
+    elif any_mask is not None:
+        anyh = any_mask.to(torch.bool)
+    else:
+        anyh = torch.zeros(B, dtype=torch.bool, device=dev)
+    bit8 = (1 << torch.arange(8, dtype=torch.int32, device=dev))[None, :]
+    lanes = torch.arange(B, device=dev)
+
+    cur = (roots.to(torch.int32) << 8) | 0xFF
+    t_best = rays.tmax.clone()
+    tri_best = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    u_best = torch.zeros(B, dtype=torch.float32, device=dev)
+    v_best = torch.zeros(B, dtype=torch.float32, device=dev)
+    stack = torch.zeros((B, stack_depth), dtype=torch.int32, device=dev)
+    pos = torch.zeros(B, dtype=torch.int64, device=dev)
+    n = torch.zeros(B, dtype=torch.int32, device=dev)
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    flags = torch.zeros(B, dtype=torch.uint8, device=dev)
+
+    while True:
+        active = (cur != DONE) & (steps < max_iters)
+        if not bool(active.any()):
+            break
+        steps += active.to(torch.int32)
+        is_node = active & (cur >= 0)
+        is_leaf = active & (cur <= -2)
+        row_idx = torch.where(cur >= 0, cur >> 8, -2 - cur).clamp(0, n_rows - 1)
+        row = table[row_idx.long()]                                  # (B, 128)
+        tb = t_best[:, None]
+
+        # node step: slab-test all 8 children, pick the nearest (lowest j on ties)
+        t0x = (row[:, 0:8] - ox) * ix
+        t1x = (row[:, 24:32] - ox) * ix
+        t0y = (row[:, 8:16] - oy) * iy
+        t1y = (row[:, 32:40] - oy) * iy
+        t0z = (row[:, 16:24] - oz) * iz
+        t1z = (row[:, 40:48] - oz) * iz
+        tn = torch.maximum(
+            torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+            torch.maximum(torch.minimum(t0z, t1z), tmn))
+        tf = torch.minimum(
+            torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+            torch.minimum(torch.maximum(t0z, t1z), tb))
+        links = row[:, 48:56].view(torch.int32)
+        eligible = (tn <= tf) & (links != DONE) & (((cur & 0xFF)[:, None] & bit8) != 0)
+        t_sel = torch.where(eligible, tn, _INF)
+        best_t = torch.full((B,), _INF, dtype=torch.float32, device=dev)
+        best_j = torch.zeros(B, dtype=torch.int32, device=dev)
+        for j in range(8):
+            closer = t_sel[:, j] < best_t
+            best_t = torch.where(closer, t_sel[:, j], best_t)
+            best_j = torch.where(closer, j, best_j)
+        has_child = best_t < _INF
+        link_best = links[lanes, best_j.long()]
+        elig_bits = (eligible.to(torch.int32) * bit8).sum(1, dtype=torch.int32)
+        remaining = elig_bits & ~(1 << best_j)
+        descend = torch.where(link_best >= 0, (link_best << 8) | 0xFF, link_best)
+        node_next = torch.where(has_child, descend, POP)
+        push = is_node & has_child & (remaining != 0)
+        push_val = ((cur >> 8) << 8) | remaining
+
+        # leaf step: Moller-Trumbore on 12 triangles (lowest slot on ties)
+        v0x, v0y, v0z = row[:, 0:12], row[:, 12:24], row[:, 24:36]
+        e1x, e1y, e1z = row[:, 36:48], row[:, 48:60], row[:, 60:72]
+        e2x, e2y, e2z = row[:, 72:84], row[:, 84:96], row[:, 96:108]
+        ids = row[:, 108:120].view(torch.int32)
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv_det = torch.where(det.abs() < 1e-12, 0.0, 1.0 / det)
+        tx = ox - v0x
+        ty = oy - v0y
+        tz = oz - v0z
+        u = (tx * px + ty * py + tz * pz) * inv_det
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        v = (dx * qx + dy * qy + dz * qz) * inv_det
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        tri_ok = ((ids != -1) & (det.abs() >= 1e-12) & (u >= 0) & (v >= 0)
+                  & (u + v <= 1.0) & (t > tmn) & (t < tb))
+        t_tri = torch.where(tri_ok, t, _INF)
+        t_hit = torch.full((B,), _INF, dtype=torch.float32, device=dev)
+        k_hit = torch.zeros(B, dtype=torch.int64, device=dev)
+        for k in range(12):
+            closer = t_tri[:, k] < t_hit
+            t_hit = torch.where(closer, t_tri[:, k], t_hit)
+            k_hit = torch.where(closer, k, k_hit)
+        leaf_hit = is_leaf & (t_hit < _INF)
+        t_best = torch.where(leaf_hit, t_hit, t_best)
+        tri_best = torch.where(leaf_hit, ids[lanes, k_hit], tri_best)
+        u_best = torch.where(leaf_hit, u[lanes, k_hit], u_best)
+        v_best = torch.where(leaf_hit, v[lanes, k_hit], v_best)
+
+        # combine, push, pop (ring stack: a full stack drops its oldest entry)
+        nxt = torch.where(is_node, node_next, POP)
+        nxt = torch.where(leaf_hit & anyh, DONE, nxt)
+        pos = torch.where(push, (pos + 1) % stack_depth, pos)
+        stack[lanes, pos] = torch.where(push, push_val, stack[lanes, pos])
+        flags |= (push & (n == stack_depth)).to(torch.uint8) * FLAG_OVERFLOW
+        n = torch.where(push, (n + 1).clamp_max(stack_depth), n)
+        can_pop = active & (nxt == POP) & (n > 0)
+        popped = stack[lanes, pos]
+        pos = torch.where(can_pop, (pos - 1) % stack_depth, pos)
+        n = torch.where(can_pop, n - 1, n)
+        nxt = torch.where(nxt == POP, torch.where(can_pop, popped, DONE), nxt)
+        cur = torch.where(active, nxt, cur)
+
+    flags |= (cur != DONE).to(torch.uint8) * FLAG_CAPPED
+    hit = Hit(t=t_best, tri=tri_best, u=u_best, v=v_best)
+    if with_iters:
+        return hit, steps, flags
+    return hit
+
+
+intersect_wide.cuda_calls = 0   # calls that got CUDA tensors (comparisons only)
+
+
+def _ptr(x):
+    return None if x is None else ctypes.c_void_p(x.data_ptr())
+
+
+def _load_kernel():
+    fn = cuda_build.load_library("traversal8.cu").ctl_traverse8
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                   vp, vp, vp, vp, vp, vp, vp]
+    fn.restype = ci
+    return fn
+
+
+def _require(x: Tensor, name: str, dtype, shape, device):
+    if not isinstance(x, Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the table on {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
+                        stack_depth: int = STACK_DEPTH,
+                        max_iters: int = MAX_ITERS, roots: Tensor = None,
+                        with_iters: bool = False, any_mask: Tensor = None):
+    """Launch ``csrc/traversal8.cu`` on the current stream: the same
+    signature, results, step counts and flags as ``intersect_wide``.
+
+    Takes CUDA tensors only: (R, 128) float32 table; rays o, d (B, 3) and
+    tmin, tmax (B,) float32; roots (B,) int32; any_mask (B,) bool. Raises on
+    anything else. Each launch adds one to ``intersect_wide_cuda.launches``."""
+    _check_args(any_hit, stack_depth, any_mask)
+    if not (isinstance(table, Tensor) and table.is_cuda):
+        raise ValueError("intersect_wide_cuda takes a CUDA table")
+    dev = table.device
+    _require(table, "table", torch.float32, (table.shape[0], 128), dev)
+    if table.shape[0] == 0 or table.data_ptr() % 16:
+        raise ValueError("table must be non-empty and 16-byte aligned")
+    B = rays.o.shape[0]
+    _require(rays.o, "rays.o", torch.float32, (B, 3), dev)
+    _require(rays.d, "rays.d", torch.float32, (B, 3), dev)
+    _require(rays.tmin, "rays.tmin", torch.float32, (B,), dev)
+    _require(rays.tmax, "rays.tmax", torch.float32, (B,), dev)
+    if roots is not None:
+        _require(roots, "roots", torch.int32, (B,), dev)
+    mask_u8 = None
+    if any_mask is not None:
+        _require(any_mask, "any_mask", torch.bool, (B,), dev)
+        mask_u8 = any_mask.view(torch.uint8)
+    t = torch.empty(B, dtype=torch.float32, device=dev)
+    tri = torch.empty(B, dtype=torch.int32, device=dev)
+    u = torch.empty(B, dtype=torch.float32, device=dev)
+    v = torch.empty(B, dtype=torch.float32, device=dev)
+    steps = torch.empty(B, dtype=torch.int32, device=dev)
+    flags = torch.empty(B, dtype=torch.uint8, device=dev)
+    fn = _load_kernel()
+    err = fn(_ptr(table), table.shape[0], _ptr(rays.o), _ptr(rays.d),
+             _ptr(rays.tmin), _ptr(rays.tmax), _ptr(roots), _ptr(mask_u8), B,
+             int(bool(any_hit)), stack_depth, max_iters, _ptr(t), _ptr(tri),
+             _ptr(u), _ptr(v), _ptr(steps), _ptr(flags),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"traversal8 kernel launch failed: CUDA error {err}")
+    intersect_wide_cuda.launches += 1
+    hit = Hit(t=t, tri=tri, u=u, v=v)
+    if with_iters:
+        return hit, steps, flags
+    return hit
+
+
+intersect_wide_cuda.launches = 0
+
+
+def intersect_scene(geom, rays: Rays, any_hit: bool = False,
+                    roots: Tensor = None, with_iters: bool = False,
+                    coherent: bool = False, any_mask: Tensor = None):
+    """Production intersector over a GeometryTable's fat-row table.
+
+    A CUDA table goes to the kernel (``intersect_wide_cuda``), of any size; a
+    CPU table to the plain version (``intersect_wide``). `coherent` is the
+    JAX package's treelet hint and changes nothing here.
+
+    with_iters=True returns (hit, iters, rows, ovf), all int64 counters:
+    iters is the sum of the rays' steps, rows the 512-byte rows they read
+    (one per step, so equal to iters), and ovf a (2,) tensor holding the
+    number of capped rays and of rays whose stack overflowed."""
+    if geom.inst is not None:
+        raise NotImplementedError("instanced scenes are not ported yet")
+    table = geom.wide
+    if table.is_cuda:
+        fn = intersect_wide_cuda
+    elif table.device.type == "cpu":
+        fn = intersect_wide
+    else:
+        raise ValueError(f"no traversal for a table on {table.device}")
+    res = fn(table, rays, any_hit=any_hit, roots=roots,
+             with_iters=with_iters, any_mask=any_mask)
+    if not with_iters:
+        return res
+    hit, steps, flags = res
+    iters = steps.sum(dtype=torch.int64)
+    ovf = torch.stack([(flags & FLAG_CAPPED).ne(0).sum(),
+                       (flags & FLAG_OVERFLOW).ne(0).sum()])
+    return hit, iters, iters, ovf

@@ -1,0 +1,437 @@
+"""Host-side scene management: build the device tables from meshes,
+materials and lights.
+
+Port of the flat path of ``cudatracerlib_tpu/scene/host.py``: scenes under
+4,096 triangles, built with the numpy binned-SAH builder, with no
+instancing, no treelets, no textures, no environment map and no media. The
+numpy code is carried over verbatim; tensors are made only at the
+``SceneData`` boundary (``schema.to_tensor``), and the arrays are
+byte-identical to the JAX build's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from . import bvh as bvhmod
+from . import bvh8 as bvh8mod
+from . import schema, shapes
+from ..ops import traversal8
+
+MAX_FLAT_TRIS = 4096  # the JAX build switches to its native builder here
+
+
+@dataclass
+class TextureSpec:
+    tex_type: int = schema.TEX_CONSTANT
+    value: tuple = (1.0, 1.0, 1.0)      # constant / color0
+    value1: tuple = (0.0, 0.0, 0.0)     # checkerboard color1 / bilerp corners
+    uv_scale: tuple = (1.0, 1.0)
+    uv_offset: tuple = (0.0, 0.0)
+    image: Optional[np.ndarray] = None  # (H, W, 3) float32 linear RGB
+
+
+@dataclass
+class MaterialSpec:
+    """Host-side BSDF description; packed into MaterialTable rows by build().
+
+    Parameter conventions follow the Mitsuba BSDF set the reference implements
+    (SceneTypes/BSDF_Simple.h / BSDF_Complex.h).
+    """
+    bsdf_type: int = schema.BSDF_DIFFUSE
+    reflectance: tuple = (0.5, 0.5, 0.5)    # c0: albedo / specular reflectance
+    transmittance: tuple = (1.0, 1.0, 1.0)  # c1: spec transmittance / diffuse of plastic&phong
+    eta: float = 1.5                         # int_ior/ext_ior (dielectrics, plastic, coating)
+    alpha: float = 0.1                       # roughness (isotropic default)
+    alpha_v: Optional[float] = None          # anisotropic second roughness
+    distribution: int = 1                    # microfacet type (core.microfacet: 0=beckmann,1=ggx,2=phong)
+    eta_c: tuple = (0.2, 0.9, 1.4)           # conductor spectral eta
+    k_c: tuple = (3.9, 2.5, 2.1)             # conductor spectral k
+    exponent: float = 30.0                   # phong exponent
+    nonlinear: bool = False                  # plastic
+    sigma_s: tuple = (0.0, 0.0, 0.0)         # hk scattering
+    sigma_a: tuple = (0.0, 0.0, 0.0)         # hk / coating absorption
+    phase_g: float = 0.0                     # hk phase
+    thickness: float = 1.0                   # hk / coating layer thickness
+    blend_weight: float = 0.5                # blend
+    dispersion_b: float = 0.0                # Cauchy B (um^2): >0 = dispersive dielectric
+    nested: Optional["MaterialSpec"] = None  # coating/blend inner bsdf
+    nested2: Optional["MaterialSpec"] = None  # blend second bsdf
+    # texture slots (None = use the constant tuples above)
+    tex_reflectance: Optional[TextureSpec] = None
+    tex_transmittance: Optional[TextureSpec] = None
+    tex_alpha_mask: Optional[TextureSpec] = None
+    tex_bump: Optional[TextureSpec] = None
+    # alpha-blend test (reference AlphaBlendData, Engine/Material.h:13-35):
+    # 0 keeps the continuous Mitsuba opacity semantics of tex_alpha_mask;
+    # schema.ALPHA_* modes make the test binary (luminance / alpha / color)
+    alpha_mode: int = 0
+    alpha_test: float = 0.5
+    alpha_test_color: tuple = (0.0, 0.0, 0.0)
+    parallax_scale: float = 0.0   # >0: parallax-occlusion mapping with the bump height map
+    # BSSRDF: internal medium attached to the surface (reference
+    # Material.h:38-60 GetBSSRDF); paths transmitting into the surface
+    # random-walk through this homogeneous medium until they exit
+    bssrdf_sigma_a: tuple = (0.0, 0.0, 0.0)
+    bssrdf_sigma_s: tuple = (0.0, 0.0, 0.0)
+    bssrdf_g: float = 0.0
+    two_sided: bool = True
+
+
+@dataclass
+class _Node:
+    mesh: shapes.TriMesh          # object-space mesh
+    to_world: np.ndarray          # (4, 4)
+    material: int                 # material row
+    emission: Optional[tuple]     # area-light radiance or None
+    name: str = ""
+
+
+def _pack_material(spec: MaterialSpec, mats: list, texs: list) -> int:
+    """Append spec (and nested specs) to the tables; returns the row index."""
+    def tex_id(t: Optional[TextureSpec]) -> int:
+        if t is None:
+            return -1
+        texs.append(t)
+        return len(texs) - 1
+
+    nested_id = _pack_material(spec.nested, mats, texs) if spec.nested else -1
+    nested2_id = _pack_material(spec.nested2, mats, texs) if spec.nested2 else -1
+    p = np.zeros(schema.N_MAT_PARAMS, np.float32)
+    p[0:3] = spec.reflectance
+    p[3] = spec.alpha
+    p[4] = spec.eta
+    p[5] = spec.distribution
+    p[6] = spec.alpha
+    p[7] = spec.alpha_v if spec.alpha_v is not None else spec.alpha
+    p[8:11] = spec.eta_c
+    p[11:14] = spec.k_c
+    p[14] = 1.0 if spec.nonlinear else 0.0
+    p[15] = spec.exponent
+    p[16] = spec.phase_g
+    p[17] = spec.thickness
+    p[18] = spec.blend_weight
+    p[19:22] = spec.transmittance
+    p[22] = 1.0 if spec.two_sided else 0.0
+    p[23] = spec.dispersion_b
+    p[24] = spec.parallax_scale
+    p[25:28] = spec.bssrdf_sigma_a
+    p[28:31] = spec.bssrdf_sigma_s
+    p[31] = spec.bssrdf_g
+    p[32] = spec.alpha_mode
+    p[33] = spec.alpha_test
+    p[34:37] = spec.alpha_test_color
+    # sigma_s/sigma_a for hk share the color slots (c0/c1) by convention
+    row = dict(mat_type=spec.bsdf_type, params=p,
+               tex=np.array([tex_id(spec.tex_reflectance), tex_id(spec.tex_transmittance),
+                             tex_id(spec.tex_alpha_mask), tex_id(spec.tex_bump)], np.int32),
+               nested=nested_id, nested2=nested2_id)
+    mats.append(row)
+    return len(mats) - 1
+
+
+def _pack_al_rows(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+                  al_tris: np.ndarray) -> np.ndarray:
+    """(AT, 12) area-light tri fat rows [v0 e1 e2 ng] (schema.LightTable
+    .al_rows): precomputed so GeometryTable needs no (T, 12) tris table."""
+    if v0.shape[0] == 0:
+        return np.zeros((al_tris.shape[0], 12), np.float32)
+    ids = np.clip(al_tris.astype(np.int64), 0, v0.shape[0] - 1)
+    a = v0[ids].astype(np.float32)
+    e1 = (v1[ids] - v0[ids]).astype(np.float32)
+    e2 = (v2[ids] - v0[ids]).astype(np.float32)
+    ng = np.cross(e1, e2)
+    ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+    return np.concatenate([a, e1, e2, ng.astype(np.float32)], axis=-1)
+
+
+class DynamicScene:
+    """Mutable host scene; `build()` produces the immutable device SceneData."""
+
+    def __init__(self):
+        self._nodes: list[_Node] = []
+        self._materials: list[dict] = []
+        self._textures: list[TextureSpec] = []
+        self._lights: list[dict] = []       # non-area lights
+        self._sensor: Optional[schema.SensorData] = None
+
+    # -- materials ---------------------------------------------------------
+    def add_material(self, spec: MaterialSpec) -> int:
+        return _pack_material(spec, self._materials, self._textures)
+
+    # -- geometry ----------------------------------------------------------
+    def create_node(self, mesh: shapes.TriMesh, material: int,
+                    to_world: Optional[np.ndarray] = None,
+                    emission: Optional[tuple] = None, name: str = "") -> int:
+        if mesh.n is None:
+            mesh = shapes.compute_vertex_normals(mesh)
+        if to_world is None:
+            to_world = np.eye(4, dtype=np.float32)
+        self._nodes.append(_Node(mesh, np.asarray(to_world, np.float32),
+                                 material, emission, name))
+        return len(self._nodes) - 1
+
+    # -- lights ------------------------------------------------------------
+    def add_point_light(self, position, intensity):
+        p = np.zeros(schema.N_LIGHT_PARAMS, np.float32)
+        p[0:3] = position
+        p[3:6] = intensity
+        self._lights.append(dict(light_type=schema.LIGHT_POINT, params=p))
+
+    def add_distant_light(self, direction, radiance):
+        p = np.zeros(schema.N_LIGHT_PARAMS, np.float32)
+        d = np.asarray(direction, np.float32)
+        p[0:3] = d / np.linalg.norm(d)
+        p[3:6] = radiance
+        self._lights.append(dict(light_type=schema.LIGHT_DISTANT, params=p))
+
+    def add_spot_light(self, position, direction, intensity,
+                       cutoff_deg: float = 20.0, beam_deg: Optional[float] = None):
+        p = np.zeros(schema.N_LIGHT_PARAMS, np.float32)
+        p[0:3] = position
+        p[3:6] = intensity
+        d = np.asarray(direction, np.float32)
+        p[8:11] = d / np.linalg.norm(d)
+        p[6] = np.cos(np.deg2rad(cutoff_deg))
+        p[7] = np.cos(np.deg2rad(beam_deg if beam_deg is not None else cutoff_deg * 0.75))
+        self._lights.append(dict(light_type=schema.LIGHT_SPOT, params=p))
+
+    # -- sensor ------------------------------------------------------------
+    def set_sensor(self, sensor: schema.SensorData):
+        self._sensor = sensor
+
+    # -- build -------------------------------------------------------------
+    def build(self, device="cpu") -> schema.SceneData:
+        """Flatten every node into one world-space triangle soup, build its
+        BVH8 and pack the device tables onto `device`."""
+        nodes = self._nodes
+        if not nodes:
+            raise ValueError("scene has no geometry")
+        if self._sensor is None:
+            raise ValueError("scene has no sensor")
+
+        v0s, v1s, v2s = [], [], []
+        n0s, n1s, n2s, uv0s, uv1s, uv2s = [], [], [], [], [], []
+        mat_ids, light_ids, node_ids = [], [], []
+        area_lights = []  # (tri_first, tri_count, radiance)
+
+        tri_cursor = 0
+        n_other_lights = len(self._lights)
+        for node_idx, node in enumerate(nodes):
+            m = node.mesh.transformed(node.to_world)
+            f = m.f
+            v0s.append(m.v[f[:, 0]]); v1s.append(m.v[f[:, 1]]); v2s.append(m.v[f[:, 2]])
+            n0s.append(m.n[f[:, 0]]); n1s.append(m.n[f[:, 1]]); n2s.append(m.n[f[:, 2]])
+            uv = m.uv if m.uv is not None else np.zeros((m.v.shape[0], 2), np.float32)
+            uv0s.append(uv[f[:, 0]]); uv1s.append(uv[f[:, 1]]); uv2s.append(uv[f[:, 2]])
+            nf = f.shape[0]
+            mat_ids.append(np.full(nf, node.material, np.int32))
+            node_ids.append(np.full(nf, node_idx, np.int32))
+            if node.emission is not None:
+                light_row = n_other_lights + len(area_lights)
+                light_ids.append(np.full(nf, light_row, np.int32))
+                area_lights.append(dict(first=tri_cursor, count=nf,
+                                        radiance=np.asarray(node.emission, np.float32)))
+            else:
+                light_ids.append(np.full(nf, -1, np.int32))
+            tri_cursor += nf
+
+        v0 = np.concatenate(v0s); v1 = np.concatenate(v1s); v2 = np.concatenate(v2s)
+        T = v0.shape[0]
+        if T >= MAX_FLAT_TRIS:
+            raise NotImplementedError(
+                f"{T} triangles: scenes of {MAX_FLAT_TRIS} or more need the "
+                "native BVH builder, which is not ported yet")
+        b = bvhmod.build_bvh(v0, v1, v2, max_leaf=bvh8mod.LEAF_TRIS)
+        b8 = bvh8mod.collapse_bvh2(b, v0, v1, v2)
+        wide = traversal8.pack_unified(b8.nodes, b8.leaves)
+        ng = np.cross(v1 - v0, v2 - v0)
+        ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+
+        n0a, n1a, n2a = (np.concatenate(n0s), np.concatenate(n1s),
+                         np.concatenate(n2s))
+        uv0a, uv1a, uv2a = (np.concatenate(uv0s), np.concatenate(uv1s),
+                            np.concatenate(uv2s))
+        mat_a = np.concatenate(mat_ids)
+        light_a = np.concatenate(light_ids)
+        node_a = np.concatenate(node_ids)
+        shade = schema.pack_shade_rows(n0a, n1a, n2a, uv0a, uv1a, uv2a, ng,
+                                       v0, v1, v2, mat_a, light_a, node_a)
+        t = lambda a: schema.to_tensor(a, device)
+        geom = schema.GeometryTable(
+            tris=None, nodes=t(b.nodes), tri_order=t(b.tri_order), wide=t(wide),
+            n0=None, n1=None, n2=None, uv0=None, uv1=None, uv2=None,
+            ng=None, mat_id=None, light_id=None, node_id=None,
+            shade=t(shade))
+
+        materials = self._build_materials(device)
+        textures = self._build_textures(device)
+        lights = self._build_lights(area_lights, v0, v1, v2, b, device)
+        media = self._build_media(device)
+        sensor = self._sensor
+        sensor = sensor._replace(to_world=sensor.to_world.to(device),
+                                 to_world_inv=sensor.to_world_inv.to(device),
+                                 params=sensor.params.to(device))
+
+        mats = self._materials or [dict(mat_type=schema.BSDF_DIFFUSE,
+                                        tex=np.full(schema.N_MAT_TEX, -1, np.int32),
+                                        params=np.zeros(schema.N_MAT_PARAMS, np.float32))]
+        host = dict(
+            mat_type=np.asarray([m["mat_type"] for m in mats], np.int32),
+            mat_tex=np.stack([np.asarray(m["tex"], np.int32) for m in mats]),
+            mat_alpha_mode=np.asarray([m["params"][32] for m in mats], np.float32),
+            world_lo=np.asarray(b.world_lo, np.float32),
+            world_hi=np.asarray(b.world_hi, np.float32),
+            light_type=np.asarray([l["light_type"] for l in self._lights]
+                                  + [schema.LIGHT_DIFFUSE] * len(area_lights),
+                                  np.int32),
+            n_media=0,
+        )
+        return schema.SceneData(
+            geom=geom, materials=materials, textures=textures, lights=lights,
+            sensor=sensor, media=media,
+            world_lo=t(b.world_lo), world_hi=t(b.world_hi), host=host)
+
+    def _build_materials(self, device) -> schema.MaterialTable:
+        mats = self._materials if self._materials else [dict(
+            mat_type=schema.BSDF_DIFFUSE,
+            params=np.zeros(schema.N_MAT_PARAMS, np.float32),
+            tex=np.full(schema.N_MAT_TEX, -1, np.int32), nested=-1, nested2=-1)]
+        t = lambda a: schema.to_tensor(a, device)
+        return schema.MaterialTable(
+            mat_type=t(np.asarray([m["mat_type"] for m in mats], np.int32)),
+            params=t(np.stack([m["params"] for m in mats])),
+            tex=t(np.stack([m["tex"] for m in mats])),
+            nested=t(np.asarray([m["nested"] for m in mats], np.int32)),
+            nested2=t(np.asarray([m["nested2"] for m in mats], np.int32)))
+
+    def _build_textures(self, device) -> schema.TextureTable:
+        """The no-texture case of the JAX build: one constant placeholder row."""
+        texs = self._textures
+        if any(tx.image is not None for tx in texs) or any(
+                (m["tex"] >= 0).any() for m in self._materials):
+            raise NotImplementedError("textures are not ported yet")
+        X = max(len(texs), 1)
+        tex_type = np.zeros(X, np.int32)
+        params = np.zeros((X, schema.N_TEX_PARAMS), np.float32)
+        image_id = np.full(X, -1, np.int32)
+        MAX_MIPS = 12
+        t = lambda a: schema.to_tensor(a, device)
+        return schema.TextureTable(
+            tex_type=t(tex_type), params=t(params), image_id=t(image_id),
+            img_offset=t(np.zeros((1, MAX_MIPS), np.int32)),
+            img_w=t(np.ones((1, MAX_MIPS), np.int32)),
+            img_h=t(np.ones((1, MAX_MIPS), np.int32)),
+            img_nmips=t(np.ones(1, np.int32)),
+            texels=t(np.zeros((1, 3), np.float32)),
+            img_cone=t(np.full(1, -1, np.int32)),
+            texels_quad=t(np.zeros((1, 12), np.float32)))
+
+    def _build_lights(self, area_lights, v0, v1, v2, b: bvhmod.BVH,
+                      device) -> schema.LightTable:
+        world_radius = 0.5 * float(np.linalg.norm(b.world_hi - b.world_lo)) + 1e-3
+        rows = list(self._lights)
+        al_tris, al_cdf, al_first, al_count = [], [], [], []
+        for al in area_lights:
+            p = np.zeros(schema.N_LIGHT_PARAMS, np.float32)
+            p[3:6] = al["radiance"]
+            first, count = al["first"], al["count"]
+            ids = np.arange(first, first + count, dtype=np.int32)
+            areas = 0.5 * np.linalg.norm(
+                np.cross(v1[ids] - v0[ids], v2[ids] - v0[ids]), axis=-1)
+            total = max(float(areas.sum()), 1e-20)
+            cdf = np.cumsum(areas) / total
+            p[6] = total  # total area
+            al_first.append(sum(len(x) for x in al_tris))
+            al_count.append(count)
+            al_tris.append(ids)
+            al_cdf.append(cdf.astype(np.float32))
+            rows.append(dict(light_type=schema.LIGHT_DIFFUSE, params=p))
+
+        L = max(len(rows), 1)
+        light_type = np.zeros(L, np.int32)
+        params = np.zeros((L, schema.N_LIGHT_PARAMS), np.float32)
+        powers = np.zeros(L, np.float32)
+        lum_w = np.array([0.212671, 0.715160, 0.072169], np.float32)
+        for i, r in enumerate(rows):
+            light_type[i] = r["light_type"]
+            params[i] = r["params"]
+            lum = float(r["params"][3:6] @ lum_w)
+            t = r["light_type"]
+            if t == schema.LIGHT_POINT:
+                powers[i] = lum * 4 * np.pi
+            elif t == schema.LIGHT_DIFFUSE:
+                powers[i] = lum * np.pi * r["params"][6]
+            elif t == schema.LIGHT_DISTANT:
+                powers[i] = lum * np.pi * world_radius ** 2
+                params[i, 7] = world_radius
+            elif t == schema.LIGHT_SPOT:
+                powers[i] = lum * 2 * np.pi * (1 - r["params"][6])
+        if not rows:
+            powers[0] = 1.0
+        cdf = np.cumsum(powers)
+        cdf = cdf / max(cdf[-1], 1e-20)
+
+        if al_tris:
+            al_tris_arr = np.concatenate(al_tris)
+            al_cdf_arr = np.concatenate(al_cdf)
+            # per-light alias tables over tri area (absolute alias indices),
+            # flattened at the al_first offsets — O(1) selection at trace time
+            from . import alias as aliasmod
+            al_alias_arr = np.zeros((len(al_tris_arr), 2), np.float32)
+            ofs = 0
+            for ids in al_tris:
+                n = len(ids)
+                areas = 0.5 * np.linalg.norm(
+                    np.cross(v1[ids] - v0[ids], v2[ids] - v0[ids]), axis=-1)
+                tab = aliasmod.build_alias_table(areas)
+                al_alias_arr[ofs:ofs + n, 0] = tab[:, 0]
+                al_alias_arr[ofs:ofs + n, 1] = (
+                    tab[:, 1].view(np.int32) + ofs).view(np.float32)
+                ofs += n
+        else:
+            al_tris_arr = np.zeros(1, np.int32)
+            al_cdf_arr = np.ones(1, np.float32)
+            al_alias_arr = np.asarray([[1.0, 0.0]], np.float32)
+        al_rows_arr = _pack_al_rows(v0, v1, v2, al_tris_arr)
+        al_first_arr = np.zeros(L, np.int32)
+        al_count_arr = np.zeros(L, np.int32)
+        ai = 0
+        for i, r in enumerate(rows):
+            if r["light_type"] == schema.LIGHT_DIFFUSE:
+                al_first_arr[i] = al_first[ai]
+                al_count_arr[i] = al_count[ai]
+                ai += 1
+
+        # no environment map: the JAX build's 1x1 black placeholder
+        env = np.zeros((1, 1, 3), np.float32)
+        env_alias = np.asarray([[1.0, 0.0, 1.0, 1.0]], np.float32)
+        env_pmf = np.ones((1, 1), np.float32)
+        env_to_world = np.eye(4, dtype=np.float32)
+
+        t = lambda a: schema.to_tensor(a, device)
+        return schema.LightTable(
+            light_type=t(light_type), params=t(params),
+            power_cdf=t(np.asarray(cdf, np.float32)),
+            al_rows=t(al_rows_arr),
+            al_tris=t(al_tris_arr), al_cdf=t(al_cdf_arr),
+            al_alias=t(al_alias_arr),
+            al_first=t(al_first_arr), al_count=t(al_count_arr),
+            env_map=t(env), env_alias=t(env_alias),
+            env_pmf=t(env_pmf),
+            env_to_world=t(env_to_world),
+            env_world_to=t(np.linalg.inv(env_to_world)))
+
+    def _build_media(self, device) -> schema.MediumTable:
+        """The empty media table (media are not ported yet)."""
+        t = lambda a: schema.to_tensor(a, device)
+        return schema.MediumTable(
+            med_type=t(np.zeros((0,), np.int32)),
+            params=t(np.zeros((0, 24), np.float32)),
+            to_world=t(np.zeros((0, 4, 4), np.float32)),
+            world_to=t(np.zeros((0, 4, 4), np.float32)),
+            grid_offset=t(np.zeros((0, 3), np.int32)),
+            grid_dim=t(np.zeros((0, 3), np.int32)),
+            voxels=t(np.zeros((1,), np.float32)))

@@ -1,0 +1,95 @@
+"""Procedural shapes triangulated host-side (numpy).
+
+Verbatim port of the shapes of ``cudatracerlib_tpu/scene/shapes.py`` that the
+Cornell box uses, in Mitsuba's canonical object-space conventions.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+
+
+class TriMesh(NamedTuple):
+    v: np.ndarray                 # (V, 3) f32 positions (object space)
+    f: np.ndarray                 # (F, 3) i32 vertex indices
+    n: Optional[np.ndarray]       # (V, 3) f32 vertex normals or None
+    uv: Optional[np.ndarray]      # (V, 2) f32 or None
+
+    def transformed(self, m: np.ndarray) -> "TriMesh":
+        v = self.v @ m[:3, :3].T + m[:3, 3]
+        n = None
+        if self.n is not None:
+            inv3 = np.linalg.inv(m[:3, :3])
+            n = self.n @ inv3  # normal transform: (M^-1)^T . n == n @ M^-1
+            ln = np.linalg.norm(n, axis=-1, keepdims=True)
+            n = n / np.maximum(ln, 1e-20)
+        return TriMesh(v.astype(np.float32), self.f, n, self.uv)
+
+
+def rectangle() -> TriMesh:
+    """Unit rectangle on the xy-plane spanning [-1,1]^2, normal +z."""
+    v = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    return TriMesh(v, f, n, uv)
+
+
+def cube() -> TriMesh:
+    """Axis-aligned cube spanning [-1,1]^3 with outward face normals."""
+    verts, faces, normals, uvs = [], [], [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            nvec = np.zeros(3, np.float32)
+            nvec[axis] = sign
+            u_ax, v_ax = (axis + 1) % 3, (axis + 2) % 3
+            base = len(verts)
+            for (du, dv) in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = np.zeros(3, np.float32)
+                p[axis] = sign
+                p[u_ax] = du * sign  # winding flips with sign for outward faces
+                p[v_ax] = dv
+                verts.append(p)
+                normals.append(nvec)
+                uvs.append([(du + 1) / 2, (dv + 1) / 2])
+            faces += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    return TriMesh(np.array(verts, np.float32), np.array(faces, np.int32),
+                   np.array(normals, np.float32), np.array(uvs, np.float32))
+
+
+def sphere(radius: float = 1.0, center=(0.0, 0.0, 0.0),
+           n_theta: int = 32, n_phi: int = 64) -> TriMesh:
+    """Lat-long triangulated sphere with exact vertex normals."""
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi + 1)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    x = np.sin(tt) * np.cos(pp)
+    y = np.sin(tt) * np.sin(pp)
+    z = np.cos(tt)
+    n = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+    v = (n * radius + np.asarray(center, np.float32)).astype(np.float32)
+    uv = np.stack([pp / (2 * np.pi), 1.0 - tt / np.pi], -1).reshape(-1, 2).astype(np.float32)
+    faces = []
+    W = n_phi + 1
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a, b = i * W + j, i * W + j + 1
+            c, d = (i + 1) * W + j, (i + 1) * W + j + 1
+            if i > 0:
+                faces.append([a, c, b])
+            if i < n_theta - 1:
+                faces.append([b, c, d])
+    return TriMesh(v, np.array(faces, np.int32), n, uv)
+
+
+def compute_vertex_normals(mesh: TriMesh) -> TriMesh:
+    """Area-weighted smooth vertex normals (for meshes loaded without them)."""
+    v, f = mesh.v, mesh.f
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    n = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(n, f[:, k], fn)
+    ln = np.linalg.norm(n, axis=-1, keepdims=True)
+    n = n / np.maximum(ln, 1e-20)
+    return TriMesh(v, f, n.astype(np.float32), mesh.uv)

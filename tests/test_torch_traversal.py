@@ -1,0 +1,202 @@
+"""The port's traversal (plain PyTorch version of the CUDA kernel) against
+the JAX package's Pallas kernel, run interpreted on the CPU, and its XLA loop.
+
+Rays start inside the Cornell box (origins uniform in [0.05, 0.95]^3,
+normalised Gaussian directions), 4096+513 of them.
+
+Closest-hit lanes: the triangle must agree wherever the two nearest hits
+(from a float64 brute force) are more than 1e-5 apart in relative t; t, u
+and v agree within rtol 1e-5 / atol 1e-6, because XLA on the CPU contracts
+a*b+c into FMAs where PyTorch rounds twice. For grazing rays the
+Moller-Trumbore dot products cancel: each of t, u, v is a three-term dot
+product divided by det, whose rounding error is bounded by a few ulps of
+kappa = sum|terms| / |det|. The bound therefore adds 4 * eps32 * kappa,
+computed per lane in float64. Any-hit lanes report the first occluder met,
+which depends on traversal order, so only hit versus no-hit is compared
+there."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cudatracerlib_tpu.ops import traversal as jtrav
+from cudatracerlib_tpu.ops import traversal8 as jtrav8
+from cudatracerlib_tpu.ops import traversal_pl
+from cudatracerlib_tpu.utils import example_scenes as jscenes
+from cudatracerlib_tpu_torch.ops import traversal8
+from cudatracerlib_tpu_torch.ops.traversal import Rays
+from cudatracerlib_tpu_torch.utils import example_scenes as tscenes
+
+torch.set_num_threads(2)
+N_RAYS = 4096 + 513
+MODES = ["closest", "any_hit", "mixed"]
+
+
+def _brute_two_nearest(wide, o, d, tmin):
+    """Two smallest hit distances per ray over every leaf triangle (float64)."""
+    leaves = wide[wide[:, 120] > 0].astype(np.float64)
+    ids = wide[wide[:, 120] > 0][:, 108:120].view(np.int32)
+    keep = ids.reshape(-1) >= 0
+    tri = lambda a: leaves[:, 12 * a:12 * a + 12].reshape(-1)[keep]
+    v0 = np.stack([tri(0), tri(1), tri(2)], 1)
+    e1 = np.stack([tri(3), tri(4), tri(5)], 1)
+    e2 = np.stack([tri(6), tri(7), tri(8)], 1)
+    best = np.full((o.shape[0], 2), np.inf)
+    for s in range(0, o.shape[0], 512):
+        oo, dd = o[s:s + 512, None].astype(np.float64), d[s:s + 512, None].astype(np.float64)
+        p = np.cross(dd, e2[None])
+        det = (e1[None] * p).sum(-1)
+        inv = np.where(np.abs(det) < 1e-12, 0.0, 1.0 / np.where(det == 0, 1, det))
+        tv = oo - v0[None]
+        u = (tv * p).sum(-1) * inv
+        q = np.cross(tv, e1[None])
+        v = (dd * q).sum(-1) * inv
+        t = (e2[None] * q).sum(-1) * inv
+        ok = (np.abs(det) >= 1e-12) & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > tmin)
+        best[s:s + 512] = np.sort(np.where(ok, t, np.inf), axis=1)[:, :2]
+    return best
+
+
+def _conditioning(wide, tri, o, d):
+    """Per-lane kappa of t, u, v for the hit triangle (float64)."""
+    leaves = wide[wide[:, 120] > 0].astype(np.float64)
+    ids = wide[wide[:, 120] > 0][:, 108:120].view(np.int32)
+    row_of, slot_of = {}, {}
+    for r_, k_ in zip(*np.nonzero(ids >= 0)):
+        row_of[ids[r_, k_]], slot_of[ids[r_, k_]] = r_, k_
+    rows = np.array([row_of[x] for x in tri], np.int64)
+    slots = np.array([slot_of[x] for x in tri], np.int64)
+    g = lambda a: leaves[rows, 12 * a + slots]
+    v0 = np.stack([g(0), g(1), g(2)], 1)
+    e1 = np.stack([g(3), g(4), g(5)], 1)
+    e2 = np.stack([g(6), g(7), g(8)], 1)
+    o, d = o.astype(np.float64), d.astype(np.float64)
+    p = np.cross(d, e2)
+    det = np.abs((e1 * p).sum(1))
+    tv = o - v0
+    q = np.cross(tv, e1)
+    return (np.abs(e2 * q).sum(1) / det, np.abs(tv * p).sum(1) / det,
+            np.abs(d * q).sum(1) / det)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    r = np.random.default_rng(7)
+    o = r.uniform(0.05, 0.95, (N_RAYS, 3)).astype(np.float32)
+    d = r.normal(size=(N_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    amask = r.random(N_RAYS) < 0.5
+    tmin, tmax = np.float32(1e-4), np.float32(1e9)
+    jsc = jscenes.cornell_box(32, 32).build()
+    tsc = tscenes.cornell_box(32, 32).build()
+    jr = jtrav.Rays(o=jnp.asarray(o), d=jnp.asarray(d),
+                    tmin=jnp.full(N_RAYS, tmin), tmax=jnp.full(N_RAYS, tmax))
+    tr = Rays(o=torch.from_numpy(o), d=torch.from_numpy(d),
+              tmin=torch.full((N_RAYS,), float(tmin)),
+              tmax=torch.full((N_RAYS,), float(tmax)))
+    two = _brute_two_nearest(tsc.geom.wide.numpy(), o, d, float(tmin))
+    return dict(jsc=jsc, tsc=tsc, jr=jr, tr=tr, amask=amask, two=two, o=o, d=d)
+
+
+def _kw(mode, amask, lib):
+    if mode == "any_hit":
+        return dict(any_hit=True)
+    if mode == "mixed":
+        return dict(any_mask=jnp.asarray(amask) if lib == "jax" else torch.from_numpy(amask))
+    return {}
+
+
+def _check(port, ref, mode, s):
+    amask, two = s["amask"], s["two"]
+    p_tri, r_tri = port.tri.numpy(), np.asarray(ref.tri)
+    any_lane = np.ones(N_RAYS, bool) if mode == "any_hit" else (
+        amask if mode == "mixed" else np.zeros(N_RAYS, bool))
+    np.testing.assert_array_equal(p_tri[any_lane] >= 0, r_tri[any_lane] >= 0)
+    cl = ~any_lane
+    np.testing.assert_array_equal(p_tri[cl] >= 0, r_tri[cl] >= 0)
+    with np.errstate(invalid="ignore"):  # inf - inf on rays with no hit
+        separated = ((two[:, 1] - two[:, 0]) > 1e-5 * np.abs(two[:, 0])) | (
+            ~np.isfinite(two[:, 1]))
+    np.testing.assert_array_equal(p_tri[cl & separated], r_tri[cl & separated])
+    np.testing.assert_allclose(port.t.numpy()[cl], np.asarray(ref.t)[cl],
+                               rtol=1e-5, atol=1e-6)
+    same = cl & (p_tri == r_tri) & (p_tri >= 0)
+    if not same.any():
+        return int(cl.sum()), int((cl & separated).sum())
+    kappas = _conditioning(s["tsc"].geom.wide.numpy(), p_tri[same],
+                           s["o"][same], s["d"][same])
+    eps32 = float(np.finfo(np.float32).eps)
+    for a, b, kappa in zip((port.t, port.u, port.v), (ref.t, ref.u, ref.v), kappas):
+        a, b = a.numpy()[same], np.asarray(b)[same]
+        bound = 1e-6 + 1e-5 * np.abs(b) + 4 * eps32 * kappa
+        assert np.all(np.abs(a - b) <= bound), np.max(np.abs(a - b) - bound)
+    return int(cl.sum()), int((cl & separated).sum())
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_against_pallas_kernel_interpreted(setup, mode):
+    s = setup
+    hit, iters, rows, ovf = traversal8.intersect_scene(
+        s["tsc"].geom, s["tr"], with_iters=True,
+        **_kw(mode, s["amask"], "torch"))
+    assert ovf.tolist() == [0, 0]          # no capped, no overflowed rays
+    assert int(iters) == int(rows) > N_RAYS
+    ref = traversal_pl.intersect_pallas(
+        traversal_pl.prep_table_jnp(s["jsc"].geom.wide), s["jr"],
+        **_kw(mode, s["amask"], "jax"))
+    n_cl, n_sep = _check(hit, ref, mode, s)
+    if mode == "closest":
+        assert n_sep > 0.95 * n_cl
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_against_xla_loop(setup, mode):
+    s = setup
+    hit = traversal8.intersect_scene(s["tsc"].geom, s["tr"],
+                                     **_kw(mode, s["amask"], "torch"))
+    ref = jtrav8.intersect_wide(s["jsc"].geom.wide, s["jr"],
+                                **_kw(mode, s["amask"], "jax"))
+    _check(hit, ref, mode, s)
+
+
+def test_steps_cap_and_stack_overflow_flags(setup):
+    s = setup
+    table = s["tsc"].geom.wide
+    full, steps, flags = traversal8.intersect_wide(table, s["tr"], with_iters=True)
+    assert int(flags.sum()) == 0 and int(steps.min()) >= 1
+    # a cap below the longest ray flags exactly the rays that needed more
+    cap = int(steps.max()) - 1
+    _, steps_c, flags_c = traversal8.intersect_wide(table, s["tr"], max_iters=cap,
+                                                    with_iters=True)
+    capped = (flags_c & traversal8.FLAG_CAPPED) != 0
+    assert torch.equal(capped, steps > cap) and int(capped.sum()) > 0
+    assert int(steps_c.max()) == cap
+    # a one-entry stack drops entries: flagged, and the hit may be missed
+    h1, _, flags_1 = traversal8.intersect_wide(table, s["tr"], stack_depth=1,
+                                               with_iters=True)
+    ovf = (flags_1 & traversal8.FLAG_OVERFLOW) != 0
+    assert int(ovf.sum()) > 0
+    assert torch.equal(h1.tri[~ovf], full.tri[~ovf])
+
+
+def test_kernel_wrapper_rejects_cpu_tensors(setup):
+    s = setup
+    with pytest.raises(ValueError):
+        traversal8.intersect_wide_cuda(s["tsc"].geom.wide, s["tr"])
+    assert traversal8.intersect_wide_cuda.launches == 0
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_gpu(setup):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+    s = setup
+    dev = torch.device("cuda")
+    table = s["tsc"].geom.wide.to(dev)
+    rays = Rays(*(x.to(dev) for x in s["tr"]))
+    for kw in ({}, dict(any_hit=True),
+               dict(any_mask=torch.from_numpy(s["amask"]).to(dev))):
+        a = traversal8.intersect_wide_cuda(table, rays, with_iters=True, **kw)
+        b = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+        for x, y in zip((*a[0][:4], a[1], a[2]), (*b[0][:4], b[1], b[2])):
+            assert torch.equal(x, y)
