@@ -1,30 +1,53 @@
-"""Drive the PyTorch/CUDA port on one NVIDIA card: build its kernel, check it
-against its plain PyTorch version, and run the Cornell path-tracing pass.
+"""Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, check
+each against its plain PyTorch version, and run the Cornell and San Miguel
+path-tracing passes.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Needs one CUDA device, nvcc (CUDA_HOME or PATH) and the repository
+Needs one CUDA device, nvcc (CUDA_HOME or PATH), g++ and the repository
 checkout; imports nothing of JAX. Each phase prints one JSON line, any
 failure exits non-zero, and nothing falls back to the CPU:
 
-1. the card's name and power limit; build the BVH8 traversal kernel
-   (csrc/traversal8.cu) from source and time the build;
-2. kernel against plain version on the Cornell 512^2 table with 131,072+513
+1. the card's name and power limit; build the three traversal kernels
+   (csrc/traversal8.cu: K1; csrc/traversal_tt.cu: K2, K3), one nvcc each,
+   all started together, and print ptxas's registers, stack and spills;
+2. K1 against its plain version on the Cornell 512^2 table with 131,072+513
    rays inside the box: closest-hit, any-hit and mixed any_mask (half the
    lanes any-hit). t, tri, u, v, step counts and flags must be identical
-   (the kernel is built with -fmad=false, so both round op for op);
+   (the kernels are built with -fmad=false, so both round op for op);
    median of 5 synchronised runs each;
 3. PathTracer on Cornell 32^2, depth 4, 16 passes against
    tests/goldens/cornell_32_pt.npz (mean relative error < 0.02);
-4. the headline slice: PathTracer on Cornell 512^2, max_depth 6, chunks of
-   65,536 lanes, 4 passes. The launch counts are zeroed just before and
-   read just after; every pass must go through the kernel, no CUDA tensor
-   may reach the plain traversal, and no ray may be capped or overflow.
+4. the Cornell headline: PathTracer on Cornell 512^2, max_depth 6, chunks
+   of 65,536 lanes, 4 passes, through K1 alone;
+5. the San Miguel stand-in at full width (1.2M triangles; host build
+   seconds: native BVH, treelet partition) and 131,072 camera rays plus
+   131,072 random rays from the courtyard, closest / any-hit / mixed:
+   K1 identical to its plain version; then at both visit budgets the path
+   runs (V=6 for camera rays, V=3 for the rest), K2 and K3 identical to
+   their plain versions (hits, visit lists, counts, min-dropped t, steps,
+   flags), the two-phase result identical to the plain two-phase result,
+   and the exact treelet path (K2 + K3 + K1 fallback) held to K1 on the
+   unsplit table: t identical on every closest-hit lane, tri identical
+   except on lanes where two triangles tie in t (counted and printed),
+   hit/no-hit identical on any-hit lanes; medians of 5 synchronised runs of
+   the treelet path, K1 and the plain two-phase path;
+6. San Miguel 128^2, depth 5, 4 passes through the treelet path and again
+   through K1 alone (the treelet tables dropped): mean relative error
+   < 1e-3, K2 and K3 launched at both V in the first run and not at all
+   in the second;
+7. the slice's headline: San Miguel 1024^2, depth 5, chunks of 131,072
+   lanes, 2 passes. The launch counts are zeroed just before and read just
+   after; K1, and K2 and K3 at both V, must all launch, no CUDA tensor may
+   reach a plain version, and no ray may be capped or overflow. With
+   --profile, one more pass runs under torch.profiler and its kernel table
+   is printed, summed over each kernel's template instantiations.
 
 The line before the last is the kernel table, the last the device record.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -36,6 +59,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "goldens", "cornell_32_pt.npz")
 N_RAYS = 131072 + 513
+SM_HALF = 131072
+# the three kernels' names in a profile, one entry per K2 instantiation
+KERNEL_RE = re.compile(r"traverse8_kernel|top_visits_kernel(?:<\d+>)?"
+                       r"|treelet_hits_kernel")
 
 
 def emit(**kw):
@@ -58,6 +85,20 @@ def cuda_median_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def same(a, b):
+    """(all identical, max abs difference over the finite entries of the
+    float tensors) of two tuples of tensors; None entries are skipped."""
+    pairs = [(x, y) for x, y in zip(a, b) if x is not None or y is not None]
+    ok = all(torch.equal(x, y) for x, y in pairs)
+    err = 0.0
+    for x, y in pairs:
+        if x.is_floating_point():
+            m = torch.isfinite(x) & torch.isfinite(y)
+            if bool(m.any()):
+                err = max(err, float((x[m] - y[m]).abs().max()))
+    return ok, err
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -65,10 +106,12 @@ def main():
         fail("run from a checkout of the repository")
     from cudatracerlib_tpu_torch.models import film as filmmod
     from cudatracerlib_tpu_torch.models import path as pathmod
-    from cudatracerlib_tpu_torch.ops import cuda_build, traversal8
+    from cudatracerlib_tpu_torch.models import tracer as tracermod
+    from cudatracerlib_tpu_torch.ops import cuda_build, traversal8, traversal_tt
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     from cudatracerlib_tpu_torch.utils import example_scenes
 
+    profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -79,16 +122,37 @@ def main():
     emit(phase="card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # 1. build K1 from the checkout's source
-    t0 = time.perf_counter()
-    traversal8._load_kernel()
-    log = cuda_build.build_log["traversal8.cu"]
-    ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
-             if "registers" in ln or "stack frame" in ln]
-    emit(phase="build", kernel="traversal8.cu",
-         seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    # the launch counters of the three kernels and their plain versions
+    K1, K2, K3 = (traversal8.intersect_wide_cuda, traversal_tt.top_visits_cuda,
+                  traversal_tt.treelet_hits_cuda)
+    plains = (traversal8.intersect_wide, traversal_tt.top_visits,
+              traversal_tt.treelet_hits)
 
-    # 2. kernel against its plain version at the main path's ray count
+    def zero_counts():
+        for f in (K1, K2, K3):
+            f.launches = 0
+        for f in (K2, K3):
+            f.launches_by_v = dict.fromkeys(f.launches_by_v, 0)
+        for f in plains:
+            f.cuda_calls = 0
+
+    def plain_calls():
+        return sum(f.cuda_calls for f in plains)
+
+    # 1. build every kernel from the checkout's sources, in parallel
+    t0 = time.perf_counter()
+    cuda_build.build("traversal8.cu", "traversal_tt.cu")
+    build_s = time.perf_counter() - t0
+    for src in ("traversal8.cu", "traversal_tt.cu"):
+        log = cuda_build.build_log[src]
+        ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
+                 if "registers" in ln or "stack frame" in ln
+                 or "Compiling entry" in ln]
+        emit(phase="build", kernel=src, seconds=round(log["seconds"], 3),
+             ptxas=ptxas)
+    emit(phase="build", seconds_all=round(build_s, 3))
+
+    # 2. K1 against its plain version at the Cornell path's ray count
     scene512 = example_scenes.cornell_box(512, 512).build(dev)
     table = scene512.geom.wide
     rng = np.random.default_rng(1234)
@@ -101,48 +165,41 @@ def main():
     amask = torch.from_numpy(rng.random(N_RAYS) < 0.5).to(dev)
     modes = {"closest": {}, "any_hit": dict(any_hit=True),
              "mixed": dict(any_mask=amask)}
-    compare = {}
     for mode, kw in modes.items():
-        hk, sk, fk = traversal8.intersect_wide_cuda(table, rays, with_iters=True, **kw)
+        hk, sk, fk = K1(table, rays, with_iters=True, **kw)
         hp, sp, fp = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(
-            (hk.t, hk.tri, hk.u, hk.v, sk, fk), (hp.t, hp.tri, hp.u, hp.v, sp, fp)))
-        err = max(float((a - b).abs().max()) for a, b in
-                  zip((hk.t, hk.u, hk.v), (hp.t, hp.u, hp.v)))
-        ms = cuda_median_ms(lambda: traversal8.intersect_wide_cuda(table, rays, **kw))
+        ok, err = same((*hk, sk, fk), (*hp, sp, fp))
+        ms = cuda_median_ms(lambda: K1(table, rays, **kw))
         plain_ms = cuda_median_ms(lambda: traversal8.intersect_wide(table, rays, **kw))
-        compare[mode] = dict(identical=same, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             hit_rate=float((hk.tri >= 0).float().mean()),
-                             steps=int(sk.sum()), flagged=int((fk != 0).sum()))
-        emit(phase="kernel_vs_plain", mode=mode, rays=N_RAYS, rows=table.shape[0],
-             **compare[mode])
-        if not same:
-            fail(f"kernel and plain version disagree ({mode})")
-        if compare[mode]["flagged"]:
+        flagged = int((fk != 0).sum())
+        emit(phase="kernel_vs_plain", scene="cornell_box", kernel="K1",
+             mode=mode, rays=N_RAYS, rows=table.shape[0], identical=ok,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             hit_rate=float((hk.tri >= 0).float().mean()),
+             steps=int(sk.sum()), flagged=flagged)
+        if not ok:
+            fail(f"K1 and its plain version disagree ({mode})")
+        if flagged:
             fail(f"capped or overflowed rays in {mode}")
 
     # 3. golden image on the card
-    traversal8.intersect_wide_cuda.launches = 0
-    traversal8.intersect_wide.cuda_calls = 0
+    zero_counts()
     tr32 = pathmod.PathTracer(example_scenes.cornell_box(32, 32).build(dev),
                               32, 32, max_depth=4, spp_per_pass=1)
     img = tr32.render(16).cpu().numpy()
     ref = np.load(GOLDEN)["img"]
     rel = float(np.abs(img - ref).mean() / max(ref.mean(), 1e-6))
-    launches32 = traversal8.intersect_wide_cuda.launches
     emit(phase="golden", size=32, passes=16, rel_err=rel, limit=0.02,
-         launches=launches32, plain_cuda_calls=traversal8.intersect_wide.cuda_calls)
+         launches=K1.launches, plain_cuda_calls=plain_calls())
     if not rel < 0.02:
         fail(f"golden drift {rel}")
-    if launches32 <= 0 or traversal8.intersect_wide.cuda_calls:
+    if K1.launches <= 0 or plain_calls():
         fail("the golden pass did not run through the kernel alone")
 
-    # 4. the headline slice: the main path, with the counts zeroed around it
+    # 4. the Cornell headline: its path, with the counts zeroed around it
     tr = pathmod.PathTracer(scene512, 512, 512, max_depth=6, chunk_size=65536)
     torch.cuda.synchronize()
-    traversal8.intersect_wide_cuda.launches = 0
-    traversal8.intersect_wide.cuda_calls = 0
+    zero_counts()
     secs, rays_n = [], []
     for _ in range(4):
         before = tr.rays_traced_live
@@ -150,29 +207,247 @@ def main():
         secs.append(tr.last_pass_seconds)
         rays_n.append(tr.rays_traced_live - before)
     img = filmmod.develop(tr.film).cpu().numpy()
-    launches = traversal8.intersect_wide_cuda.launches
-    plain_calls = traversal8.intersect_wide.cuda_calls
+    launches, plain_n = K1.launches, plain_calls()
     capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
     emit(phase="headline", scene="cornell_box", size=512, max_depth=6,
          chunk_size=65536, passes=4, seconds_per_pass=statistics.median(secs),
          pass_seconds=secs, live_rays=int(sum(rays_n)),
          mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
          steps=int(tr._iters_dev), capped=capped, overflowed=overflowed,
-         launches=launches, plain_cuda_calls=plain_calls,
+         launches=launches, k2_launches=K2.launches, k3_launches=K3.launches,
+         plain_cuda_calls=plain_n,
          mean_radiance=float(img.mean()), finite=bool(np.isfinite(img).all()))
     if not np.isfinite(img).all() or not img.mean() > 0.0:
         fail("headline image is not finite and non-black")
     if capped or overflowed:
         fail(f"capped {capped} / overflowed {overflowed} rays")
-    if launches <= 0 or plain_calls:
+    if launches <= 0 or plain_n:
         fail("the headline pass did not run through the kernel alone")
+    del tr, scene512
 
+    # 5. San Miguel at full width: host build, then K2, K3 and K1 on its tables
+    t0 = time.perf_counter()
+    sm = example_scenes.san_miguel_stand_in(1024, 1024)
+    gen_s = time.perf_counter() - t0
+    scene = sm.build(dev)
+    torch.cuda.synchronize()
+    geom = scene.geom
+    top, slabs, wide = geom.tt_top, geom.tt_slabs, geom.wide
+    emit(phase="sm_build", tris=scene.num_tris, rows=wide.shape[0],
+         table_mb=wide.numel() * 4 / 2**20, top_rows=top.shape[0],
+         treelets=slabs.shape[0], slab_rows=slabs.shape[1],
+         slabs_mb=slabs.numel() * 4 / 2**20, visit_ids=geom.tt_vid.shape[0],
+         shade_mb=geom.shade.numel() * 4 / 2**20,
+         texels=scene.textures.texels.shape[0],
+         generate_seconds=gen_s,
+         build_seconds=time.perf_counter() - t0 - gen_s,
+         bvh_seconds=scene.host["build_seconds"]["bvh"],
+         treelet_seconds=scene.host["build_seconds"]["treelet"])
+
+    pix = (torch.arange(SM_HALF, dtype=torch.int32, device=dev) * 8) % (1024 * 1024)
+    cam = tracermod.gen_camera_rays(scene, pix, 0, 0, 1024, 1024)[0]
+    rng = np.random.default_rng(99)
+    o = np.stack([rng.uniform(-16, 16, SM_HALF), rng.uniform(0.3, 5.0, SM_HALF),
+                  rng.uniform(-10, 10, SM_HALF)], 1).astype(np.float32)
+    d = rng.normal(size=(SM_HALF, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    B = 2 * SM_HALF
+    sm_rays = Rays(o=torch.cat([cam.o, torch.from_numpy(o).to(dev)]),
+                   d=torch.cat([cam.d, torch.from_numpy(d).to(dev)]),
+                   tmin=torch.full((B,), 1e-4, device=dev),
+                   tmax=torch.full((B,), 1e30, device=dev))
+    sm_mask = torch.from_numpy(rng.random(B) < 0.5).to(dev)
+    sm_modes = {"closest": {}, "any_hit": dict(any_hit=True),
+                "mixed": dict(any_mask=sm_mask)}
+    k1_res, kernel_ms = {}, {}
+    for mode, kw in sm_modes.items():
+        h1, s1, f1 = K1(wide, sm_rays, with_iters=True, **kw)
+        p1 = traversal8.intersect_wide(wide, sm_rays, with_iters=True, **kw)
+        ok1, err1 = same((*h1, s1, f1), (*p1[0], p1[1], p1[2]))
+        k1_ms = cuda_median_ms(lambda: K1(wide, sm_rays, **kw))
+        emit(phase="kernel_vs_plain", scene="san_miguel_stand_in", kernel="K1",
+             mode=mode, rays=B, rows=wide.shape[0], identical=ok1,
+             max_abs_err=err1, ms=k1_ms, steps=int(s1.sum()),
+             flagged=int((f1 != 0).sum()),
+             hit_rate=float((h1.tri >= 0).float().mean()))
+        if not ok1:
+            fail(f"K1 disagrees with its plain version on San Miguel ({mode})")
+        if int((f1 != 0).sum()):
+            fail(f"capped or overflowed K1 rays on San Miguel ({mode})")
+        k1_res[mode] = (h1, k1_ms)
+        if mode == "mixed":
+            kernel_ms["K1"] = (err1, k1_ms, cuda_median_ms(
+                lambda: traversal8.intersect_wide(wide, sm_rays, **kw)))
+    for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
+        for mode, kw in sm_modes.items():
+            h1, k1_ms = k1_res[mode]
+            any_lane = traversal8.any_lanes(B, kw.get("any_hit", False),
+                                            kw.get("any_mask"), dev)
+            k2 = K2(top, sm_rays, V, **kw)
+            p2 = traversal_tt.top_visits(top, sm_rays, V, **kw)
+            ok2, err2 = same((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
+            _, keys, order, t_prune = traversal_tt.visit_slots(
+                k2[0], k2[1], k2[3], slabs.shape[0], any_lane)
+            k3 = K3(slabs, sm_rays, t_prune, keys, order, V, **kw)
+            p3 = traversal_tt.treelet_hits(slabs, sm_rays, t_prune, keys, order,
+                                           V, **kw)
+            ok3, err3 = same((*k3[0], *k3[1:]), (*p3[0], *p3[1:]))
+            tk = traversal_tt.two_phase(K2, K3, top, slabs, sm_rays, V=V,
+                                        with_overflow=True, with_iters=True, **kw)
+            tp = traversal_tt.two_phase(traversal_tt.top_visits,
+                                        traversal_tt.treelet_hits, top, slabs,
+                                        sm_rays, V=V, with_overflow=True,
+                                        with_iters=True, **kw)
+            okt, errt = same((*tk[0], tk[1], tk[2], tk[4]),
+                             (*tp[0], tp[1], tp[2], tp[4]))
+            coherent = V == traversal8.V_COHERENT
+            ex, ex_iters, _, ex_flags = traversal8.intersect_treelet_exact(
+                geom, sm_rays, coherent=coherent, with_iters=True, **kw)
+            # the exact treelet path against K1 on the unsplit table
+            cl = ~any_lane
+            t_same = bool(torch.equal(ex.t[cl], h1.t[cl]))
+            ties = int((cl & (ex.tri != h1.tri)).sum())
+            hit_same = bool(torch.equal((ex.tri >= 0)[any_lane],
+                                        (h1.tri >= 0)[any_lane]))
+            total, dropped = (int(x) for x in traversal_tt.count_dropped_visits(
+                top, sm_rays, V)) if mode == "closest" else (None, None)
+            vcnt = k2[3]
+            times = dict(
+                treelet_ms=cuda_median_ms(lambda: traversal8.intersect_treelet_exact(
+                    geom, sm_rays, coherent=coherent, **kw)),
+                two_phase_ms=cuda_median_ms(lambda: traversal_tt.two_phase(
+                    K2, K3, top, slabs, sm_rays, V=V, **kw)),
+                k1_ms=k1_ms,
+                plain_ms=cuda_median_ms(lambda: traversal_tt.two_phase(
+                    traversal_tt.top_visits, traversal_tt.treelet_hits, top,
+                    slabs, sm_rays, V=V, **kw)))
+            if mode == "mixed":
+                kernel_ms["K2", V] = (err2, cuda_median_ms(
+                    lambda: K2(top, sm_rays, V, **kw)), cuda_median_ms(
+                    lambda: traversal_tt.top_visits(top, sm_rays, V, **kw)))
+                kernel_ms["K3", V] = (err3, cuda_median_ms(lambda: K3(
+                    slabs, sm_rays, t_prune, keys, order, V, **kw)),
+                    cuda_median_ms(lambda: traversal_tt.treelet_hits(
+                        slabs, sm_rays, t_prune, keys, order, V, **kw)))
+            emit(phase="sm_kernels_vs_plain", mode=mode, rays=B, V=V,
+                 k2_identical=ok2, k3_identical=ok3, two_phase_identical=okt,
+                 max_abs_err=max(err2, err3, errt),
+                 visits=int(vcnt.sum()), visits_kept=int(vcnt.clamp_max(V).sum()),
+                 dropped_visits=int((vcnt - V).clamp_min(0).sum()),
+                 count_dropped_visits=[total, dropped],
+                 fallback_rays=int(tk[1].sum()), treelet_steps=int(ex_iters),
+                 flags=[int(x) for x in ex_flags.tolist()],
+                 exact_t_identical=t_same, tri_ties=ties,
+                 any_hit_lanes_identical=hit_same, **times)
+            if not (ok2 and ok3 and okt):
+                fail(f"K2 or K3 disagrees with its plain version ({mode}, V={V})")
+            if not (t_same and hit_same):
+                fail(f"the treelet path disagrees with K1 beyond t-ties "
+                     f"({mode}, V={V})")
+            if int(ex_flags.sum()):
+                fail(f"capped or overflowed rays on San Miguel ({mode}, V={V})")
+    del sm_rays, cam
+
+    # 6. San Miguel 128^2 through the treelet path, then through K1 alone
+    scene128 = scene._replace(
+        sensor=example_scenes.san_miguel_stand_in(128, 128).sensor_data(dev))
+    flat128 = scene128._replace(geom=geom._replace(tt_top=None, tt_slabs=None,
+                                                   tt_vid=None))
+    imgs, counts = [], []
+    for sc in (scene128, flat128):
+        zero_counts()
+        t128 = pathmod.PathTracer(sc, 128, 128, max_depth=5)
+        imgs.append(t128.render(4).cpu().numpy())
+        counts.append(dict(k1=K1.launches, k2=K2.launches, k3=K3.launches,
+                           k2_by_v=dict(K2.launches_by_v),
+                           k3_by_v=dict(K3.launches_by_v), plain=plain_calls(),
+                           ovf=[int(x) for x in t128._ovf_dev.tolist()]))
+    rel = float(np.abs(imgs[0] - imgs[1]).mean() / max(imgs[1].mean(), 1e-6))
+    emit(phase="sm_image", size=128, max_depth=5, passes=4, rel_err=rel,
+         limit=1e-3, treelet_run=counts[0], k1_only_run=counts[1],
+         mean_radiance=float(imgs[0].mean()))
+    if not rel < 1e-3:
+        fail(f"treelet and K1-only San Miguel images differ: {rel}")
+    by_v = (*counts[0]["k2_by_v"].values(), *counts[0]["k3_by_v"].values())
+    if (min(by_v) <= 0 or counts[1]["k2"]
+            or counts[1]["k3"] or counts[1]["k1"] <= 0
+            or counts[0]["plain"] or counts[1]["plain"]):
+        fail(f"the 128^2 runs took the wrong kernels: {counts}")
+    del scene128, flat128
+
+    # 7. the slice's headline: its path, with the counts zeroed around it
+    tr = pathmod.PathTracer(scene, 1024, 1024, max_depth=5, chunk_size=131072)
+    torch.cuda.synchronize()
+    zero_counts()
+    secs, rays_n = [], []
+    for _ in range(2):
+        before = tr.rays_traced_live
+        tr.do_pass()
+        secs.append(tr.last_pass_seconds)
+        rays_n.append(tr.rays_traced_live - before)
+    launches = {"K1": K1.launches}
+    for name, f in (("K2", K2), ("K3", K3)):
+        launches.update({(name, V): n for V, n in f.launches_by_v.items()})
+    plain_n = plain_calls()
+    img = filmmod.develop(tr.film).cpu().numpy()
+    capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
+    emit(phase="headline", scene="san_miguel_stand_in", tris=scene.num_tris,
+         size=1024, max_depth=5, chunk_size=131072, passes=2,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         live_rays=int(sum(rays_n)), mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+         steps=int(tr._iters_dev), capped=capped, overflowed=overflowed,
+         launches={k if isinstance(k, str) else f"{k[0]}_V{k[1]}": n
+                   for k, n in launches.items()},
+         plain_cuda_calls=plain_n,
+         mean_radiance=float(img.mean()), finite=bool(np.isfinite(img).all()))
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        fail("San Miguel image is not finite and non-black")
+    if capped or overflowed:
+        fail(f"capped {capped} / overflowed {overflowed} rays")
+    if min(launches.values()) <= 0 or plain_n:
+        fail(f"the San Miguel pass did not run through K1, and K2 and K3 at "
+             f"both V, alone: {launches}, {plain_n} plain calls")
+
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.do_pass()
+            wall = time.perf_counter() - t0
+        # device-side events only (kernels, copies, memsets): a CPU op's
+        # device time would count its kernels a second time
+        evs = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+        total = sum(e.self_device_time_total for e in evs)
+        top_k = sorted(evs, key=lambda e: -e.self_device_time_total)[:20]
+        trav = {}
+        for e in evs:
+            m = KERNEL_RE.search(e.key)
+            if m:
+                k = trav.setdefault(m.group(0), dict(count=0, ms=0.0))
+                k["count"] += e.count
+                k["ms"] += e.self_device_time_total / 1e3
+        trav_ms = sum(k["ms"] for k in trav.values())
+        emit(phase="profile", scene="san_miguel_stand_in", wall_s=wall,
+             device_ms=total / 1e3, device_busy=total / 1e6 / wall,
+             device_events=sum(e.count for e in evs),
+             traversal_kernels=trav, traversal_ms=trav_ms,
+             traversal_share=trav_ms / max(total / 1e3, 1e-9),
+             top=[dict(name=e.key[:70], count=e.count,
+                       ms=e.self_device_time_total / 1e3) for e in top_k])
+
+    rows = [("traverse8_kernel", "traversal8.cu",
+             "cudatracerlib_tpu/ops/traversal_pl.py:188", "K1")]
+    for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
+        rows += [(f"top_visits_kernel<{V}>", "traversal_tt.cu",
+                  "cudatracerlib_tpu/ops/traversal_tt.py:185", ("K2", V)),
+                 (f"treelet_hits_kernel (V={V})", "traversal_tt.cu",
+                  "cudatracerlib_tpu/ops/traversal_tt.py:340", ("K3", V))]
     emit(kernels=[dict(
-        name="traverse8_kernel", route="cuda",
-        source="cudatracerlib_tpu_torch/csrc/traversal8.cu",
-        replaces="cudatracerlib_tpu/ops/traversal_pl.py:188",
-        launches=launches, max_abs_err=compare["mixed"]["max_abs_err"],
-        ms=compare["mixed"]["ms"], plain_ms=compare["mixed"]["plain_ms"])])
+        name=name, route="cuda", source=f"cudatracerlib_tpu_torch/csrc/{src}",
+        replaces=replaces, launches=launches[k], max_abs_err=kernel_ms[k][0],
+        ms=kernel_ms[k][1], plain_ms=kernel_ms[k][2])
+        for name, src, replaces, k in rows])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """The BSDF system: sample / evaluate / pdf.
 
 Port of ``cudatracerlib_tpu/models/bsdf.py`` for the diffuse BSDF. Material
-rows are gathered into a flat ``BsdfCtx`` and every lane evaluates the
-closed forms of the types present in the scene (a static tuple), selecting
-per-lane results with masks. The other 15 types, textures and nested
-(coating/blend) materials are not ported yet: asking for them raises.
+rows are gathered into a flat ``BsdfCtx``, with their textures evaluated
+(ops/texture.py), and every lane evaluates the closed forms of the types
+present in the scene (a static tuple), selecting per-lane results with
+masks. The other 15 types and nested (coating/blend) materials are not
+ported yet: asking for them raises.
 
 Conventions (Mitsuba): directions in the local shading frame, +z = normal,
 `wi` the fixed incident direction, `wo` the sampled/queried outgoing one,
@@ -23,6 +24,7 @@ import torch
 from ..core import records
 from ..core import rng as rngmod
 from ..core import warp
+from ..ops import texture as texmod
 from ..scene import schema
 
 Tensor = torch.Tensor
@@ -89,10 +91,14 @@ def gather_ctx(scene: schema.SceneData, mat_id: Tensor, uv: Tensor,
                active_types=None, with_textures: bool | int = True,
                ewa: tuple | None = None,
                extra: Tensor | None = None) -> BsdfCtx:
-    """Gather material rows for a lane batch (untextured, non-nested
-    materials). with_textures is moot while no material has a texture."""
-    if with_textures and scene_texture_mask(scene):
-        raise NotImplementedError("textures are not ported yet")
+    """Gather material rows and evaluate their textures for a lane batch
+    (non-nested materials).
+
+    with_textures is a per-slot bitmask (1 = reflectance slot, 2 =
+    secondary-color slot; True = both, False/0 = none, see
+    scene_texture_mask). uv_footprint (the ray-cone width in uv units),
+    ewa = (major-axis uv direction, major length) and extra pass through to
+    ops/texture.eval_texture."""
     if active_types is None or any(t in _NESTED_TYPES for t in active_types):
         raise NotImplementedError("nested (coating/blend) BSDFs are not ported yet")
     mats = scene.materials
@@ -103,6 +109,16 @@ def gather_ctx(scene: schema.SceneData, mat_id: Tensor, uv: Tensor,
     t = r[:, 0].view(torch.int32)
     p = r[:, 1:1 + P]
     c0, c1 = p[:, 0:3], p[:, 19:22]
+    tex_mask = 3 if with_textures is True else int(with_textures)
+    if tex_mask:
+        tex_ids = r[:, 1 + P:5 + P].view(torch.int32)
+        e_dir, e_maj = ewa if ewa is not None else (None, None)
+        if tex_mask & 1:
+            c0 = texmod.eval_texture(scene.textures, tex_ids[:, 0], uv, c0,
+                                     uv_footprint, e_dir, e_maj, extra=extra)
+        if tex_mask & 2:
+            c1 = texmod.eval_texture(scene.textures, tex_ids[:, 1], uv, c1,
+                                     uv_footprint, e_dir, e_maj, extra=extra)
     z = torch.full_like(t, schema.BSDF_DIFFUSE)
     return BsdfCtx(mat_type=t, params=p, c0=c0, c1=c1,
                    n_type=z, n_params=p, n_c0=c0, n_c1=c1,

@@ -1,13 +1,13 @@
 """Emitter sampling / evaluation / pdfs.
 
 Port of ``cudatracerlib_tpu/models/lights.py`` for point, spot, distant and
-area lights. Environment maps are not ported yet: a scene with one raises,
-and the no-environment cases of ``eval_environment`` and ``pdf_env_direct``
-return zeros. Batched and branchless: every lane computes the closed forms
-of each light type and selects by the sampled row's type id.
+area lights and the environment map (equirectangular, sampled by an alias
+table over its pixels). Batched and branchless: every lane computes the
+closed forms of each light type and selects by the sampled row's type id.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -38,9 +38,79 @@ def has_env_static(lights: schema.LightTable) -> bool:
     return lights.env_map.shape[0] * lights.env_map.shape[1] > 1
 
 
-def _no_env(lights: schema.LightTable):
-    if has_env_static(lights):
-        raise NotImplementedError("environment maps are not ported yet")
+def _env_direction_from_uv(lights: schema.LightTable, u_img: Tensor, v_img: Tensor):
+    """(u,v) in [0,1)^2 equirect -> world direction (and sin theta)."""
+    phi = u_img * 2.0 * math.pi - math.pi
+    theta = v_img * math.pi
+    st = torch.sin(theta)
+    d_local = torch.stack([st * torch.sin(phi), torch.cos(theta),
+                           -st * torch.cos(phi)], dim=-1)
+    return vm.transform_vector(lights.env_to_world, d_local), st
+
+
+def _env_uv_from_direction(lights: schema.LightTable, d: Tensor):
+    dl = vm.transform_vector(lights.env_world_to, d)
+    theta = torch.arccos(dl[..., 1].clamp(-1.0, 1.0))
+    phi = torch.atan2(dl[..., 0], -dl[..., 2])
+    u = (phi + math.pi) / (2.0 * math.pi)
+    v = theta / math.pi
+    return torch.remainder(u, 1.0), v.clamp(0.0, 1.0)
+
+
+def _env_pixel(lights: schema.LightTable, u: Tensor, v: Tensor):
+    He, We = lights.env_map.shape[0], lights.env_map.shape[1]
+    x = (u * We).to(torch.int32).clamp(0, We - 1)
+    y = (v * He).to(torch.int32).clamp(0, He - 1)
+    return y, x
+
+
+def _env_row(lights: schema.LightTable):
+    """(has_env, row index of the env light) as (,) and (1,) device tensors:
+    indexing with them needs no host read."""
+    is_env = lights.light_type == schema.LIGHT_INFINITE
+    return is_env.any(), is_env.to(torch.int32).argmax().reshape(1)
+
+
+def eval_environment(scene: schema.SceneData, d: Tensor) -> Tensor:
+    """Env radiance for escaped rays (KernelDynamicScene::EvalEnvironment)."""
+    lights = scene.lights
+    if not has_env_static(lights):
+        return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32, device=d.device)
+    y, x = _env_pixel(lights, *_env_uv_from_direction(lights, d))
+    texel = lights.env_map[y.long(), x.long()]
+    has_env, env_row = _env_row(lights)
+    # env scale lives in the env light row's params[3:6]
+    scale = lights.params.index_select(0, env_row)[0, 3:6]
+    return torch.where(has_env, texel * scale, 0.0)
+
+
+def _env_pdf_dir(scene: schema.SceneData, d: Tensor) -> Tensor:
+    """Solid-angle pdf of env importance sampling for direction d: one pmf
+    gather (scene/alias.py tables)."""
+    lights = scene.lights
+    if not has_env_static(lights):
+        return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+    He, We = lights.env_map.shape[0], lights.env_map.shape[1]
+    u, v = _env_uv_from_direction(lights, d)
+    y, x = _env_pixel(lights, u, v)
+    p_pixel = lights.env_pmf.reshape(-1)[(y * We + x).long()]
+    sin_t = torch.sin(v.clamp(1e-4, 1 - 1e-4) * math.pi).clamp_min(1e-5)
+    jac = (He * We) / (2.0 * math.pi * math.pi * sin_t)
+    return p_pixel * jac
+
+
+def _env_sample_pixel(lights: schema.LightTable, u2: Tensor):
+    """O(1) alias-table draw of an env pixel: (y, x, pmf) from two uniforms
+    with ONE (B, 4) fat-row gather."""
+    He, We = lights.env_map.shape[0], lights.env_map.shape[1]
+    n = He * We
+    slot = (u2[:, 0] * n).to(torch.int32).clamp_max(n - 1)
+    row = lights.env_alias[slot.long()]
+    use_alias = u2[:, 1] >= row[:, 0]
+    alias_idx = row[:, 1].view(torch.int32)
+    pix = torch.where(use_alias, alias_idx, slot)
+    pmf = torch.where(use_alias, row[:, 3], row[:, 2])
+    return pix // We, pix % We, pmf
 
 
 def _sample_area_tri(lights: schema.LightTable, first: Tensor, count: Tensor,
@@ -95,7 +165,6 @@ def sample_emitter_direct(scene: schema.SceneData, ref_p: Tensor,
     """NEE: sample one emitter (by power CDF), one point on it, return the
     direct-illumination record and the advanced RNG state."""
     lights = scene.lights
-    _no_env(lights)
     B, dev = ref_p.shape[0], ref_p.device
     state, u_sel = rngmod.next_float(state)
     state, u2 = rngmod.next_float2(state)
@@ -146,12 +215,23 @@ def sample_emitter_direct(scene: schema.SceneData, ref_p: Tensor,
     front = cos_l > 0
     rop_ar = torch.where(front[..., None], p[:, 3:6] / pdf_ar[..., None], 0.0)
 
-    # --- env: not ported; the draw still happens so the RNG stream keeps
-    # the JAX package's layout ---
-    state, _u_env = rngmod.next_float2(state)
-    dir_env = dir_pt
-    pdf_env = torch.ones(B, dtype=torch.float32, device=dev)
-    rop_env = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    # --- env: importance-sample the map (skipped when the scene has none;
+    # the draw always happens so the RNG stream is layout-independent) ---
+    state, u_env = rngmod.next_float2(state)
+    if has_env_static(lights):
+        He, We = lights.env_map.shape[0], lights.env_map.shape[1]
+        y, x, pmf = _env_sample_pixel(lights, u_env)
+        u_img = (x.to(torch.float32) + 0.5) / We
+        v_img = (y.to(torch.float32) + 0.5) / He
+        dir_env, sin_t = _env_direction_from_uv(lights, u_img, v_img)
+        le_env = lights.env_map.reshape(-1, 3)[(y * We + x).long()] * p[:, 3:6]
+        jac = (He * We) / (2.0 * math.pi * math.pi * sin_t.clamp_min(1e-5))
+        pdf_env = (pmf * jac).clamp_min(1e-12)
+        rop_env = le_env / pdf_env[..., None]
+    else:
+        dir_env = dir_pt
+        pdf_env = torch.ones(B, dtype=torch.float32, device=dev)
+        rop_env = torch.zeros((B, 3), dtype=torch.float32, device=dev)
     world_rad = torch.maximum(p[:, 7], vm.length(scene.world_hi - scene.world_lo))
 
     is_pt = ltype == schema.LIGHT_POINT
@@ -208,14 +288,15 @@ def pdf_hit_emitter_direct(scene: schema.SceneData, light_id: Tensor,
     return torch.where((light_id >= 0) & (cos_l > 0), pdf, 0.0)
 
 
-def eval_environment(scene: schema.SceneData, d: Tensor) -> Tensor:
-    """Env radiance for escaped rays: zero, as the port has no env maps."""
-    _no_env(scene.lights)
-    return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32, device=d.device)
-
-
 def pdf_env_direct(scene: schema.SceneData, d: Tensor) -> Tensor:
     """Solid-angle pdf that NEE would have sampled direction d on the env
-    map: zero without one."""
-    _no_env(scene.lights)
-    return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+    map, including the env light's selection probability."""
+    lights = scene.lights
+    if not has_env_static(lights):
+        return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
+    has_env, env_row = _env_row(lights)
+    cdf = lights.power_cdf
+    prev = torch.where(env_row > 0,
+                       cdf.index_select(0, (env_row - 1).clamp_min(0)), 0.0)
+    pdf_sel = (cdf.index_select(0, env_row) - prev).clamp_min(1e-12)
+    return torch.where(has_env, _env_pdf_dir(scene, d) * pdf_sel, 0.0)

@@ -72,6 +72,13 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     niters = torch.zeros((), dtype=torch.int64, device=dev)
     nrows = torch.zeros((), dtype=torch.int64, device=dev)
     novf = torch.zeros(2, dtype=torch.int64, device=dev)
+    # ray-cone angular width: one pixel of the sensor (grows linearly with t)
+    params = scene.sensor.params
+    cone = 2.0 * torch.tan(0.5 * params[0]) / params[5].clamp_min(1.0)
+    # camera rays are the one coherent wavefront of a path: on a treelet
+    # table they get the larger coherent visit budget
+    peel_coherent = (max_depth > 0
+                     and traversal8.treelet_would_dispatch(geom, coherent=True))
     merge = use_nee
     if merge:
         # empty pending-shadow queue: dead rays (tmax=0) with a valid dir
@@ -85,6 +92,7 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                            torch.ones(B, dtype=torch.bool, device=dev)])
 
     for depth in range(max_depth):
+        coherent = peel_coherent and depth == 0
         trace_rays = traversal.Rays(o=cur.o, d=cur.d, tmin=cur.tmin,
                                     tmax=torch.where(active, cur.tmax, 0.0))
         nrays = nrays + active.sum()
@@ -95,14 +103,14 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                 tmin=torch.cat([trace_rays.tmin, p_rays.tmin]),
                 tmax=torch.cat([trace_rays.tmax, p_rays.tmax]))
             h2, it1, rw1, ov1 = traversal8.intersect_scene(
-                geom, comb, with_iters=True, any_mask=amask)
+                geom, comb, with_iters=True, coherent=coherent, any_mask=amask)
             hit = traversal.Hit(t=h2.t[:B], tri=h2.tri[:B],
                                 u=h2.u[:B], v=h2.v[:B])
             occluded_prev = h2.tri[B:] >= 0
             L = L + torch.where((p_act & ~occluded_prev)[:, None], p_contrib, 0.0)
         else:
             hit, it1, rw1, ov1 = traversal8.intersect_scene(
-                geom, trace_rays, with_iters=True)
+                geom, trace_rays, with_iters=True, coherent=coherent)
         niters = niters + it1
         nrows = nrows + rw1
         novf = novf + ov1
@@ -131,9 +139,24 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
             w_hit = torch.ones(B, **f32)
         L = L + torch.where(hit_l[:, None], beta * le * w_hit[:, None], 0.0)
 
-        ctx = bsdfmod.gather_ctx(scene, si.mat_id, si.uv,
+        # --- surface shading setup: the texture footprint of the ray cone
+        # (only textured scenes read it; XLA drops it for the others) ---
+        footprint = ewa = None
+        if with_textures:
+            footprint = cone * hit.t * si.uv_density
+            # EWA anisotropy: the pixel footprint stretches by 1/cos(theta)
+            # at grazing incidence along the view direction's tangent
+            # projection
+            cos_v = vm.dot(si.ns, cur.d).abs()
+            major = footprint / cos_v.clamp(0.125, 1.0)
+            d_t = vm.dot(cur.d, si.frame_t)
+            d_s = vm.dot(cur.d, si.frame_s)
+            d_len = torch.sqrt((d_t * d_t + d_s * d_s).clamp_min(1e-12))
+            ewa = (torch.stack([d_t / d_len, d_s / d_len], -1), major)
+        ctx = bsdfmod.gather_ctx(scene, si.mat_id, si.uv, footprint,
                                  active_types=active_types,
-                                 with_textures=with_textures)
+                                 with_textures=with_textures,
+                                 ewa=ewa, extra=si.extra)
         frame = si.frame()
         wi_local = frame.to_local(si.wi)
 

@@ -8,10 +8,13 @@ traversal, with the same per-ray semantics, step counts and flags:
   ``cudatracerlib_tpu/ops/traversal_pl.py::_traverse_kernel``. It takes CUDA
   tensors only.
 - ``intersect_wide``: its plain PyTorch version, a lockstep batch loop like
-  the JAX ``intersect_wide``. It serves CPU tensors, and the tests and
-  ``chip_smoke.py`` hold the kernel against it.
+  the JAX ``intersect_wide`` (``_lockstep``, shared with the plain versions
+  of K2 and K3). It serves CPU tensors, and the tests and ``chip_smoke.py``
+  hold the kernel against it.
 
-``intersect_scene`` picks one of the two by the table's device.
+``intersect_scene`` sends a table with treelet tables to the two-phase
+treelet traversal (``ops/traversal_tt.py``) with K1 as its exactness
+fallback, and any other table to one of the two above, by its device.
 
 Per ray: a stack entry is (row << 8) | unvisited-child mask; the stack is a
 ring of ``stack_depth`` entries that drops its oldest entry when a push
@@ -58,40 +61,38 @@ def _check_args(any_hit, stack_depth, any_mask):
         raise ValueError(f"stack_depth {stack_depth} outside [1, 64]")
 
 
-def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
-                   stack_depth: int = STACK_DEPTH,
-                   max_iters: int = MAX_ITERS, roots: Tensor = None,
-                   with_iters: bool = False, any_mask: Tensor = None):
-    """Plain PyTorch traversal of the (R, 128) fat-row table.
+def _lockstep(table: Tensor, rays: Rays, cur: Tensor, t_best: Tensor,
+              anyh: Tensor, stack_depth: int, max_iters: int,
+              base: Tensor = None, n_rows: int = None, n_real: int = None,
+              V: int = 0):
+    """The plain versions' lockstep loop: one traversal per lane, all lanes
+    stepped together until each is DONE or capped. The three kernels' plain
+    versions share it (K1: ``intersect_wide``; K2 and K3 in
+    ``ops/traversal_tt.py``), as the kernels share ``csrc/bvh8_traverse.cuh``.
 
-    any_mask: optional (B,) bool giving per-lane any-hit semantics (lanes
-    True stop at their first leaf hit), so one call traces a mixed
-    closest+shadow wavefront. Returns a Hit, or with with_iters
-    (hit, steps (B,) int32, flags (B,) uint8)."""
-    _check_args(any_hit, stack_depth, any_mask)
-    if table.is_cuda:
-        intersect_wide.cuda_calls += 1
+    cur: (B,) int32 start state ((root << 8) | 0xFF, or DONE for a lane that
+    does not run); t_best: (B,) initial best t (the ray's tmax); anyh: (B,)
+    bool per-lane any-hit. base: optional (B,) per-lane row offset into
+    `table` (a treelet slab), whose rows are clamped to [0, n_rows).
+    n_real: leaves at or beyond this row are VIRTUAL (K2): the lane records
+    a visit (row - n_real) with the entry t of the descend that reached it,
+    keeping its V nearest, instead of testing triangles.
+
+    Returns (hit, steps, flags, visits); visits is None, or with V > 0
+    (vids (B, V) i32, -1 unused; entry ts (B, V); visit count (B,) i32;
+    smallest entry t among the dropped visits (B,), inf if none)."""
     dev = table.device
     B = rays.o.shape[0]
-    n_rows = table.shape[0]
+    n_rows = table.shape[0] if n_rows is None else n_rows
     inv_d = _safe_inv(rays.d)
     ox, oy, oz = (rays.o[:, k:k + 1] for k in range(3))     # (B, 1)
     ix, iy, iz = (inv_d[:, k:k + 1] for k in range(3))
     dx, dy, dz = (rays.d[:, k:k + 1] for k in range(3))
     tmn = rays.tmin[:, None]
-    if roots is None:
-        roots = torch.zeros(B, dtype=torch.int32, device=dev)
-    if any_hit:
-        anyh = torch.ones(B, dtype=torch.bool, device=dev)
-    elif any_mask is not None:
-        anyh = any_mask.to(torch.bool)
-    else:
-        anyh = torch.zeros(B, dtype=torch.bool, device=dev)
     bit8 = (1 << torch.arange(8, dtype=torch.int32, device=dev))[None, :]
     lanes = torch.arange(B, device=dev)
 
-    cur = (roots.to(torch.int32) << 8) | 0xFF
-    t_best = rays.tmax.clone()
+    t_best = t_best.clone()
     tri_best = torch.full((B,), -1, dtype=torch.int32, device=dev)
     u_best = torch.zeros(B, dtype=torch.float32, device=dev)
     v_best = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -100,6 +101,12 @@ def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
     n = torch.zeros(B, dtype=torch.int32, device=dev)
     steps = torch.zeros(B, dtype=torch.int32, device=dev)
     flags = torch.zeros(B, dtype=torch.uint8, device=dev)
+    if V:
+        vids = torch.full((B, V), -1, dtype=torch.int32, device=dev)
+        vent = torch.zeros((B, V), dtype=torch.float32, device=dev)
+        vcnt = torch.zeros(B, dtype=torch.int32, device=dev)
+        mdrop = torch.full((B,), _INF, dtype=torch.float32, device=dev)
+        tent = torch.zeros(B, dtype=torch.float32, device=dev)
 
     while True:
         active = (cur != DONE) & (steps < max_iters)
@@ -108,7 +115,13 @@ def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
         steps += active.to(torch.int32)
         is_node = active & (cur >= 0)
         is_leaf = active & (cur <= -2)
-        row_idx = torch.where(cur >= 0, cur >> 8, -2 - cur).clamp(0, n_rows - 1)
+        row_raw = torch.where(cur >= 0, cur >> 8, -2 - cur)
+        if n_real is not None:
+            virtual = is_leaf & (row_raw >= n_real)
+            is_leaf = is_leaf & ~virtual
+        row_idx = row_raw.clamp(0, n_rows - 1)
+        if base is not None:
+            row_idx = row_idx + base
         row = table[row_idx.long()]                                  # (B, 128)
         tb = t_best[:, None]
 
@@ -177,6 +190,29 @@ def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
         u_best = torch.where(leaf_hit, u[lanes, k_hit], u_best)
         v_best = torch.where(leaf_hit, v[lanes, k_hit], v_best)
 
+        if V:
+            # virtual leaf: keep the V nearest visits by entry t; once full, a
+            # closer visit replaces the farthest kept one (lowest slot among
+            # equal maxima), and the smallest dropped entry t is tracked
+            full = vcnt >= V
+            t_far = vent[:, 0].clone()   # vent is written below
+            j_far = torch.zeros(B, dtype=torch.int64, device=dev)
+            for k in range(1, V):
+                farther = vent[:, k] > t_far
+                t_far = torch.where(farther, vent[:, k], t_far)
+                j_far = torch.where(farther, k, j_far)
+            replace = virtual & full & (tent < t_far)
+            write = (virtual & ~full) | replace
+            slot = torch.where(full, j_far, vcnt.clamp_max(V - 1).long())
+            vids[lanes, slot] = torch.where(write, row_raw - n_real, vids[lanes, slot])
+            vent[lanes, slot] = torch.where(write, tent, vent[lanes, slot])
+            dropped = torch.where(replace, t_far, tent)
+            mdrop = torch.where(virtual & full, torch.minimum(mdrop, dropped), mdrop)
+            vcnt = vcnt + virtual.to(torch.int32)
+            # the entry t of the child descended into: a leaf is only ever
+            # reached by a descend, so this is its slab-entry t
+            tent = torch.where(is_node & has_child, best_t, tent)
+
         # combine, push, pop (ring stack: a full stack drops its oldest entry)
         nxt = torch.where(is_node, node_next, POP)
         nxt = torch.where(leaf_hit & anyh, DONE, nxt)
@@ -193,6 +229,39 @@ def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
 
     flags |= (cur != DONE).to(torch.uint8) * FLAG_CAPPED
     hit = Hit(t=t_best, tri=tri_best, u=u_best, v=v_best)
+    return hit, steps, flags, ((vids, vent, vcnt, mdrop) if V else None)
+
+
+def any_lanes(B: int, any_hit: bool, any_mask: Tensor, device) -> Tensor:
+    """(B,) bool per-lane any-hit flags from the two ways of asking."""
+    if any_hit:
+        return torch.ones(B, dtype=torch.bool, device=device)
+    if any_mask is not None:
+        return any_mask.to(torch.bool)
+    return torch.zeros(B, dtype=torch.bool, device=device)
+
+
+def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
+                   stack_depth: int = STACK_DEPTH,
+                   max_iters: int = MAX_ITERS, roots: Tensor = None,
+                   with_iters: bool = False, any_mask: Tensor = None):
+    """Plain PyTorch traversal of the (R, 128) fat-row table.
+
+    any_mask: optional (B,) bool giving per-lane any-hit semantics (lanes
+    True stop at their first leaf hit), so one call traces a mixed
+    closest+shadow wavefront. Returns a Hit, or with with_iters
+    (hit, steps (B,) int32, flags (B,) uint8)."""
+    _check_args(any_hit, stack_depth, any_mask)
+    if table.is_cuda:
+        intersect_wide.cuda_calls += 1
+    dev = table.device
+    B = rays.o.shape[0]
+    if roots is None:
+        roots = torch.zeros(B, dtype=torch.int32, device=dev)
+    cur = (roots.to(torch.int32) << 8) | 0xFF
+    hit, steps, flags, _ = _lockstep(
+        table, rays, cur, rays.tmax, any_lanes(B, any_hit, any_mask, dev),
+        stack_depth, max_iters)
     if with_iters:
         return hit, steps, flags
     return hit
@@ -227,6 +296,34 @@ def _require(x: Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_table(table: Tensor, name: str, width_dims: int = 1):
+    """A CUDA float32 (..., 128) table, non-empty and 16-byte aligned (the
+    kernels read it as float4)."""
+    if not (isinstance(table, Tensor) and table.is_cuda):
+        raise ValueError(f"{name} must be a CUDA tensor")
+    _require(table, name, torch.float32,
+             tuple(table.shape[:width_dims]) + (128,), table.device)
+    if table.numel() == 0 or table.data_ptr() % 16:
+        raise ValueError(f"{name} must be non-empty and 16-byte aligned")
+
+
+def _check_rays(rays: Rays, dev, with_tmax: bool = True) -> int:
+    B = rays.o.shape[0]
+    _require(rays.o, "rays.o", torch.float32, (B, 3), dev)
+    _require(rays.d, "rays.d", torch.float32, (B, 3), dev)
+    _require(rays.tmin, "rays.tmin", torch.float32, (B,), dev)
+    if with_tmax:
+        _require(rays.tmax, "rays.tmax", torch.float32, (B,), dev)
+    return B
+
+
+def _mask_u8(any_mask: Tensor, B: int, dev):
+    if any_mask is None:
+        return None
+    _require(any_mask, "any_mask", torch.bool, (B,), dev)
+    return any_mask.view(torch.uint8)
+
+
 def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
                         stack_depth: int = STACK_DEPTH,
                         max_iters: int = MAX_ITERS, roots: Tensor = None,
@@ -238,23 +335,12 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
     tmin, tmax (B,) float32; roots (B,) int32; any_mask (B,) bool. Raises on
     anything else. Each launch adds one to ``intersect_wide_cuda.launches``."""
     _check_args(any_hit, stack_depth, any_mask)
-    if not (isinstance(table, Tensor) and table.is_cuda):
-        raise ValueError("intersect_wide_cuda takes a CUDA table")
+    _check_table(table, "table")
     dev = table.device
-    _require(table, "table", torch.float32, (table.shape[0], 128), dev)
-    if table.shape[0] == 0 or table.data_ptr() % 16:
-        raise ValueError("table must be non-empty and 16-byte aligned")
-    B = rays.o.shape[0]
-    _require(rays.o, "rays.o", torch.float32, (B, 3), dev)
-    _require(rays.d, "rays.d", torch.float32, (B, 3), dev)
-    _require(rays.tmin, "rays.tmin", torch.float32, (B,), dev)
-    _require(rays.tmax, "rays.tmax", torch.float32, (B,), dev)
+    B = _check_rays(rays, dev)
     if roots is not None:
         _require(roots, "roots", torch.int32, (B,), dev)
-    mask_u8 = None
-    if any_mask is not None:
-        _require(any_mask, "any_mask", torch.bool, (B,), dev)
-        mask_u8 = any_mask.view(torch.uint8)
+    mask_u8 = _mask_u8(any_mask, B, dev)
     t = torch.empty(B, dtype=torch.float32, device=dev)
     tri = torch.empty(B, dtype=torch.int32, device=dev)
     u = torch.empty(B, dtype=torch.float32, device=dev)
@@ -279,34 +365,96 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
 intersect_wide_cuda.launches = 0
 
 
+V_COHERENT = 6     # treelet visit budget of camera rays
+V_INCOHERENT = 3   # of bounce and shadow rays
+
+
+def treelet_would_dispatch(geom, coherent: bool = True,
+                           roots: Tensor = None) -> bool:
+    """True iff intersect_scene routes this geometry and wavefront onto the
+    two-phase treelet traversal: a flat table with treelet tables and no
+    per-ray roots. Shared with models/path.py's depth-0 peel."""
+    return geom.inst is None and geom.tt_top is not None and roots is None
+
+
 def intersect_scene(geom, rays: Rays, any_hit: bool = False,
                     roots: Tensor = None, with_iters: bool = False,
                     coherent: bool = False, any_mask: Tensor = None):
     """Production intersector over a GeometryTable's fat-row table.
 
-    A CUDA table goes to the kernel (``intersect_wide_cuda``), of any size; a
-    CPU table to the plain version (``intersect_wide``). `coherent` is the
-    JAX package's treelet hint and changes nothing here.
+    A table with treelet tables goes to the two-phase treelet traversal
+    (``intersect_treelet_exact``: K2, K3 and the K1 fallback on CUDA, their
+    plain versions on the CPU); `coherent` picks its visit budget
+    (V_COHERENT for camera rays, V_INCOHERENT otherwise). Any other table
+    goes to K1 (``intersect_wide_cuda``) when it is a CUDA table, of any
+    size, or to its plain version (``intersect_wide``) on the CPU.
 
     with_iters=True returns (hit, iters, rows, ovf), all int64 counters:
-    iters is the sum of the rays' steps, rows the 512-byte rows they read
-    (one per step, so equal to iters), and ovf a (2,) tensor holding the
-    number of capped rays and of rays whose stack overflowed."""
+    iters is the sum of the steps of every kernel the rays went through,
+    rows the 512-byte rows they read (one per step, so equal to iters), and
+    ovf a (2,) tensor holding the number of capped rays and visits and of
+    rays and visits whose stack overflowed."""
     if geom.inst is not None:
         raise NotImplementedError("instanced scenes are not ported yet")
-    table = geom.wide
-    if table.is_cuda:
-        fn = intersect_wide_cuda
-    elif table.device.type == "cpu":
-        fn = intersect_wide
-    else:
-        raise ValueError(f"no traversal for a table on {table.device}")
-    res = fn(table, rays, any_hit=any_hit, roots=roots,
-             with_iters=with_iters, any_mask=any_mask)
+    # the kernels take contiguous rays; camera rays share one expanded origin
+    rays = Rays(*(x.contiguous() for x in rays))
+    if treelet_would_dispatch(geom, coherent=coherent, roots=roots):
+        return intersect_treelet_exact(geom, rays, any_hit=any_hit,
+                                       coherent=coherent,
+                                       with_iters=with_iters,
+                                       any_mask=any_mask)
+    res = _wide_fn(geom.wide)(geom.wide, rays, any_hit=any_hit, roots=roots,
+                              with_iters=with_iters, any_mask=any_mask)
     if not with_iters:
         return res
     hit, steps, flags = res
     iters = steps.sum(dtype=torch.int64)
-    ovf = torch.stack([(flags & FLAG_CAPPED).ne(0).sum(),
-                       (flags & FLAG_OVERFLOW).ne(0).sum()])
-    return hit, iters, iters, ovf
+    return hit, iters, iters, _flag_counts(flags)
+
+
+def _wide_fn(table: Tensor):
+    if table.is_cuda:
+        return intersect_wide_cuda
+    if table.device.type == "cpu":
+        return intersect_wide
+    raise ValueError(f"no traversal for a table on {table.device}")
+
+
+def _flag_counts(flags: Tensor) -> Tensor:
+    return torch.stack([(flags & FLAG_CAPPED).ne(0).sum(),
+                        (flags & FLAG_OVERFLOW).ne(0).sum()])
+
+
+def intersect_treelet_exact(geom, rays: Rays, any_hit: bool = False,
+                            coherent: bool = False, with_iters: bool = False,
+                            any_mask: Tensor = None):
+    """Treelet two-phase traversal plus its exactness fallback.
+
+    Rays whose visit list overflowed the V budget in a way that may hide a
+    closer hit (``intersect_treelet``'s overflow mask) are re-traversed on
+    the whole table by K1 (on the CPU, its plain version), with tmax = their
+    treelet t. The fallback always runs over the whole batch, with no host
+    read of the count: every other ray gets tmax -1, which no box or
+    triangle can meet, so it costs one step. Each ray runs its own thread,
+    so the JAX package's compaction ladder is not needed. A fallback hit is
+    closer than the treelet t by construction and wins outright."""
+    from . import traversal_tt
+    res = traversal_tt.intersect_treelet(
+        geom.tt_top, geom.tt_slabs, rays, any_hit=any_hit,
+        V=V_COHERENT if coherent else V_INCOHERENT,
+        with_overflow=True, with_iters=with_iters, any_mask=any_mask)
+    hit, ovf = res[0], res[1]
+    fb_rays = Rays(o=rays.o, d=rays.d, tmin=rays.tmin,
+                   tmax=torch.where(ovf, hit.t, -1.0))
+    fb, fb_steps, fb_flags = _wide_fn(geom.wide)(
+        geom.wide, fb_rays, any_hit=any_hit, with_iters=True,
+        any_mask=any_mask)
+    win = fb.valid & ovf
+    hit = Hit(t=torch.where(win, fb.t, hit.t),
+              tri=torch.where(win, fb.tri, hit.tri),
+              u=torch.where(win, fb.u, hit.u),
+              v=torch.where(win, fb.v, hit.v))
+    if not with_iters:
+        return hit
+    iters = res[2] + fb_steps.sum(dtype=torch.int64)
+    return hit, iters, iters, res[4] + _flag_counts(fb_flags)

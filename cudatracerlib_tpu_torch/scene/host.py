@@ -1,26 +1,34 @@
 """Host-side scene management: build the device tables from meshes,
-materials and lights.
+materials, lights and an environment map.
 
-Port of the flat path of ``cudatracerlib_tpu/scene/host.py``: scenes under
-4,096 triangles, built with the numpy binned-SAH builder, with no
-instancing, no treelets, no textures, no environment map and no media. The
-numpy code is carried over verbatim; tensors are made only at the
-``SceneData`` boundary (``schema.to_tensor``), and the arrays are
-byte-identical to the JAX build's.
+Port of the flat path of ``cudatracerlib_tpu/scene/host.py``. Scenes under
+4,096 triangles take the numpy binned-SAH builder; larger ones the native
+builder (``scene/native_bvh.py``), a dummy 2-wide BVH, and, when the fat-row
+table exceeds 2,048 rows, its treelet split (``scene/treelet.py``). Images
+get their full mip chain in one texel pool. There is no instancing and no
+media, and a parallax material's cone map raises. The numpy code is carried
+over verbatim; tensors are made only at the ``SceneData`` boundary
+(``schema.to_tensor``), and the arrays are byte-identical to the JAX
+build's (the treelet tables in the port's row-major layout).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
+from . import alias as aliasmod
 from . import bvh as bvhmod
 from . import bvh8 as bvh8mod
-from . import schema, shapes
+from . import native_bvh, schema, shapes
+from . import treelet as treeletmod
 from ..ops import traversal8
 
-MAX_FLAT_TRIS = 4096  # the JAX build switches to its native builder here
+MAX_FLAT_TRIS = 4096  # from here on the native builder, as in the JAX build
+MAX_MIPS = 12
+LUM_W = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
 
 @dataclass
@@ -155,6 +163,7 @@ class DynamicScene:
         self._materials: list[dict] = []
         self._textures: list[TextureSpec] = []
         self._lights: list[dict] = []       # non-area lights
+        self._env: Optional[dict] = None
         self._sensor: Optional[schema.SensorData] = None
 
     # -- materials ---------------------------------------------------------
@@ -198,9 +207,22 @@ class DynamicScene:
         p[7] = np.cos(np.deg2rad(beam_deg if beam_deg is not None else cutoff_deg * 0.75))
         self._lights.append(dict(light_type=schema.LIGHT_SPOT, params=p))
 
+    def set_environment(self, image: np.ndarray, scale=(1.0, 1.0, 1.0),
+                        to_world: Optional[np.ndarray] = None):
+        self._env = dict(image=np.asarray(image, np.float32), scale=scale,
+                         to_world=np.eye(4, dtype=np.float32) if to_world is None else
+                         np.asarray(to_world, np.float32))
+
     # -- sensor ------------------------------------------------------------
     def set_sensor(self, sensor: schema.SensorData):
         self._sensor = sensor
+
+    def sensor_data(self, device="cpu") -> schema.SensorData:
+        """The scene's sensor with its tensors on `device`."""
+        sensor = self._sensor
+        return sensor._replace(to_world=sensor.to_world.to(device),
+                               to_world_inv=sensor.to_world_inv.to(device),
+                               params=sensor.params.to(device))
 
     # -- build -------------------------------------------------------------
     def build(self, device="cpu") -> schema.SceneData:
@@ -240,13 +262,19 @@ class DynamicScene:
 
         v0 = np.concatenate(v0s); v1 = np.concatenate(v1s); v2 = np.concatenate(v2s)
         T = v0.shape[0]
+        t_bvh = time.perf_counter()
         if T >= MAX_FLAT_TRIS:
-            raise NotImplementedError(
-                f"{T} triangles: scenes of {MAX_FLAT_TRIS} or more need the "
-                "native BVH builder, which is not ported yet")
-        b = bvhmod.build_bvh(v0, v1, v2, max_leaf=bvh8mod.LEAF_TRIS)
-        b8 = bvh8mod.collapse_bvh2(b, v0, v1, v2)
+            # the native builder; the 2-wide reference structure is a dummy,
+            # since only the fat-row table is traversed
+            b8 = native_bvh.build_bvh8(v0, v1, v2)
+            b = bvhmod.BVH(nodes=np.zeros((1, 16), np.float32),
+                           tri_order=np.arange(T, dtype=np.int32),
+                           world_lo=b8.world_lo, world_hi=b8.world_hi)
+        else:
+            b = bvhmod.build_bvh(v0, v1, v2, max_leaf=bvh8mod.LEAF_TRIS)
+            b8 = bvh8mod.collapse_bvh2(b, v0, v1, v2)
         wide = traversal8.pack_unified(b8.nodes, b8.leaves)
+        t_bvh = time.perf_counter() - t_bvh
         ng = np.cross(v1 - v0, v2 - v0)
         ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
 
@@ -260,20 +288,23 @@ class DynamicScene:
         shade = schema.pack_shade_rows(n0a, n1a, n2a, uv0a, uv1a, uv2a, ng,
                                        v0, v1, v2, mat_a, light_a, node_a)
         t = lambda a: schema.to_tensor(a, device)
+        t_part = time.perf_counter()
+        part = treeletmod.partition(wide)   # None for tables of <= 2,048 rows
+        t_part = time.perf_counter() - t_part
         geom = schema.GeometryTable(
             tris=None, nodes=t(b.nodes), tri_order=t(b.tri_order), wide=t(wide),
             n0=None, n1=None, n2=None, uv0=None, uv1=None, uv2=None,
             ng=None, mat_id=None, light_id=None, node_id=None,
-            shade=t(shade))
+            shade=t(shade),
+            tt_top=None if part is None else t(part.top),
+            tt_slabs=None if part is None else t(part.slabs),
+            tt_vid=None if part is None else t(part.vid_map))
 
         materials = self._build_materials(device)
         textures = self._build_textures(device)
         lights = self._build_lights(area_lights, v0, v1, v2, b, device)
         media = self._build_media(device)
-        sensor = self._sensor
-        sensor = sensor._replace(to_world=sensor.to_world.to(device),
-                                 to_world_inv=sensor.to_world_inv.to(device),
-                                 params=sensor.params.to(device))
+        sensor = self.sensor_data(device)
 
         mats = self._materials or [dict(mat_type=schema.BSDF_DIFFUSE,
                                         tex=np.full(schema.N_MAT_TEX, -1, np.int32),
@@ -285,9 +316,11 @@ class DynamicScene:
             world_lo=np.asarray(b.world_lo, np.float32),
             world_hi=np.asarray(b.world_hi, np.float32),
             light_type=np.asarray([l["light_type"] for l in self._lights]
-                                  + [schema.LIGHT_DIFFUSE] * len(area_lights),
+                                  + [schema.LIGHT_DIFFUSE] * len(area_lights)
+                                  + ([schema.LIGHT_INFINITE] if self._env is not None else []),
                                   np.int32),
             n_media=0,
+            build_seconds=dict(bvh=t_bvh, treelet=t_part),
         )
         return schema.SceneData(
             geom=geom, materials=materials, textures=textures, lights=lights,
@@ -308,26 +341,90 @@ class DynamicScene:
             nested2=t(np.asarray([m["nested2"] for m in mats], np.int32)))
 
     def _build_textures(self, device) -> schema.TextureTable:
-        """The no-texture case of the JAX build: one constant placeholder row."""
         texs = self._textures
-        if any(tx.image is not None for tx in texs) or any(
-                (m["tex"] >= 0).any() for m in self._materials):
-            raise NotImplementedError("textures are not ported yet")
         X = max(len(texs), 1)
         tex_type = np.zeros(X, np.int32)
         params = np.zeros((X, schema.N_TEX_PARAMS), np.float32)
         image_id = np.full(X, -1, np.int32)
-        MAX_MIPS = 12
+        images = []
+        for i, tx in enumerate(texs):
+            tex_type[i] = tx.tex_type
+            params[i, 0:3] = tx.value
+            params[i, 3:6] = tx.value1
+            params[i, 6:8] = tx.uv_scale
+            params[i, 8:10] = tx.uv_offset
+            if tx.image is not None:
+                images.append(np.asarray(tx.image, np.float32))
+                image_id[i] = len(images) - 1
+        # parallax materials need a cone-step map of their height image
+        for m in self._materials:
+            if float(m["params"][24]) > 0:
+                ti = int(m["tex"][3])
+                if 0 <= ti < X and image_id[ti] >= 0:
+                    raise NotImplementedError(
+                        "parallax cone maps are not ported yet")
+
+        def quad_pack(lv: np.ndarray) -> np.ndarray:
+            """(h, w, 3) level -> (h*w, 12) rows of the 2x2 wrap-neighborhood
+            [T(y,x), T(y,x+1), T(y+1,x), T(y+1,x+1)] (schema.texels_quad)."""
+            q = np.stack([lv, np.roll(lv, -1, axis=1), np.roll(lv, -1, axis=0),
+                          np.roll(np.roll(lv, -1, axis=0), -1, axis=1)], axis=2)
+            return q.reshape(-1, 12).astype(np.float32)
+
+        if images:
+            offs, ws, hs, nmips, pool = [], [], [], [], []
+            qpool = []
+            cone_offs = []
+            cursor = 0
+            for img in images:
+                # full mip chain by 2x2 box downsampling (reference MIPMap)
+                levels = [img]
+                while min(levels[-1].shape[0], levels[-1].shape[1]) > 1 \
+                        and len(levels) < MAX_MIPS:
+                    prev = levels[-1]
+                    h2, w2 = max(prev.shape[0] // 2, 1), max(prev.shape[1] // 2, 1)
+                    ds = prev[:h2 * 2, :w2 * 2].reshape(h2, 2, w2, 2, 3).mean((1, 3))
+                    levels.append(ds.astype(np.float32))
+                o_row = np.zeros(MAX_MIPS, np.int32)
+                w_row = np.ones(MAX_MIPS, np.int32)
+                h_row = np.ones(MAX_MIPS, np.int32)
+                for li, lv in enumerate(levels):
+                    o_row[li] = cursor
+                    h_, w_ = lv.shape[:2]
+                    w_row[li] = w_
+                    h_row[li] = h_
+                    pool.append(lv.reshape(-1, 3))
+                    qpool.append(quad_pack(lv))
+                    cursor += w_ * h_
+                # clamp trailing levels to the last real one
+                for li in range(len(levels), MAX_MIPS):
+                    o_row[li] = o_row[len(levels) - 1]
+                    w_row[li] = w_row[len(levels) - 1]
+                    h_row[li] = h_row[len(levels) - 1]
+                offs.append(o_row); ws.append(w_row); hs.append(h_row)
+                nmips.append(len(levels))
+                cone_offs.append(-1)
+            texels = np.concatenate(pool)
+            texels_quad = np.concatenate(qpool)
+            img_offset = np.stack(offs)
+            img_w = np.stack(ws)
+            img_h = np.stack(hs)
+            img_nmips = np.asarray(nmips, np.int32)
+            img_cone = np.asarray(cone_offs, np.int32)
+        else:
+            texels = np.zeros((1, 3), np.float32)
+            texels_quad = np.zeros((1, 12), np.float32)
+            img_offset = np.zeros((1, MAX_MIPS), np.int32)
+            img_w = np.ones((1, MAX_MIPS), np.int32)
+            img_h = np.ones((1, MAX_MIPS), np.int32)
+            img_nmips = np.ones(1, np.int32)
+            img_cone = np.full(1, -1, np.int32)
         t = lambda a: schema.to_tensor(a, device)
         return schema.TextureTable(
             tex_type=t(tex_type), params=t(params), image_id=t(image_id),
-            img_offset=t(np.zeros((1, MAX_MIPS), np.int32)),
-            img_w=t(np.ones((1, MAX_MIPS), np.int32)),
-            img_h=t(np.ones((1, MAX_MIPS), np.int32)),
-            img_nmips=t(np.ones(1, np.int32)),
-            texels=t(np.zeros((1, 3), np.float32)),
-            img_cone=t(np.full(1, -1, np.int32)),
-            texels_quad=t(np.zeros((1, 12), np.float32)))
+            img_offset=t(img_offset), img_w=t(img_w), img_h=t(img_h),
+            img_nmips=t(img_nmips), texels=t(texels), img_cone=t(img_cone),
+            texels_quad=t(texels_quad))
 
     def _build_lights(self, area_lights, v0, v1, v2, b: bvhmod.BVH,
                       device) -> schema.LightTable:
@@ -349,16 +446,20 @@ class DynamicScene:
             al_tris.append(ids)
             al_cdf.append(cdf.astype(np.float32))
             rows.append(dict(light_type=schema.LIGHT_DIFFUSE, params=p))
+        if self._env is not None:
+            p = np.zeros(schema.N_LIGHT_PARAMS, np.float32)
+            p[3:6] = self._env["scale"]
+            p[7] = world_radius
+            rows.append(dict(light_type=schema.LIGHT_INFINITE, params=p))
 
         L = max(len(rows), 1)
         light_type = np.zeros(L, np.int32)
         params = np.zeros((L, schema.N_LIGHT_PARAMS), np.float32)
         powers = np.zeros(L, np.float32)
-        lum_w = np.array([0.212671, 0.715160, 0.072169], np.float32)
         for i, r in enumerate(rows):
             light_type[i] = r["light_type"]
             params[i] = r["params"]
-            lum = float(r["params"][3:6] @ lum_w)
+            lum = float(r["params"][3:6] @ LUM_W)
             t = r["light_type"]
             if t == schema.LIGHT_POINT:
                 powers[i] = lum * 4 * np.pi
@@ -369,6 +470,9 @@ class DynamicScene:
                 params[i, 7] = world_radius
             elif t == schema.LIGHT_SPOT:
                 powers[i] = lum * 2 * np.pi * (1 - r["params"][6])
+            elif t == schema.LIGHT_INFINITE:
+                env_lum = float(np.mean(self._env["image"] @ LUM_W))
+                powers[i] = env_lum * lum * 4 * np.pi * np.pi * world_radius ** 2
         if not rows:
             powers[0] = 1.0
         cdf = np.cumsum(powers)
@@ -379,7 +483,6 @@ class DynamicScene:
             al_cdf_arr = np.concatenate(al_cdf)
             # per-light alias tables over tri area (absolute alias indices),
             # flattened at the al_first offsets — O(1) selection at trace time
-            from . import alias as aliasmod
             al_alias_arr = np.zeros((len(al_tris_arr), 2), np.float32)
             ofs = 0
             for ids in al_tris:
@@ -405,11 +508,22 @@ class DynamicScene:
                 al_count_arr[i] = al_count[ai]
                 ai += 1
 
-        # no environment map: the JAX build's 1x1 black placeholder
-        env = np.zeros((1, 1, 3), np.float32)
-        env_alias = np.asarray([[1.0, 0.0, 1.0, 1.0]], np.float32)
-        env_pmf = np.ones((1, 1), np.float32)
-        env_to_world = np.eye(4, dtype=np.float32)
+        if self._env is not None:
+            env = self._env["image"] * np.asarray(self._env["scale"], np.float32)
+            env_lum = env @ LUM_W
+            He, We = env.shape[:2]
+            # sin(theta) weighting for the equirectangular solid-angle measure
+            sin_t = np.sin((np.arange(He) + 0.5) / He * np.pi)[:, None].astype(np.float32)
+            w = env_lum * sin_t + 1e-12
+            env_alias = aliasmod.build_alias_table(w)
+            env_pmf = env_alias[:, 2].reshape(He, We)
+            env_to_world = self._env["to_world"]
+        else:
+            # no environment map: a 1x1 black placeholder
+            env = np.zeros((1, 1, 3), np.float32)
+            env_alias = np.asarray([[1.0, 0.0, 1.0, 1.0]], np.float32)
+            env_pmf = np.ones((1, 1), np.float32)
+            env_to_world = np.eye(4, dtype=np.float32)
 
         t = lambda a: schema.to_tensor(a, device)
         return schema.LightTable(

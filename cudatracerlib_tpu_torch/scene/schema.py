@@ -77,8 +77,11 @@ N_TEX_PARAMS = 12
 class GeometryTable(NamedTuple):
     """Triangle soup + BVH, world space. The flat build leaves the per-tri
     columns (``tris``, ``n0`` ... ``node_id``) as None: every reader uses the
-    packed ``shade`` rows and the ``wide`` fat-row table. ``inst`` is always
-    None in the port (no two-level instancing yet)."""
+    packed ``shade`` rows and the ``wide`` fat-row table. Tables of more than
+    2,048 rows also carry their treelet split (scene/treelet.py), row-major:
+    ``tt_top`` (R_top, 128), ``tt_slabs`` (n_treelets, rows, 128) and
+    ``tt_vid`` (n_vids, 2); smaller tables leave the three as None.
+    ``inst`` is always None in the port (no two-level instancing yet)."""
     tris: "Tensor | None"   # (T, 12) f32 [v0, e1, e2, pad]
     nodes: Tensor           # (N, 16) f32 packed 2-wide BVH nodes
     tri_order: Tensor       # (T,) i32
@@ -94,6 +97,9 @@ class GeometryTable(NamedTuple):
     light_id: "Tensor | None"
     node_id: "Tensor | None"
     shade: Tensor           # (T, 32) f32 packed shading rows (pack_shade_rows)
+    tt_top: "Tensor | None" = None    # (R_top, 128) f32 treelet top table
+    tt_slabs: "Tensor | None" = None  # (n_treelets, rows, 128) f32 slabs
+    tt_vid: "Tensor | None" = None    # (n_vids, 2) i32 (treelet, root) map
     inst: None = None
 
 
@@ -147,7 +153,9 @@ class MaterialTable(NamedTuple):
 
 
 class TextureTable(NamedTuple):
-    """Texture aggregate + image atlas (the port builds the no-texture case)."""
+    """Texture aggregate + image atlas: every image's mip chain lies in one
+    flat texel pool, and ``texels_quad`` holds each texel's 2x2 wrap
+    neighbourhood so a bilinear tap is one row gather."""
     tex_type: Tensor    # (X,) i32
     params: Tensor      # (X, N_TEX_PARAMS) f32
     image_id: Tensor    # (X,) i32
@@ -223,7 +231,9 @@ class SceneData(NamedTuple):
 
 def host_meta(scene: SceneData) -> dict:
     """Numpy mirrors of the scene's small metadata tables: mat_type, mat_tex,
-    mat_alpha_mode, world_lo, world_hi, light_type, n_media."""
+    mat_alpha_mode, world_lo, world_hi, light_type, n_media; the port's own
+    builds add build_seconds (host seconds of the BVH build and of the
+    treelet partition)."""
     return scene.host
 
 
@@ -247,7 +257,16 @@ def scene_from_numpy(arrays: dict, host_meta: dict, device) -> SceneData:
     `arrays` maps dotted leaf names ("geom.wide", "lights.al_rows",
     "sensor.sensor_type", "world_lo", ...) to numpy arrays; leaves the JAX
     scene holds as None are simply absent. Bitcast int32 payloads travel as
-    the float32 bits they are stored in; nothing converts their values."""
+    the float32 bits they are stored in; nothing converts their values.
+    The treelet tables arrive in the JAX device layout (transposed, padded)
+    and are turned back into the port's row-major layout."""
+    arrays = dict(arrays)
+    if "geom.tt_top" in arrays:
+        from . import treelet
+        arrays["geom.tt_top"], arrays["geom.tt_slabs"] = \
+            treelet.from_jax_layout(np.asarray(arrays["geom.tt_top"]),
+                                    np.asarray(arrays["geom.tt_slabs"]))
+
     def table(cls, prefix):
         kw = {}
         for f in cls._fields:

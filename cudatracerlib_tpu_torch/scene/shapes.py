@@ -1,7 +1,7 @@
 """Procedural shapes triangulated host-side (numpy).
 
 Verbatim port of the shapes of ``cudatracerlib_tpu/scene/shapes.py`` that the
-Cornell box uses, in Mitsuba's canonical object-space conventions.
+example scenes use, in Mitsuba's canonical object-space conventions.
 """
 from __future__ import annotations
 
@@ -81,6 +81,52 @@ def sphere(radius: float = 1.0, center=(0.0, 0.0, 0.0),
             if i < n_theta - 1:
                 faces.append([b, c, d])
     return TriMesh(v, np.array(faces, np.int32), n, uv)
+
+
+def cylinder(p0=(0, 0, 0), p1=(0, 0, 1), radius: float = 1.0,
+             n_seg: int = 64) -> TriMesh:
+    """Open cylinder from p0 to p1 (Mitsuba convention: no caps)."""
+    p0 = np.asarray(p0, np.float32)
+    p1 = np.asarray(p1, np.float32)
+    axis = p1 - p0
+    length = np.linalg.norm(axis)
+    w = axis / max(length, 1e-20)
+    # build a frame around w
+    a = np.array([1.0, 0, 0]) if abs(w[0]) < 0.9 else np.array([0, 1.0, 0])
+    u = np.cross(a, w)
+    u /= np.linalg.norm(u)
+    vv = np.cross(w, u)
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    ring = (np.outer(np.cos(ang), u) + np.outer(np.sin(ang), vv)) * radius
+    verts = np.concatenate([p0 + ring, p1 + ring]).astype(np.float32)
+    normals = np.concatenate([ring, ring]) / radius
+    uv = np.concatenate([
+        np.stack([ang / (2 * np.pi), np.zeros(n_seg)], -1),
+        np.stack([ang / (2 * np.pi), np.ones(n_seg)], -1)]).astype(np.float32)
+    faces = []
+    for i in range(n_seg):
+        j = (i + 1) % n_seg
+        faces += [[i, j, n_seg + i], [j, n_seg + j, n_seg + i]]
+    return TriMesh(verts, np.array(faces, np.int32), normals.astype(np.float32), uv)
+
+
+def merge(meshes) -> TriMesh:
+    """Concatenate meshes into one (used by shapegroups)."""
+    vs, fs, ns, uvs = [], [], [], []
+    off = 0
+    has_n = all(m.n is not None for m in meshes)
+    has_uv = all(m.uv is not None for m in meshes)
+    for m in meshes:
+        vs.append(m.v)
+        fs.append(m.f + off)
+        if has_n:
+            ns.append(m.n)
+        if has_uv:
+            uvs.append(m.uv)
+        off += m.v.shape[0]
+    return TriMesh(np.concatenate(vs), np.concatenate(fs),
+                   np.concatenate(ns) if has_n else None,
+                   np.concatenate(uvs) if has_uv else None)
 
 
 def compute_vertex_normals(mesh: TriMesh) -> TriMesh:

@@ -5,7 +5,14 @@ stays under 0.5% and the live-ray counters agree within 0.1%. The bound is
 not exact because float drift (XLA's FMA contraction on the CPU) can flip a
 rare Russian-roulette draw or a near-tie triangle. The 16-pass render is
 then held to tests/goldens/cornell_32_pt.npz at test_golden.py's tolerance
-(mean relative error < 0.02)."""
+(mean relative error < 0.02).
+
+The San Miguel stand-in (20,000 triangles: native BVH, treelet split, an
+image and a checkerboard texture, a distant light and the sky map) is held
+to the JAX PathTracer the same way at 32x32, depth 3. On the CPU the JAX
+package traverses the single table while the port runs the plain versions
+of its treelet path (K2, K3, K1 fallback), so the comparison also holds
+the treelet path to the single-table traversal end to end."""
 import os
 
 import numpy as np
@@ -13,9 +20,12 @@ import pytest
 import torch
 
 from cudatracerlib_tpu.models import path as jpath
+from cudatracerlib_tpu.scene import native_bvh as jnative
+from cudatracerlib_tpu.scene import treelet as jtreelet
 from cudatracerlib_tpu.utils import example_scenes as jscenes
 from cudatracerlib_tpu_torch.models import path as tpath
-from cudatracerlib_tpu_torch.ops import traversal8
+from cudatracerlib_tpu_torch.ops import traversal8, traversal_tt
+from cudatracerlib_tpu_torch.scene import native_bvh as tnative
 from cudatracerlib_tpu_torch.utils import example_scenes as tscenes
 
 torch.set_num_threads(2)
@@ -38,6 +48,35 @@ def test_pt_chunk_pass_for_pass():
     assert ttr._rays_dev.dtype == ttr._iters_dev.dtype == torch.int64
     assert ttr._ovf_dev.tolist() == [0, 0]
     assert int(ttr._iters_dev) == int(ttr._rows_dev) > t_rays
+
+
+def test_san_miguel_pass_for_pass(monkeypatch, tmp_path):
+    # the JAX build's caches bypassed; its native builder runs the library
+    # the port compiled from the same source (no racing `make` into native/)
+    monkeypatch.setattr(jnative, "_load", tnative._load)
+    monkeypatch.setattr(jnative, "_build_cache_path",
+                        lambda v0, v1, v2: str(tmp_path / "bvh8.npz"))
+    monkeypatch.setattr(jtreelet, "partition_cached",
+                        lambda table, **kw: jtreelet.partition(table, **kw))
+    jsc = jscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    tsc = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    assert traversal8.treelet_would_dispatch(tsc.geom)
+    jtr = jpath.PathTracer(jsc, 32, 32, max_depth=3)
+    ttr = tpath.PathTracer(tsc, 32, 32, max_depth=3)
+    calls = traversal_tt.top_visits.cuda_calls
+    for _ in range(2):
+        jtr.do_pass()
+        ttr.do_pass()
+        j_rgb = np.asarray(jtr.film.rgb)
+        t_rgb = ttr.film.rgb.numpy()
+        rel = np.abs(t_rgb - j_rgb).mean() / j_rgb.mean()
+        assert rel < 0.005, rel
+        j_rays, t_rays = jtr.rays_traced_live, ttr.rays_traced_live
+        assert abs(t_rays - j_rays) <= 1e-3 * j_rays, (t_rays, j_rays)
+    assert np.isfinite(t_rgb).all() and t_rgb.mean() > 0
+    assert ttr._ovf_dev.tolist() == [0, 0]
+    assert int(ttr._iters_dev) == int(ttr._rows_dev) > t_rays
+    assert traversal_tt.top_visits.cuda_calls == calls     # CPU tensors only
 
 
 def test_cornell_golden():

@@ -3,7 +3,16 @@
 The Cornell box (2,232 triangles) stays under the JAX build's 4,096-triangle
 switch to its native builder and disk cache, so both sides run the same
 numpy binned-SAH build; every table must be byte-identical (compared as
-uint32 views, which also covers the int32 ids bitcast into float32)."""
+uint32 views, which also covers the int32 ids bitcast into float32).
+
+The 20,000-triangle San Miguel stand-in takes the native builder on both
+sides (the port compiles its own copy of native/bvh_builder.cpp) and the
+treelet split; the JAX package's disk caches are bypassed in the test, and
+its native builder runs the library the port compiled from the same source
+with the Makefile's flags.
+The builder's threads share one spatial-split duplication budget, so two
+builds could differ once it runs out; this scene stays well inside it
+(asserted), and its tables are compared byte for byte."""
 import subprocess
 import sys
 
@@ -11,8 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from cudatracerlib_tpu.scene import native_bvh as jnative
+from cudatracerlib_tpu.scene import treelet as jtreelet
 from cudatracerlib_tpu.utils import example_scenes as jscenes
+from cudatracerlib_tpu_torch.scene import native_bvh as tnative
 from cudatracerlib_tpu_torch.scene import schema as tschema
+from cudatracerlib_tpu_torch.scene import treelet as ttreelet
 from cudatracerlib_tpu_torch.utils import example_scenes as tscenes
 
 torch.set_num_threads(2)
@@ -94,6 +107,70 @@ def test_scene_from_numpy_equals_port_build(builds):
     mat = sc.geom.shade[:, 23].view(torch.int32)
     assert int(mat.min()) == 0 and int(mat.max()) == 3
     assert sc.sensor.sensor_type == tschema.SENSOR_PERSPECTIVE
+
+
+@pytest.fixture(scope="module")
+def sm_builds(tmp_path_factory):
+    cache = tmp_path_factory.mktemp("bvh8")
+    with pytest.MonkeyPatch.context() as mp:
+        # the JAX build's disk caches are bypassed, and its native builder
+        # runs the library the port compiled from the same source with the
+        # Makefile's flags (the JAX package would `make` it into native/,
+        # which races between test workers)
+        mp.setattr(jnative, "_load", tnative._load)
+        mp.setattr(jnative, "_build_cache_path",
+                   lambda v0, v1, v2: str(cache / "bvh8.npz"))
+        mp.setattr(jtreelet, "partition_cached",
+                   lambda table, **kw: jtreelet.partition(table, **kw))
+        jsc = jscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    tsc = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    return jsc, tsc
+
+
+def test_san_miguel_build_byte_identical(sm_builds):
+    jsc, tsc = sm_builds
+    ja, ta = flatten(jsc), flatten(tsc)
+    checked = 0
+    for key in sorted(ta):
+        if key.startswith("geom.tt_") or not any(key.startswith(p) for p in TABLES):
+            continue
+        jv, tv = np.asarray(ja[key]), ta[key]
+        assert jv.shape == tv.shape and jv.dtype == tv.dtype, key
+        np.testing.assert_array_equal(bits(tv), bits(jv), err_msg=key)
+        checked += 1
+    assert checked >= 40
+    # the treelet tables: the port keeps them row-major and unpadded
+    top, slabs = ttreelet.from_jax_layout(ja["geom.tt_top"], ja["geom.tt_slabs"])
+    np.testing.assert_array_equal(bits(ta["geom.tt_top"]), bits(top))
+    np.testing.assert_array_equal(bits(ta["geom.tt_slabs"]), bits(slabs))
+    np.testing.assert_array_equal(ta["geom.tt_vid"], ja["geom.tt_vid"])
+    assert tsc.num_tris == jsc.num_tris > 19000
+    assert tsc.geom.wide.shape == (2389, 128) and tsc.geom.tt_slabs.shape[0] == 6
+    assert tsc.textures.texels.shape[0] == 87381        # 256^2 noise, full mip chain
+    for k in ["mat_type", "mat_tex", "world_lo", "world_hi", "light_type"]:
+        np.testing.assert_array_equal(tsc.host[k], jsc.host[k], err_msg=k)
+    assert tsc.host["light_type"].tolist() == [tschema.LIGHT_DISTANT,
+                                               tschema.LIGHT_INFINITE]
+    # the builder stayed inside its duplication budget (refs < 1.4 T), so
+    # its threads could not race for it: the build is deterministic
+    wide = ta["geom.wide"]
+    refs = int((wide[wide[:, 120] > 0][:, 108:120].view(np.int32) >= 0).sum())
+    assert refs < 1.4 * tsc.num_tris - 1
+
+
+def test_san_miguel_rebuild_and_bridge(sm_builds):
+    jsc, tsc = sm_builds
+    again = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    np.testing.assert_array_equal(bits(again.geom.wide.numpy()),
+                                  bits(tsc.geom.wide.numpy()))
+    # the bridge carries the JAX build across, treelet tables included
+    ja = {k: np.asarray(v) for k, v in flatten(jsc).items()}
+    sc = tschema.scene_from_numpy(ja, jsc.host, "cpu")
+    fa, ta = flatten(sc), flatten(tsc)
+    assert set(fa) == set(ta)
+    for k in ta:
+        assert fa[k].dtype == ta[k].dtype and fa[k].shape == ta[k].shape, k
+        np.testing.assert_array_equal(bits(fa[k]), bits(ta[k]), err_msg=k)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

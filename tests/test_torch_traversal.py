@@ -186,17 +186,23 @@ def test_kernel_wrapper_rejects_cpu_tensors(setup):
     assert traversal8.intersect_wide_cuda.launches == 0
 
 
-@pytest.mark.gpu
-def test_kernel_matches_plain_on_gpu(setup):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs this check on the card")
+def test_intersect_scene_hands_the_kernels_contiguous_rays(setup, monkeypatch):
+    """Camera rays share one origin through a stride-0 view; the kernel
+    wrappers refuse non-contiguous rays, so intersect_scene passes a
+    contiguous copy (a path traced without NEE sends camera rays straight
+    to the traversal)."""
     s = setup
-    dev = torch.device("cuda")
-    table = s["tsc"].geom.wide.to(dev)
-    rays = Rays(*(x.to(dev) for x in s["tr"]))
-    for kw in ({}, dict(any_hit=True),
-               dict(any_mask=torch.from_numpy(s["amask"]).to(dev))):
-        a = traversal8.intersect_wide_cuda(table, rays, with_iters=True, **kw)
-        b = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
-        for x, y in zip((*a[0][:4], a[1], a[2]), (*b[0][:4], b[1], b[2])):
-            assert torch.equal(x, y)
+    seen = []
+    plain = traversal8.intersect_wide
+
+    def spy(table, rays, **kw):
+        seen.append(all(x.is_contiguous() for x in rays))
+        return plain(table, rays, **kw)
+    monkeypatch.setattr(traversal8, "intersect_wide", spy)
+    tr = s["tr"]
+    rays = Rays(o=tr.o[:1].expand(N_RAYS, 3), d=tr.d, tmin=tr.tmin, tmax=tr.tmax)
+    assert not rays.o.is_contiguous()
+    hit = traversal8.intersect_scene(s["tsc"].geom, rays)
+    assert seen == [True]
+    ref = plain(s["tsc"].geom.wide, Rays(rays.o.contiguous(), *rays[1:]))
+    assert torch.equal(hit.tri, ref.tri) and torch.equal(hit.t, ref.t)
