@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, check
-each against its plain PyTorch version, and run the Cornell and San Miguel
-path-tracing passes.
+each against its plain PyTorch version, and run the Cornell, veach-mis and
+San Miguel path-tracing passes and the microbenchmarks P1-P3.
 
     python3 chip_smoke.py [--profile]
 
@@ -8,18 +8,34 @@ Needs one CUDA device, nvcc (CUDA_HOME or PATH), g++ and the repository
 checkout; imports nothing of JAX. Each phase prints one JSON line, any
 failure exits non-zero, and nothing falls back to the CPU:
 
-1. the card's name and power limit; build the three traversal kernels
-   (csrc/traversal8.cu: K1; csrc/traversal_tt.cu: K2, K3), one nvcc each,
-   all started together, and print ptxas's registers, stack and spills;
+1. the card's name and power limit; build every kernel (csrc/traversal8.cu:
+   K1; csrc/traversal_tt.cu: K2, K3; csrc/traversal_pool.cu: K4;
+   csrc/microbench.cu: P1-P3), one nvcc each, all started together, and
+   print ptxas's registers, stack and spills;
 2. K1 against its plain version on the Cornell 512^2 table with 131,072+513
    rays inside the box: closest-hit, any-hit and mixed any_mask (half the
    lanes any-hit). t, tri, u, v, step counts and flags must be identical
    (the kernels are built with -fmad=false, so both round op for op);
-   median of 5 synchronised runs each;
+   median of 5 synchronised runs each. K4 on the same rays in the same
+   modes: identical to K1 and to the plain version, and again on the rays
+   shuffled (results un-shuffled after);
 3. PathTracer on Cornell 32^2, depth 4, 16 passes against
    tests/goldens/cornell_32_pt.npz (mean relative error < 0.02);
 4. the Cornell headline: PathTracer on Cornell 512^2, max_depth 6, chunks
    of 65,536 lanes, 4 passes, through K1 alone;
+4a. veach-mis (2,164 triangles, 331 rows): K4 against K1 and the plain
+   version on 65,536 camera rays plus 65,536 random rays, as in phase 2;
+4b. the veach anchor: veach_mis_anchor(48, 48), depth 8, rr_depth 4, NEE,
+   256 spp as 16 passes of spp_per_pass=16, through K4 (pool=True); RMSE
+   against the mean of tests/goldens/ref_veach.npz's two seeds under 2.5x
+   their RMSE, the mean within test_rmse_anchor.py's bound and within 20%
+   of the reference's (the JAX package's renders lie 10-16% under); pool=False
+   (K1) gives the same film bit for bit;
+4c. the veach-mis headline: 512^2, depth 5, chunks of 65,536 lanes, NEE
+   with MIS, 8 passes per run after a warm-up pass, runs through K1, K4,
+   K4, K1 (pool=False / True); counts zeroed around each run: K4 launches
+   in the pool runs and K1 in the others, and nothing else, 0 plain calls,
+   0 capped or overflowed rays, a finite non-black film;
 5. the San Miguel stand-in at full width (1.2M triangles; host build
    seconds: native BVH, treelet partition) and 131,072 camera rays plus
    131,072 random rays from the courtyard, closest / any-hit / mixed:
@@ -41,9 +57,18 @@ failure exits non-zero, and nothing falls back to the CPU:
    after; K1, and K2 and K3 at both V, must all launch, no CUDA tensor may
    reach a plain version, and no ray may be capped or overflow. With
    --profile, one more pass runs under torch.profiler and its kernel table
-   is printed, summed over each kernel's template instantiations.
+   is printed, summed over each kernel's template instantiations (and in
+   4c one more veach-mis pass through K1 and through K4);
+8. P1-P3 (utils/microbench.py) timed at their full sizes, with the counts
+   zeroed around the run; the output of every timed configuration must
+   equal its plain version's on the same inputs.
 
-The line before the last is the kernel table, the last the device record.
+The kernel table comes next: one row for each of K1-K4 and P1-P3, with its
+launches on its own path, its time and its plain version's time, and its
+bound: the larger of the bytes it must move over 3.35 TB/s and its float32
+operations over 67 TFLOP/s (traversal: the table once, the rays in and the
+hits out; the measured steps times a node step's operations). Then the
+card's name and power limit, and last the device record.
 """
 import json
 import os
@@ -60,9 +85,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "goldens", "cornell_32_pt.npz")
 N_RAYS = 131072 + 513
 SM_HALF = 131072
-# the three kernels' names in a profile, one entry per K2 instantiation
+VEACH_HALF = 65536
+REF_VEACH = os.path.join(HERE, "tests", "goldens", "ref_veach.npz")
+CAL = 2.5   # tests/test_rmse_anchor.py's calibration of the noise floor
+# the veach anchor's mean may lie at most this share under or over the
+# reference's: the JAX package's own renders of the anchor (seeds 0-2, on
+# the CPU) lie 10-16% under it, and the port's equal them
+MEAN_GAP = 0.2
+# the traversal kernels' names in a profile, one entry per K2 instantiation
 KERNEL_RE = re.compile(r"traverse8_kernel|top_visits_kernel(?:<\d+>)?"
-                       r"|treelet_hits_kernel")
+                       r"|treelet_hits_kernel|traverse_pool_kernel")
 
 
 def emit(**kw):
@@ -99,6 +131,86 @@ def same(a, b):
     return ok, err
 
 
+def trav_bound(table, B, steps, mixed, mb, traversal8):
+    """bound_ms of one traversal launch: the table once, the rays in (o, d,
+    tmin, tmax; the any-hit mask when mixed) and the hits out (t, tri, u, v,
+    steps, flags); the measured steps times a node step's operations (the
+    cheaper step kind, so the bound stays a lower bound)."""
+    n_bytes = table.numel() * 4 + B * (32 + int(mixed)) + B * 21
+    return mb.bound_ms(n_bytes, steps * traversal8.NODE_STEP_FLOPS)
+
+
+def check_pool(scene_name, table, rays, amask, K1, K4, traversal8, Rays, seed):
+    """K4 against K1 and the plain version in the three modes, then on the
+    rays shuffled and un-shuffled after; every field must be identical.
+    Emits one line per mode; returns {mode: (err, k4 ms, k1 ms, plain ms,
+    steps)}."""
+    B = rays.o.shape[0]
+    dev = table.device
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(B)).to(dev)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(B, device=dev)
+    shuffled = Rays(*(x[perm].contiguous() for x in rays))
+    out = {}
+    modes = {"closest": ({}, {}), "any_hit": (dict(any_hit=True),) * 2,
+             "mixed": (dict(any_mask=amask), dict(any_mask=amask[perm]))}
+    for mode, (kw, kw_s) in modes.items():
+        h4, s4, f4 = K4(table, rays, with_iters=True, **kw)
+        h1, s1, f1 = K1(table, rays, with_iters=True, **kw)
+        hp, sp, fp = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+        ok1, err1 = same((*h4, s4, f4), (*h1, s1, f1))
+        okp, errp = same((*h4, s4, f4), (*hp, sp, fp))
+        hs, ss, fs = K4(table, shuffled, with_iters=True, **kw_s)
+        oks, errs = same(tuple(None if x is None else x[inv]
+                               for x in (*hs, ss, fs)), (*h1, s1, f1))
+        ms = (cuda_median_ms(lambda: K4(table, rays, **kw)),
+              cuda_median_ms(lambda: K1(table, rays, **kw)),
+              cuda_median_ms(lambda: traversal8.intersect_wide(table, rays, **kw)))
+        flagged = int((f4 != 0).sum())
+        emit(phase="kernel_vs_plain", scene=scene_name, kernel="K4", mode=mode,
+             rays=B, rows=table.shape[0], identical_to_k1=ok1,
+             identical_to_plain=okp, shuffled_identical=oks,
+             max_abs_err=max(err1, errp, errs), ms=ms[0], k1_ms=ms[1],
+             plain_ms=ms[2], steps=int(s4.sum()), min_steps=int(s4.min()),
+             flagged=flagged, hit_rate=float((h4.tri >= 0).float().mean()))
+        if not (ok1 and okp and oks):
+            fail(f"K4 disagrees with K1 or the plain version ({scene_name}, {mode})")
+        if flagged:
+            fail(f"capped or overflowed rays in {scene_name} {mode}")
+        out[mode] = (max(err1, errp, errs), *ms, int(s4.sum()))
+    return out
+
+
+def profile_pass(tr, scene_name, **extra):
+    """One more pass of `tr` under torch.profiler: device time, busy share,
+    event count, and the traversal kernels summed over their template
+    instantiations."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.do_pass()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies, memsets): a CPU op's
+    # device time would count its kernels a second time
+    evs = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in evs)
+    top_k = sorted(evs, key=lambda e: -e.self_device_time_total)[:20]
+    trav = {}
+    for e in evs:
+        m = KERNEL_RE.search(e.key)
+        if m:
+            k = trav.setdefault(m.group(0), dict(count=0, ms=0.0))
+            k["count"] += e.count
+            k["ms"] += e.self_device_time_total / 1e3
+    trav_ms = sum(k["ms"] for k in trav.values())
+    emit(phase="profile", scene=scene_name, wall_s=wall, device_ms=total / 1e3,
+         device_busy=total / 1e6 / wall, device_events=sum(e.count for e in evs),
+         traversal_kernels=trav, traversal_ms=trav_ms,
+         traversal_share=trav_ms / max(total / 1e3, 1e-9),
+         top=[dict(name=e.key[:70], count=e.count,
+                   ms=e.self_device_time_total / 1e3) for e in top_k], **extra)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -110,6 +222,7 @@ def main():
     from cudatracerlib_tpu_torch.ops import cuda_build, traversal8, traversal_tt
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     from cudatracerlib_tpu_torch.utils import example_scenes
+    from cudatracerlib_tpu_torch.utils import microbench as mb
 
     profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
@@ -122,14 +235,15 @@ def main():
     emit(phase="card", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # the launch counters of the three kernels and their plain versions
+    # the launch counters of the kernels and the traversals' plain versions
     K1, K2, K3 = (traversal8.intersect_wide_cuda, traversal_tt.top_visits_cuda,
                   traversal_tt.treelet_hits_cuda)
+    K4 = traversal8.intersect_wide_pool_cuda
     plains = (traversal8.intersect_wide, traversal_tt.top_visits,
               traversal_tt.treelet_hits)
 
     def zero_counts():
-        for f in (K1, K2, K3):
+        for f in (K1, K2, K3, K4, *mb.KERNELS):
             f.launches = 0
         for f in (K2, K3):
             f.launches_by_v = dict.fromkeys(f.launches_by_v, 0)
@@ -141,9 +255,11 @@ def main():
 
     # 1. build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
-    cuda_build.build("traversal8.cu", "traversal_tt.cu")
+    sources = ("traversal8.cu", "traversal_tt.cu", "traversal_pool.cu",
+               "microbench.cu")
+    cuda_build.build(*sources)
     build_s = time.perf_counter() - t0
-    for src in ("traversal8.cu", "traversal_tt.cu"):
+    for src in sources:
         log = cuda_build.build_log[src]
         ptxas = [ln.strip() for ln in log["ptxas"].splitlines()
                  if "registers" in ln or "stack frame" in ln
@@ -181,6 +297,7 @@ def main():
             fail(f"K1 and its plain version disagree ({mode})")
         if flagged:
             fail(f"capped or overflowed rays in {mode}")
+    check_pool("cornell_box", table, rays, amask, K1, K4, traversal8, Rays, 5)
 
     # 3. golden image on the card
     zero_counts()
@@ -224,6 +341,118 @@ def main():
     if launches <= 0 or plain_n:
         fail("the headline pass did not run through the kernel alone")
     del tr, scene512
+
+    # 4a. veach-mis: K4 against K1 and the plain version on its table
+    veach = example_scenes.veach_mis(512, 512).build(dev)
+    vtable = veach.geom.wide
+    pix = (torch.arange(VEACH_HALF, dtype=torch.int32, device=dev) * 4) % (512 * 512)
+    cam = tracermod.gen_camera_rays(veach, pix, 0, 0, 512, 512)[0]
+    rng = np.random.default_rng(77)
+    o = np.stack([rng.uniform(-4, 4, VEACH_HALF), rng.uniform(-1.9, 2.5, VEACH_HALF),
+                  rng.uniform(-3, 5.5, VEACH_HALF)], 1).astype(np.float32)
+    d = rng.normal(size=(VEACH_HALF, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    B = 2 * VEACH_HALF
+    v_rays = Rays(o=torch.cat([cam.o, torch.from_numpy(o).to(dev)]),
+                  d=torch.cat([cam.d, torch.from_numpy(d).to(dev)]),
+                  tmin=torch.full((B,), 1e-4, device=dev),
+                  tmax=torch.full((B,), 1e30, device=dev))
+    v_mask = torch.from_numpy(rng.random(B) < 0.5).to(dev)
+    emit(phase="veach_build", tris=veach.num_tris, rows=vtable.shape[0],
+         table_kb=vtable.numel() * 4 / 1024,
+         bvh_seconds=veach.host["build_seconds"]["bvh"])
+    k4_res = check_pool("veach_mis", vtable, v_rays, v_mask, K1, K4,
+                        traversal8, Rays, 6)
+    k4_bound = trav_bound(vtable, B, k4_res["mixed"][4], True, mb, traversal8)
+    del v_rays, cam
+
+    # 4b. the veach anchor against the independent reference render
+    g = np.load(REF_VEACH)
+    ref_a, ref_b = g["img"].astype(np.float64), g["img_seed2"].astype(np.float64)
+    spp, aw, ah, adepth = (int(g[k]) for k in ("spp", "w", "h", "max_depth"))
+    noise = float(np.sqrt(((ref_a - ref_b) ** 2).mean()))
+    anchor = example_scenes.veach_mis_anchor(aw, ah).build(dev)
+    films, anchor_runs = {}, {}
+    for pool in (True, False):
+        zero_counts()
+        t0 = time.perf_counter()
+        ta = pathmod.PathTracer(anchor, aw, ah, max_depth=adepth, rr_depth=4,
+                                use_nee=True, spp_per_pass=16, pool=pool)
+        ta.render_batched(spp // 16)
+        films[pool] = ta.film
+        anchor_runs["K4" if pool else "K1"] = dict(
+            seconds=time.perf_counter() - t0, k1=K1.launches, k4=K4.launches,
+            plain=plain_calls(), ovf=[int(x) for x in ta._ovf_dev.tolist()])
+    got = filmmod.develop(films[True]).cpu().numpy().astype(np.float64)
+    rmse = float(np.sqrt(((got - 0.5 * (ref_a + ref_b)) ** 2).mean()))
+    mean_got, mean_ref = float(got.mean()), float(ref_a.mean())
+    mean_bound = 0.05 * max(mean_ref, 1e-6) + 3.0 * noise
+    mean_gap = abs(mean_got - mean_ref) / max(mean_ref, 1e-6)
+    same_film = all(torch.equal(getattr(films[True], f), getattr(films[False], f))
+                    for f in ("rgb", "weight"))
+    emit(phase="veach_anchor", size=aw, spp=spp, passes=spp // 16,
+         spp_per_pass=16, max_depth=adepth, rmse=rmse, noise_floor=noise,
+         limit=CAL * noise, mean=mean_got, mean_ref=mean_ref,
+         mean_bound=mean_bound, mean_gap=mean_gap, mean_gap_limit=MEAN_GAP,
+         pool_film_identical=same_film, runs=anchor_runs)
+    if not (rmse < CAL * noise and abs(mean_got - mean_ref) < mean_bound
+            and mean_gap < MEAN_GAP):
+        fail(f"veach anchor: RMSE {rmse} vs {CAL} x {noise}, mean {mean_got} vs {mean_ref}")
+    if not same_film:
+        fail("the veach anchor's film differs between K4 and K1")
+    if (anchor_runs["K4"]["k4"] <= 0 or anchor_runs["K4"]["k1"]
+            or anchor_runs["K1"]["k1"] <= 0 or anchor_runs["K1"]["k4"]
+            or anchor_runs["K4"]["plain"] or anchor_runs["K1"]["plain"]):
+        fail(f"the anchor runs took the wrong kernels: {anchor_runs}")
+    del anchor, films
+
+    # 4c. the veach-mis headline: K1 and K4 in turns, after a warm-up pass
+    vtr = {pool: pathmod.PathTracer(veach, 512, 512, max_depth=5,
+                                    chunk_size=65536, pool=pool)
+           for pool in (False, True)}
+    for t in vtr.values():
+        t.do_pass()
+    k4_launches = 0
+    for pool in (False, True, True, False):
+        t = vtr[pool]
+        torch.cuda.synchronize()
+        zero_counts()
+        secs, rays_n = [], []
+        for _ in range(8):
+            before = t.rays_traced_live
+            t.do_pass()
+            secs.append(t.last_pass_seconds)
+            rays_n.append(t.rays_traced_live - before)
+        counts = dict(K1=K1.launches, K4=K4.launches, K2=K2.launches,
+                      K3=K3.launches, plain=plain_calls())
+        k4_launches += counts["K4"]
+        emit(phase="headline", scene="veach_mis", tris=veach.num_tris, size=512,
+             max_depth=5, chunk_size=65536, passes=8, pool=pool,
+             kernel="K4" if pool else "K1",
+             seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+             live_rays=int(sum(rays_n)), mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+             launches=counts)
+        want, other = ("K4", "K1") if pool else ("K1", "K4")
+        if (counts[want] <= 0 or counts[other] or counts["K2"] or counts["K3"]
+                or counts["plain"]):
+            fail(f"the veach-mis {want} run took the wrong kernels: {counts}")
+    for pool, t in vtr.items():
+        img = filmmod.develop(t.film).cpu().numpy()
+        capped, overflowed = (int(x) for x in t._ovf_dev.tolist())
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail("the veach-mis image is not finite and non-black")
+        if capped or overflowed:
+            fail(f"veach-mis: capped {capped} / overflowed {overflowed} rays")
+    if profile:
+        for pool, t in vtr.items():
+            profile_pass(t, "veach_mis", kernel="K4" if pool else "K1")
+    same_film = torch.equal(vtr[False].film.rgb, vtr[True].film.rgb)
+    emit(phase="veach_films", passes=17 + int(profile), k1_k4_identical=same_film,
+         steps=int(vtr[True]._iters_dev), capped=0, overflowed=0,
+         mean_radiance=float(img.mean()))
+    if not same_film:
+        fail("the veach-mis films of K1 and K4 differ")
+    del vtr, veach
 
     # 5. San Miguel at full width: host build, then K2, K3 and K1 on its tables
     t0 = time.perf_counter()
@@ -277,7 +506,8 @@ def main():
         k1_res[mode] = (h1, k1_ms)
         if mode == "mixed":
             kernel_ms["K1"] = (err1, k1_ms, cuda_median_ms(
-                lambda: traversal8.intersect_wide(wide, sm_rays, **kw)))
+                lambda: traversal8.intersect_wide(wide, sm_rays, **kw)),
+                trav_bound(wide, B, int(s1.sum()), True, mb, traversal8))
     for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
         for mode, kw in sm_modes.items():
             h1, k1_ms = k1_res[mode]
@@ -322,13 +552,21 @@ def main():
                     traversal_tt.top_visits, traversal_tt.treelet_hits, top,
                     slabs, sm_rays, V=V, **kw)))
             if mode == "mixed":
+                # bounds: K2 reads the top table and the rays and writes the
+                # hits, V visits (id, entry t), the count and the min-dropped
+                # t; K3 reads the slabs, the rays, the prune t and the B*V
+                # keys and slots, and writes one hit per slot
                 kernel_ms["K2", V] = (err2, cuda_median_ms(
                     lambda: K2(top, sm_rays, V, **kw)), cuda_median_ms(
-                    lambda: traversal_tt.top_visits(top, sm_rays, V, **kw)))
+                    lambda: traversal_tt.top_visits(top, sm_rays, V, **kw)),
+                    mb.bound_ms(top.numel() * 4 + B * 33 + B * (29 + 8 * V),
+                                int(k2[5].sum()) * traversal8.NODE_STEP_FLOPS))
                 kernel_ms["K3", V] = (err3, cuda_median_ms(lambda: K3(
                     slabs, sm_rays, t_prune, keys, order, V, **kw)),
                     cuda_median_ms(lambda: traversal_tt.treelet_hits(
-                        slabs, sm_rays, t_prune, keys, order, V, **kw)))
+                        slabs, sm_rays, t_prune, keys, order, V, **kw)),
+                    mb.bound_ms(slabs.numel() * 4 + B * 33 + B * V * 29,
+                                int(k3[1].sum()) * traversal8.NODE_STEP_FLOPS))
             emit(phase="sm_kernels_vs_plain", mode=mode, rays=B, V=V,
                  k2_identical=ok2, k3_identical=ok3, two_phase_identical=okt,
                  max_abs_err=max(err2, err3, errt),
@@ -404,50 +642,77 @@ def main():
         fail("San Miguel image is not finite and non-black")
     if capped or overflowed:
         fail(f"capped {capped} / overflowed {overflowed} rays")
-    if min(launches.values()) <= 0 or plain_n:
+    if min(launches.values()) <= 0 or plain_n or K4.launches:
         fail(f"the San Miguel pass did not run through K1, and K2 and K3 at "
-             f"both V, alone: {launches}, {plain_n} plain calls")
+             f"both V, alone: {launches}, {plain_n} plain calls, "
+             f"{K4.launches} K4 launches")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr.do_pass()
-            wall = time.perf_counter() - t0
-        # device-side events only (kernels, copies, memsets): a CPU op's
-        # device time would count its kernels a second time
-        evs = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-        total = sum(e.self_device_time_total for e in evs)
-        top_k = sorted(evs, key=lambda e: -e.self_device_time_total)[:20]
-        trav = {}
-        for e in evs:
-            m = KERNEL_RE.search(e.key)
-            if m:
-                k = trav.setdefault(m.group(0), dict(count=0, ms=0.0))
-                k["count"] += e.count
-                k["ms"] += e.self_device_time_total / 1e3
-        trav_ms = sum(k["ms"] for k in trav.values())
-        emit(phase="profile", scene="san_miguel_stand_in", wall_s=wall,
-             device_ms=total / 1e3, device_busy=total / 1e6 / wall,
-             device_events=sum(e.count for e in evs),
-             traversal_kernels=trav, traversal_ms=trav_ms,
-             traversal_share=trav_ms / max(total / 1e3, 1e-9),
-             top=[dict(name=e.key[:70], count=e.count,
-                       ms=e.self_device_time_total / 1e3) for e in top_k])
+        profile_pass(tr, "san_miguel_stand_in")
 
-    rows = [("traverse8_kernel", "traversal8.cu",
-             "cudatracerlib_tpu/ops/traversal_pl.py:188", "K1")]
-    for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
-        rows += [(f"top_visits_kernel<{V}>", "traversal_tt.cu",
-                  "cudatracerlib_tpu/ops/traversal_tt.py:185", ("K2", V)),
-                 (f"treelet_hits_kernel (V={V})", "traversal_tt.cu",
-                  "cudatracerlib_tpu/ops/traversal_tt.py:340", ("K3", V))]
-    emit(kernels=[dict(
-        name=name, route="cuda", source=f"cudatracerlib_tpu_torch/csrc/{src}",
-        replaces=replaces, launches=launches[k], max_abs_err=kernel_ms[k][0],
-        ms=kernel_ms[k][1], plain_ms=kernel_ms[k][2])
-        for name, src, replaces, k in rows])
+    # 8. P1-P3 at full size, each held to its plain version on its inputs
+    torch.cuda.synchronize()
+    zero_counts()
+    res = mb.measure(dev)
+    mb_launches = dict(P1=mb.chase_rows_cuda.launches,
+                       P2=mb.gather_rows_cuda.launches + mb.loop_only_cuda.launches,
+                       P3=mb.queue_fetch_cuda.launches)
+    emit(phase="microbench", nvidia_smi=card, launches=mb_launches,
+         max_abs_err=mb.max_abs_err(res), **res)
+    if min(mb_launches.values()) <= 0:
+        fail(f"a microbenchmark kernel did not launch: {mb_launches}")
+    if mb.max_abs_err(res) != 0:
+        fail("a microbenchmark kernel disagrees with its plain version")
+
+    # the kernel table: K2 and K3 at V=3 (80 of their 96 launches per
+    # headline), with both budgets under by_v
+    def row(name, src, replaces, launches_n, err, ms, plain_ms, bound, **extra):
+        return dict(name=name, route="cuda",
+                    source=f"cudatracerlib_tpu_torch/csrc/{src}",
+                    replaces=replaces, launches=launches_n, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=None, **extra)
+
+    def tt_row(kname, name, src, replaces):
+        by_v = {f"V{V}": dict(launches=launches[kname, V], ms=kernel_ms[kname, V][1],
+                              plain_ms=kernel_ms[kname, V][2],
+                              bound_ms=kernel_ms[kname, V][3][0])
+                for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)}
+        k = (kname, traversal8.V_INCOHERENT)
+        return row(name, src, replaces,
+                   sum(launches[kname, V] for V in (traversal8.V_COHERENT,
+                                                    traversal8.V_INCOHERENT)),
+                   max(kernel_ms[kname, V][0] for V in (traversal8.V_COHERENT,
+                                                        traversal8.V_INCOHERENT)),
+                   *kernel_ms[k][1:], by_v=by_v)
+
+    def mb_row(entry):
+        return (entry["max_abs_err"], entry["ms"], entry["plain_ms"],
+                (entry["bound_ms"], entry["bound_by"]))
+
+    p1 = next(e for e in res["P1"] if e["rows"] == mb.ROW_TABLE_ROWS
+              and e["memory"] == "global")
+    p2 = next(e for e in res["P2"] if e["rows"] == mb.ROW_TABLE_ROWS
+              and e["layout"] == "thread")
+    p3 = next(e for e in res["P3"] if e["items"] == mb.ROW_QUEUE_ITEMS)
+    emit(kernels=[
+        row("traverse8_kernel", "traversal8.cu",
+            "cudatracerlib_tpu/ops/traversal_pl.py:188", launches["K1"],
+            *kernel_ms["K1"]),
+        tt_row("K2", "top_visits_kernel", "traversal_tt.cu",
+               "cudatracerlib_tpu/ops/traversal_tt.py:185"),
+        tt_row("K3", "treelet_hits_kernel", "traversal_tt.cu",
+               "cudatracerlib_tpu/ops/traversal_tt.py:340"),
+        row("traverse_pool_kernel", "traversal_pool.cu",
+            "cudatracerlib_tpu/ops/traversal_pl.py:298", k4_launches,
+            k4_res["mixed"][0], k4_res["mixed"][1], k4_res["mixed"][3],
+            k4_bound),
+        row("chase_rows_kernel", "microbench.cu",
+            "tools/microbench_r2.py:89", mb_launches["P1"], *mb_row(p1)),
+        row("gather_rows_thread_kernel", "microbench.cu",
+            "tools/microbench_r2c.py:46", mb_launches["P2"], *mb_row(p2)),
+        row("queue_fetch_kernel", "microbench.cu",
+            "tools/probe_mosaic_pool.py:40", mb_launches["P3"], *mb_row(p3))])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

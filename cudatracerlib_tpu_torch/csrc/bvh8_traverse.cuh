@@ -1,5 +1,6 @@
-// One ray's traversal of a BVH8 fat-row table, shared by the port's three
-// traversal kernels: traversal8.cu (K1) and traversal_tt.cu (K2, K3).
+// One ray's traversal of a BVH8 fat-row table, shared by the port's four
+// traversal kernels: traversal8.cu (K1), traversal_tt.cu (K2, K3) and
+// traversal_pool.cu (K4).
 //
 // The table is (R, 128) float32 row-major (scene/bvh8.py layout), read
 // through const float4* __restrict__:
@@ -22,6 +23,11 @@
 // - a leaf whose row is at or beyond `n_real` is a VIRTUAL leaf (K2's cut
 //   edges into treelet slabs): the step calls visit(row - n_real, entry t of
 //   the descend that reached it) and pops, testing no triangles.
+//
+// The state machine is split in three: Walk::init (an empty stack), step
+// (one row) and traverse (the loop over steps with the cap). K1, K2 and K3
+// run traverse; K4 runs step itself, so that a lane can take a new ray
+// between two steps.
 //
 // Built with -fmad=false: nvcc then contracts no a*b+c into an FMA, the
 // kernels round op for op like their plain PyTorch versions
@@ -86,6 +92,155 @@ struct NoVisit {
   __device__ __forceinline__ void operator()(int, float) {}
 };
 
+// A ray's traversal state besides its current row, best hit and ring stack
+// (an int[kMaxStack] of the caller's, kept apart so that these scalars stay
+// in registers): the stack's top and fill, and the entry t of the last
+// descend.
+struct Walk {
+  int pos, n;
+  float tent;  // entry t of the last descend
+
+  __device__ __forceinline__ void init() {
+    pos = 0;
+    n = 0;
+    tent = 0.0f;
+  }
+};
+
+// One step of the ray from state `cur` (not kDone): reads one row, updates
+// the best hit, the stack and the flags, and returns the next state.
+template <class Visit>
+__device__ __forceinline__ int step(const float4* __restrict__ table,
+                                    int n_rows, int n_real, const Ray& r,
+                                    int cur, bool anyh, int stack_depth,
+                                    int (&stack)[kMaxStack], Walk& w, Best& b,
+                                    uint8_t& flags, Visit& visit) {
+  int row_idx = cur >= 0 ? (cur >> 8) : (-2 - cur);
+  int nxt;
+  if (cur < 0 && row_idx >= n_real) {
+    visit(row_idx - n_real, w.tent);
+    nxt = kPop;
+  } else {
+    row_idx = min(max(row_idx, 0), n_rows - 1);
+    const float4* row = table + (size_t)row_idx * 32;
+    if (cur >= 0) {
+      float best_t = __int_as_float(0x7f800000);
+      int best_j = 0, link_best = 0, elig_bits = 0;
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        const float4 lx = row[g], ly = row[2 + g], lz = row[4 + g];
+        const float4 hx = row[6 + g], hy = row[8 + g], hz = row[10 + g];
+        const float4 lk = row[12 + g];
+        const float alx[4] = {lx.x, lx.y, lx.z, lx.w};
+        const float aly[4] = {ly.x, ly.y, ly.z, ly.w};
+        const float alz[4] = {lz.x, lz.y, lz.z, lz.w};
+        const float ahx[4] = {hx.x, hx.y, hx.z, hx.w};
+        const float ahy[4] = {hy.x, hy.y, hy.z, hy.w};
+        const float ahz[4] = {hz.x, hz.y, hz.z, hz.w};
+        const int alk[4] = {__float_as_int(lk.x), __float_as_int(lk.y),
+                            __float_as_int(lk.z), __float_as_int(lk.w)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int j = 4 * g + k;
+          const float t0x = (alx[k] - r.ox) * r.ix, t1x = (ahx[k] - r.ox) * r.ix;
+          const float t0y = (aly[k] - r.oy) * r.iy, t1y = (ahy[k] - r.oy) * r.iy;
+          const float t0z = (alz[k] - r.oz) * r.iz, t1z = (ahz[k] - r.oz) * r.iz;
+          const float tn = maxp(maxp(minp(t0x, t1x), minp(t0y, t1y)),
+                                maxp(minp(t0z, t1z), r.tmn));
+          const float tf = minp(minp(maxp(t0x, t1x), maxp(t0y, t1y)),
+                                minp(maxp(t0z, t1z), b.t));
+          const bool elig = (tn <= tf) && alk[k] != kDone && ((cur >> j) & 1);
+          if (elig) {
+            elig_bits |= 1 << j;
+            if (tn < best_t) {
+              best_t = tn;
+              best_j = j;
+              link_best = alk[k];
+            }
+          }
+        }
+      }
+      if (best_t < __int_as_float(0x7f800000)) {
+        nxt = link_best >= 0 ? ((link_best << 8) | 0xFF) : link_best;
+        w.tent = best_t;
+        const int remaining = elig_bits & ~(1 << best_j);
+        if (remaining != 0) {
+          w.pos = w.pos + 1 == stack_depth ? 0 : w.pos + 1;
+          stack[w.pos] = (cur & ~0xFF) | remaining;
+          if (w.n == stack_depth) {
+            flags |= 2;
+          } else {
+            ++w.n;
+          }
+        }
+      } else {
+        nxt = kPop;
+      }
+    } else {
+      float hit_t = __int_as_float(0x7f800000), hit_u = 0.0f, hit_v = 0.0f;
+      int hit_id = -1;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        float4 q[9];
+#pragma unroll
+        for (int a = 0; a < 9; ++a) q[a] = row[3 * a + g];
+        const float4 qi = row[27 + g];
+        const int ids[4] = {__float_as_int(qi.x), __float_as_int(qi.y),
+                            __float_as_int(qi.z), __float_as_int(qi.w)};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float c[9];
+#pragma unroll
+          for (int a = 0; a < 9; ++a) {
+            c[a] = k == 0 ? q[a].x : k == 1 ? q[a].y : k == 2 ? q[a].z : q[a].w;
+          }
+          const float v0x = c[0], v0y = c[1], v0z = c[2];
+          const float e1x = c[3], e1y = c[4], e1z = c[5];
+          const float e2x = c[6], e2y = c[7], e2z = c[8];
+          const float px = r.dy * e2z - r.dz * e2y;
+          const float py = r.dz * e2x - r.dx * e2z;
+          const float pz = r.dx * e2y - r.dy * e2x;
+          const float det = e1x * px + e1y * py + e1z * pz;
+          const float inv_det = fabsf(det) < 1e-12f ? 0.0f : 1.0f / det;
+          const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+          const float u = (tx * px + ty * py + tz * pz) * inv_det;
+          const float qx = ty * e1z - tz * e1y;
+          const float qy = tz * e1x - tx * e1z;
+          const float qz = tx * e1y - ty * e1x;
+          const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+          const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+          const bool ok = ids[k] != -1 && fabsf(det) >= 1e-12f && u >= 0.0f &&
+                          v >= 0.0f && u + v <= 1.0f && t > r.tmn && t < b.t;
+          if (ok && t < hit_t) {
+            hit_t = t;
+            hit_id = ids[k];
+            hit_u = u;
+            hit_v = v;
+          }
+        }
+      }
+      const bool leaf_hit = hit_t < __int_as_float(0x7f800000);
+      if (leaf_hit) {
+        b.t = hit_t;
+        b.tri = hit_id;
+        b.u = hit_u;
+        b.v = hit_v;
+      }
+      nxt = (leaf_hit && anyh) ? kDone : kPop;
+    }
+  }
+  if (nxt == kPop) {
+    if (w.n > 0) {
+      nxt = stack[w.pos];
+      w.pos = w.pos == 0 ? stack_depth - 1 : w.pos - 1;
+      --w.n;
+    } else {
+      nxt = kDone;
+    }
+  }
+  return nxt;
+}
+
 // Runs the ray from state `cur` ((root << 8) | 0xFF) until it is done, its
 // step cap is hit, or (anyh) its first leaf hit.
 template <class Visit>
@@ -95,139 +250,16 @@ __device__ __forceinline__ void traverse(const float4* __restrict__ table,
                                          int max_iters, Best& b, int& steps,
                                          uint8_t& flags, Visit& visit) {
   int stack[kMaxStack];
-  int pos = 0, n = 0;
-  float tent = 0.0f;  // entry t of the last descend
+  Walk w;
+  w.init();
   while (cur != kDone) {
     if (steps >= max_iters) {
       flags |= 1;
       break;
     }
     ++steps;
-    int row_idx = cur >= 0 ? (cur >> 8) : (-2 - cur);
-    int nxt;
-    if (cur < 0 && row_idx >= n_real) {
-      visit(row_idx - n_real, tent);
-      nxt = kPop;
-    } else {
-      row_idx = min(max(row_idx, 0), n_rows - 1);
-      const float4* row = table + (size_t)row_idx * 32;
-      if (cur >= 0) {
-        float best_t = __int_as_float(0x7f800000);
-        int best_j = 0, link_best = 0, elig_bits = 0;
-#pragma unroll
-        for (int g = 0; g < 2; ++g) {
-          const float4 lx = row[g], ly = row[2 + g], lz = row[4 + g];
-          const float4 hx = row[6 + g], hy = row[8 + g], hz = row[10 + g];
-          const float4 lk = row[12 + g];
-          const float alx[4] = {lx.x, lx.y, lx.z, lx.w};
-          const float aly[4] = {ly.x, ly.y, ly.z, ly.w};
-          const float alz[4] = {lz.x, lz.y, lz.z, lz.w};
-          const float ahx[4] = {hx.x, hx.y, hx.z, hx.w};
-          const float ahy[4] = {hy.x, hy.y, hy.z, hy.w};
-          const float ahz[4] = {hz.x, hz.y, hz.z, hz.w};
-          const int alk[4] = {__float_as_int(lk.x), __float_as_int(lk.y),
-                              __float_as_int(lk.z), __float_as_int(lk.w)};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int j = 4 * g + k;
-            const float t0x = (alx[k] - r.ox) * r.ix, t1x = (ahx[k] - r.ox) * r.ix;
-            const float t0y = (aly[k] - r.oy) * r.iy, t1y = (ahy[k] - r.oy) * r.iy;
-            const float t0z = (alz[k] - r.oz) * r.iz, t1z = (ahz[k] - r.oz) * r.iz;
-            const float tn = maxp(maxp(minp(t0x, t1x), minp(t0y, t1y)),
-                                  maxp(minp(t0z, t1z), r.tmn));
-            const float tf = minp(minp(maxp(t0x, t1x), maxp(t0y, t1y)),
-                                  minp(maxp(t0z, t1z), b.t));
-            const bool elig = (tn <= tf) && alk[k] != kDone && ((cur >> j) & 1);
-            if (elig) {
-              elig_bits |= 1 << j;
-              if (tn < best_t) {
-                best_t = tn;
-                best_j = j;
-                link_best = alk[k];
-              }
-            }
-          }
-        }
-        if (best_t < __int_as_float(0x7f800000)) {
-          nxt = link_best >= 0 ? ((link_best << 8) | 0xFF) : link_best;
-          tent = best_t;
-          const int remaining = elig_bits & ~(1 << best_j);
-          if (remaining != 0) {
-            pos = pos + 1 == stack_depth ? 0 : pos + 1;
-            stack[pos] = (cur & ~0xFF) | remaining;
-            if (n == stack_depth) {
-              flags |= 2;
-            } else {
-              ++n;
-            }
-          }
-        } else {
-          nxt = kPop;
-        }
-      } else {
-        float hit_t = __int_as_float(0x7f800000), hit_u = 0.0f, hit_v = 0.0f;
-        int hit_id = -1;
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          float4 q[9];
-#pragma unroll
-          for (int a = 0; a < 9; ++a) q[a] = row[3 * a + g];
-          const float4 qi = row[27 + g];
-          const int ids[4] = {__float_as_int(qi.x), __float_as_int(qi.y),
-                              __float_as_int(qi.z), __float_as_int(qi.w)};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            float c[9];
-#pragma unroll
-            for (int a = 0; a < 9; ++a) {
-              c[a] = k == 0 ? q[a].x : k == 1 ? q[a].y : k == 2 ? q[a].z : q[a].w;
-            }
-            const float v0x = c[0], v0y = c[1], v0z = c[2];
-            const float e1x = c[3], e1y = c[4], e1z = c[5];
-            const float e2x = c[6], e2y = c[7], e2z = c[8];
-            const float px = r.dy * e2z - r.dz * e2y;
-            const float py = r.dz * e2x - r.dx * e2z;
-            const float pz = r.dx * e2y - r.dy * e2x;
-            const float det = e1x * px + e1y * py + e1z * pz;
-            const float inv_det = fabsf(det) < 1e-12f ? 0.0f : 1.0f / det;
-            const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-            const float u = (tx * px + ty * py + tz * pz) * inv_det;
-            const float qx = ty * e1z - tz * e1y;
-            const float qy = tz * e1x - tx * e1z;
-            const float qz = tx * e1y - ty * e1x;
-            const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-            const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-            const bool ok = ids[k] != -1 && fabsf(det) >= 1e-12f && u >= 0.0f &&
-                            v >= 0.0f && u + v <= 1.0f && t > r.tmn && t < b.t;
-            if (ok && t < hit_t) {
-              hit_t = t;
-              hit_id = ids[k];
-              hit_u = u;
-              hit_v = v;
-            }
-          }
-        }
-        const bool leaf_hit = hit_t < __int_as_float(0x7f800000);
-        if (leaf_hit) {
-          b.t = hit_t;
-          b.tri = hit_id;
-          b.u = hit_u;
-          b.v = hit_v;
-        }
-        nxt = (leaf_hit && anyh) ? kDone : kPop;
-      }
-    }
-    if (nxt == kPop) {
-      if (n > 0) {
-        cur = stack[pos];
-        pos = pos == 0 ? stack_depth - 1 : pos - 1;
-        --n;
-      } else {
-        cur = kDone;
-      }
-    } else {
-      cur = nxt;
-    }
+    cur = step(table, n_rows, n_real, r, cur, anyh, stack_depth, stack, w, b,
+               flags, visit);
   }
 }
 

@@ -1,18 +1,22 @@
 """The BSDF system: sample / evaluate / pdf.
 
-Port of ``cudatracerlib_tpu/models/bsdf.py`` for the diffuse BSDF. Material
-rows are gathered into a flat ``BsdfCtx``, with their textures evaluated
-(ops/texture.py), and every lane evaluates the closed forms of the types
-present in the scene (a static tuple), selecting per-lane results with
-masks. The other 15 types and nested (coating/blend) materials are not
-ported yet: asking for them raises.
+Port of ``cudatracerlib_tpu/models/bsdf.py`` for the diffuse, conductor
+and rough-conductor BSDFs. Material rows are gathered into a flat
+``BsdfCtx``, with their textures evaluated (ops/texture.py), and every lane
+evaluates the closed forms of the types present in the scene (a static
+tuple), selecting per-lane results with masks. The other 10 simple types
+and the nested (coating, rough coating, blend) materials are not ported
+yet: asking for them raises.
 
 Conventions (Mitsuba): directions in the local shading frame, +z = normal,
 `wi` the fixed incident direction, `wo` the sampled/queried outgoing one,
-both pointing away from the surface. `evaluate` returns f(wi,wo)*|cos_o|.
+both pointing away from the surface. `evaluate` returns f(wi,wo)*|cos_o|
+for smooth lobes only; delta lobes (the conductor) only appear through
+`sample`.
 
-Param layout (MaterialTable.params): [0:3] reflectance ... [19:22]
-transmittance/diffuse, [22] two-sided flag (see the JAX module).
+Param layout (MaterialTable.params): [0:3] reflectance [5] mf distribution
+[6] alpha_u [7] alpha_v [8:11] conductor eta [11:14] conductor k ...
+[19:22] transmittance/diffuse, [22] two-sided flag (see the JAX module).
 """
 from __future__ import annotations
 
@@ -21,8 +25,11 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..core import fresnel
+from ..core import microfacet as mf
 from ..core import records
 from ..core import rng as rngmod
+from ..core import vecmath as vm
 from ..core import warp
 from ..ops import texture as texmod
 from ..scene import schema
@@ -31,7 +38,8 @@ Tensor = torch.Tensor
 INV_PI = 1.0 / math.pi
 
 ALL_TYPES = tuple(range(16))
-PORTED_TYPES = (schema.BSDF_DIFFUSE,)
+PORTED_TYPES = (schema.BSDF_DIFFUSE, schema.BSDF_CONDUCTOR,
+                schema.BSDF_ROUGHCONDUCTOR)
 _NESTED_TYPES = (schema.BSDF_COATING, schema.BSDF_ROUGHCOATING,
                  schema.BSDF_BLEND)
 # BSDFs that transmit (skip the two-sided flip)
@@ -144,6 +152,23 @@ def scene_has_bump(scene: schema.SceneData) -> bool:
     return bool((schema.host_meta(scene)["mat_tex"][:, 3] >= 0).any())
 
 
+def _mirror(w: Tensor) -> Tensor:
+    """Specular reflection about +z."""
+    return torch.stack([-w[..., 0], -w[..., 1], w[..., 2]], dim=-1)
+
+
+def _dist(params):
+    return params[:, 5].to(torch.int32)
+
+
+def _alphas(params):
+    return params[:, 6].clamp_min(1e-4), params[:, 7].clamp_min(1e-4)
+
+
+def _lum(c: Tensor) -> Tensor:
+    return 0.212671 * c[..., 0] + 0.715160 * c[..., 1] + 0.072169 * c[..., 2]
+
+
 def _diffuse_eval(ctx, wi, wo):
     up = (wi[..., 2] > 0) & (wo[..., 2] > 0)
     f = ctx.c0 * (INV_PI * wo[..., 2].clamp_min(0.0))[..., None]
@@ -163,8 +188,55 @@ def _diffuse_sample(ctx, wi, u):
                      eta=torch.ones(shape, dtype=torch.float32, device=wi.device))
 
 
-_EVAL_FNS = {schema.BSDF_DIFFUSE: _diffuse_eval}
-_SAMPLE_FNS = {schema.BSDF_DIFFUSE: _diffuse_sample}
+def _conductor_sample(ctx, wi, u):
+    wo = _mirror(wi)
+    F = fresnel.fresnel_conductor_exact(wi[..., 2].abs(),
+                                        ctx.params[:, 8:11], ctx.params[:, 11:14])
+    w = torch.where(wi[..., 2, None] > 0, ctx.c0 * F, 0.0)
+    shape = wi.shape[:-1]
+    return SampleOut(wo=wo, weight=w,
+                     pdf=torch.ones(shape, dtype=torch.float32, device=wi.device),
+                     sampled_type=torch.full(shape, records.T_DELTA_REFLECTION,
+                                             dtype=torch.int32, device=wi.device),
+                     eta=torch.ones(shape, dtype=torch.float32, device=wi.device))
+
+
+def _roughconductor_eval(ctx, wi, wo):
+    up = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    a_u, a_v = _alphas(ctx.params)
+    dist = _dist(ctx.params)
+    h = vm.normalize(wi + wo)
+    D = mf.eval_d(dist, a_u, a_v, h)
+    G = mf.smith_g(dist, a_u, a_v, wi, wo, h)
+    F = fresnel.fresnel_conductor_exact(vm.dot(wi, h),
+                                        ctx.params[:, 8:11], ctx.params[:, 11:14])
+    ci = wi[..., 2].abs().clamp_min(1e-6)
+    f = ctx.c0 * F * (D * G / (4.0 * ci))[..., None]  # f*cos_o (cos_o cancels)
+    pdf = mf.pdf(dist, a_u, a_v, wi, h) / (4.0 * vm.dot(wo, h).abs()).clamp_min(1e-8)
+    return Lobe(f=torch.where(up[..., None], f, 0.0), pdf=torch.where(up, pdf, 0.0))
+
+
+def _roughconductor_sample(ctx, wi, u):
+    a_u, a_v = _alphas(ctx.params)
+    dist = _dist(ctx.params)
+    m, _ = mf.sample(dist, a_u, a_v, wi, u[..., 1:3])
+    wo = vm.reflect(wi, m)
+    lob = _roughconductor_eval(ctx, wi, wo)
+    w = lob.f / lob.pdf.clamp_min(1e-12)[..., None]
+    valid = (lob.pdf > 0) & (wo[..., 2] > 0)
+    shape = wi.shape[:-1]
+    return SampleOut(wo=wo, weight=torch.where(valid[..., None], w, 0.0), pdf=lob.pdf,
+                     sampled_type=torch.full(shape, records.T_GLOSSY_REFLECTION,
+                                             dtype=torch.int32, device=wi.device),
+                     eta=torch.ones(shape, dtype=torch.float32, device=wi.device))
+
+
+# the conductor is a pure delta lobe: it has a sampler and no evaluation
+_EVAL_FNS = {schema.BSDF_DIFFUSE: _diffuse_eval,
+             schema.BSDF_ROUGHCONDUCTOR: _roughconductor_eval}
+_SAMPLE_FNS = {schema.BSDF_DIFFUSE: _diffuse_sample,
+               schema.BSDF_CONDUCTOR: _conductor_sample,
+               schema.BSDF_ROUGHCONDUCTOR: _roughconductor_sample}
 
 
 def _apply_two_sided(ctx: BsdfCtx, wi: Tensor):
@@ -193,6 +265,8 @@ def evaluate(ctx: BsdfCtx, wi: Tensor, wo: Tensor,
     f = torch.zeros((B, 3), dtype=torch.float32, device=wi.device)
     pdf = torch.zeros(B, dtype=torch.float32, device=wi.device)
     for t in active_types:
+        if t not in _EVAL_FNS:
+            continue
         lob = _EVAL_FNS[t](ctx, wi, wo)
         m = ctx.mat_type == t
         f = torch.where(m[..., None], lob.f, f)

@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..scene import schema
+
 Tensor = torch.Tensor
 
 
@@ -29,7 +31,10 @@ class Film(NamedTuple):
         return self.rgb.shape[1]
 
 
-def new_film(w: int, h: int, device="cpu") -> Film:
+def new_film(w: int, h: int, device="cuda") -> Film:
+    """An empty film on `device` (the card unless the caller asks for the
+    CPU; raises without one)."""
+    device = schema.resolve_device(device)
     return Film(rgb=torch.zeros((h, w, 3), dtype=torch.float32, device=device),
                 weight=torch.zeros((h, w), dtype=torch.float32, device=device),
                 splat=torch.zeros((h, w, 3), dtype=torch.float32, device=device),

@@ -1,20 +1,26 @@
 """Wide (8-ary) BVH traversal over the fat-row table.
 
-Port of ``cudatracerlib_tpu/ops/traversal8.py``. Two implementations of one
-traversal, with the same per-ray semantics, step counts and flags:
+Port of ``cudatracerlib_tpu/ops/traversal8.py``. Three implementations of
+one traversal, with the same per-ray semantics, step counts and flags:
 
-- ``intersect_wide_cuda``: the wrapper of the hand-written Hopper kernel
+- ``intersect_wide_cuda``: the wrapper of the hand-written Hopper kernel K1,
   ``csrc/traversal8.cu``, which replaces the TPU kernel
   ``cudatracerlib_tpu/ops/traversal_pl.py::_traverse_kernel``. It takes CUDA
   tensors only.
-- ``intersect_wide``: its plain PyTorch version, a lockstep batch loop like
-  the JAX ``intersect_wide`` (``_lockstep``, shared with the plain versions
-  of K2 and K3). It serves CPU tensors, and the tests and ``chip_smoke.py``
-  hold the kernel against it.
+- ``intersect_wide_pool_cuda``: the wrapper of K4, ``csrc/traversal_pool.cu``,
+  which replaces the TPU kernel ``traversal_pl.py::_traverse_kernel_pool``:
+  persistent warps that take rays from a global queue. It computes exactly
+  K1's function and only schedules rays differently, so its plain version
+  is ``intersect_wide`` itself. CUDA tensors only.
+- ``intersect_wide``: the plain PyTorch version of both, a lockstep batch
+  loop like the JAX ``intersect_wide`` (``_lockstep``, shared with the
+  plain versions of K2 and K3). It serves CPU tensors, and the tests and
+  ``chip_smoke.py`` hold the kernels against it.
 
 ``intersect_scene`` sends a table with treelet tables to the two-phase
 treelet traversal (``ops/traversal_tt.py``) with K1 as its exactness
-fallback, and any other table to one of the two above, by its device.
+fallback, and any other table by its device to K1 (K4 with ``pool``) or to
+the plain version.
 
 Per ray: a stack entry is (row << 8) | unvisited-child mask; the stack is a
 ring of ``stack_depth`` entries that drops its oldest entry when a push
@@ -42,6 +48,11 @@ MAX_ITERS = 4096
 FLAG_CAPPED = 1
 FLAG_OVERFLOW = 2
 _INF = float("inf")
+# float32 operations of a node step, counted from csrc/bvh8_traverse.cuh:
+# 26 per child (6 subtractions and 6 products for the slab distances, 12
+# min/max, 2 compares) for 8 children. A leaf step does more (about 54 per
+# triangle for 12 triangles), so steps times this is a lower bound.
+NODE_STEP_FLOPS = 26 * 8
 
 
 def pack_unified(bvh8_nodes, bvh8_leaves):
@@ -274,15 +285,6 @@ def _ptr(x):
     return None if x is None else ctypes.c_void_p(x.data_ptr())
 
 
-def _load_kernel():
-    fn = cuda_build.load_library("traversal8.cu").ctl_traverse8
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                   vp, vp, vp, vp, vp, vp, vp]
-    fn.restype = ci
-    return fn
-
-
 def _require(x: Tensor, name: str, dtype, shape, device):
     if not isinstance(x, Tensor):
         raise TypeError(f"{name} must be a tensor")
@@ -324,16 +326,14 @@ def _mask_u8(any_mask: Tensor, B: int, dev):
     return any_mask.view(torch.uint8)
 
 
-def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
-                        stack_depth: int = STACK_DEPTH,
-                        max_iters: int = MAX_ITERS, roots: Tensor = None,
-                        with_iters: bool = False, any_mask: Tensor = None):
-    """Launch ``csrc/traversal8.cu`` on the current stream: the same
-    signature, results, step counts and flags as ``intersect_wide``.
+_WIDE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
 
-    Takes CUDA tensors only: (R, 128) float32 table; rays o, d (B, 3) and
-    tmin, tmax (B,) float32; roots (B,) int32; any_mask (B,) bool. Raises on
-    anything else. Each launch adds one to ``intersect_wide_cuda.launches``."""
+
+def _wide_args(table: Tensor, rays: Rays, any_hit, stack_depth, max_iters,
+               roots, any_mask):
+    """Check the arguments that K1 and K4 share and allocate their outputs:
+    (the C entry's leading arguments, (t, tri, u, v, steps, flags))."""
     _check_args(any_hit, stack_depth, any_mask)
     _check_table(table, "table")
     dev = table.device
@@ -341,28 +341,88 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
     if roots is not None:
         _require(roots, "roots", torch.int32, (B,), dev)
     mask_u8 = _mask_u8(any_mask, B, dev)
-    t = torch.empty(B, dtype=torch.float32, device=dev)
-    tri = torch.empty(B, dtype=torch.int32, device=dev)
-    u = torch.empty(B, dtype=torch.float32, device=dev)
-    v = torch.empty(B, dtype=torch.float32, device=dev)
-    steps = torch.empty(B, dtype=torch.int32, device=dev)
-    flags = torch.empty(B, dtype=torch.uint8, device=dev)
-    fn = _load_kernel()
-    err = fn(_ptr(table), table.shape[0], _ptr(rays.o), _ptr(rays.d),
-             _ptr(rays.tmin), _ptr(rays.tmax), _ptr(roots), _ptr(mask_u8), B,
-             int(bool(any_hit)), stack_depth, max_iters, _ptr(t), _ptr(tri),
-             _ptr(u), _ptr(v), _ptr(steps), _ptr(flags),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    out = tuple(torch.empty(B, dtype=dt, device=dev) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32, torch.int32,
+        torch.uint8))
+    args = [_ptr(table), table.shape[0], _ptr(rays.o), _ptr(rays.d),
+            _ptr(rays.tmin), _ptr(rays.tmax), _ptr(roots), _ptr(mask_u8), B,
+            int(bool(any_hit)), stack_depth, max_iters, *(_ptr(x) for x in out)]
+    return args, out
+
+
+def _wide_result(err: int, out, with_iters: bool):
     if err != 0:
-        raise RuntimeError(f"traversal8 kernel launch failed: CUDA error {err}")
-    intersect_wide_cuda.launches += 1
+        raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
+    t, tri, u, v, steps, flags = out
     hit = Hit(t=t, tri=tri, u=u, v=v)
     if with_iters:
         return hit, steps, flags
     return hit
 
 
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
+                        stack_depth: int = STACK_DEPTH,
+                        max_iters: int = MAX_ITERS, roots: Tensor = None,
+                        with_iters: bool = False, any_mask: Tensor = None):
+    """Launch K1 (``csrc/traversal8.cu``) on the current stream: the same
+    signature, results, step counts and flags as ``intersect_wide``.
+
+    Takes CUDA tensors only: (R, 128) float32 table; rays o, d (B, 3) and
+    tmin, tmax (B,) float32; roots (B,) int32; any_mask (B,) bool. Raises on
+    anything else. Each launch adds one to ``intersect_wide_cuda.launches``."""
+    args, out = _wide_args(table, rays, any_hit, stack_depth, max_iters, roots,
+                           any_mask)
+    fn = cuda_build.load_library("traversal8.cu").ctl_traverse8
+    fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    res = _wide_result(fn(*args, _stream(table.device)), out, with_iters)
+    intersect_wide_cuda.launches += 1
+    return res
+
+
 intersect_wide_cuda.launches = 0
+
+
+def intersect_wide_pool_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
+                             stack_depth: int = STACK_DEPTH,
+                             max_iters: int = MAX_ITERS, roots: Tensor = None,
+                             with_iters: bool = False, any_mask: Tensor = None):
+    """Launch K4 (``csrc/traversal_pool.cu``) on the current stream: K1's
+    signature, checks and outputs, bit for bit, for any order of the rays.
+    Its queue counter is an int32 scratch tensor allocated here; the C entry
+    zeroes it on the stream before the launch. Each launch adds one to
+    ``intersect_wide_pool_cuda.launches``."""
+    args, out = _wide_args(table, rays, any_hit, stack_depth, max_iters, roots,
+                           any_mask)
+    counter = torch.empty(1, dtype=torch.int32, device=table.device)
+    fn = cuda_build.load_library("traversal_pool.cu").ctl_traverse_pool
+    fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    res = _wide_result(fn(*args, _ptr(counter), _stream(table.device)), out,
+                       with_iters)
+    intersect_wide_pool_cuda.launches += 1
+    return res
+
+
+intersect_wide_pool_cuda.launches = 0
+
+
+def intersect_wide_pool(table: Tensor, rays: Rays, any_hit: bool = False,
+                        stack_depth: int = STACK_DEPTH,
+                        max_iters: int = MAX_ITERS, roots: Tensor = None,
+                        with_iters: bool = False, any_mask: Tensor = None):
+    """The pool traversal (JAX ``traversal_pl.intersect_pallas_pool``): K4
+    for a CUDA table; for a CPU table its plain version, which is
+    ``intersect_wide`` (K4 computes K1's function). Same signature and
+    outputs as ``intersect_wide``."""
+    fn = _wide_fn(table, pool=True)
+    return fn(table, rays, any_hit=any_hit, stack_depth=stack_depth,
+              max_iters=max_iters, roots=roots, with_iters=with_iters,
+              any_mask=any_mask)
 
 
 V_COHERENT = 6     # treelet visit budget of camera rays
@@ -379,15 +439,19 @@ def treelet_would_dispatch(geom, coherent: bool = True,
 
 def intersect_scene(geom, rays: Rays, any_hit: bool = False,
                     roots: Tensor = None, with_iters: bool = False,
-                    coherent: bool = False, any_mask: Tensor = None):
+                    coherent: bool = False, any_mask: Tensor = None,
+                    pool: bool = False):
     """Production intersector over a GeometryTable's fat-row table.
 
     A table with treelet tables goes to the two-phase treelet traversal
     (``intersect_treelet_exact``: K2, K3 and the K1 fallback on CUDA, their
     plain versions on the CPU); `coherent` picks its visit budget
-    (V_COHERENT for camera rays, V_INCOHERENT otherwise). Any other table
-    goes to K1 (``intersect_wide_cuda``) when it is a CUDA table, of any
-    size, or to its plain version (``intersect_wide``) on the CPU.
+    (V_COHERENT for camera rays, V_INCOHERENT otherwise), and `pool` is
+    ignored, as the JAX dispatch only pools its small-table branch. Any
+    other table goes, when it is a CUDA table of any size, to K1
+    (``intersect_wide_cuda``) or with `pool` to K4
+    (``intersect_wide_pool_cuda``), and on the CPU to their plain version
+    (``intersect_wide``).
 
     with_iters=True returns (hit, iters, rows, ovf), all int64 counters:
     iters is the sum of the steps of every kernel the rays went through,
@@ -403,8 +467,9 @@ def intersect_scene(geom, rays: Rays, any_hit: bool = False,
                                        coherent=coherent,
                                        with_iters=with_iters,
                                        any_mask=any_mask)
-    res = _wide_fn(geom.wide)(geom.wide, rays, any_hit=any_hit, roots=roots,
-                              with_iters=with_iters, any_mask=any_mask)
+    res = _wide_fn(geom.wide, pool)(geom.wide, rays, any_hit=any_hit,
+                                    roots=roots, with_iters=with_iters,
+                                    any_mask=any_mask)
     if not with_iters:
         return res
     hit, steps, flags = res
@@ -412,9 +477,9 @@ def intersect_scene(geom, rays: Rays, any_hit: bool = False,
     return hit, iters, iters, _flag_counts(flags)
 
 
-def _wide_fn(table: Tensor):
+def _wide_fn(table: Tensor, pool: bool = False):
     if table.is_cuda:
-        return intersect_wide_cuda
+        return intersect_wide_pool_cuda if pool else intersect_wide_cuda
     if table.device.type == "cpu":
         return intersect_wide
     raise ValueError(f"no traversal for a table on {table.device}")

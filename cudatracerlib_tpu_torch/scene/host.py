@@ -217,17 +217,22 @@ class DynamicScene:
     def set_sensor(self, sensor: schema.SensorData):
         self._sensor = sensor
 
-    def sensor_data(self, device="cpu") -> schema.SensorData:
-        """The scene's sensor with its tensors on `device`."""
+    def sensor_data(self, device="cuda") -> schema.SensorData:
+        """The scene's sensor with its tensors on `device` (the card unless
+        the caller asks for the CPU; raises without one)."""
+        device = schema.resolve_device(device)
         sensor = self._sensor
         return sensor._replace(to_world=sensor.to_world.to(device),
                                to_world_inv=sensor.to_world_inv.to(device),
                                params=sensor.params.to(device))
 
     # -- build -------------------------------------------------------------
-    def build(self, device="cpu") -> schema.SceneData:
+    def build(self, device="cuda") -> schema.SceneData:
         """Flatten every node into one world-space triangle soup, build its
-        BVH8 and pack the device tables onto `device`."""
+        BVH8 and pack the device tables onto `device`: the card unless the
+        caller asks for the CPU (``build("cpu")``). Raises without a card,
+        before any host work; nothing falls back to the CPU."""
+        device = schema.resolve_device(device)
         nodes = self._nodes
         if not nodes:
             raise ValueError("scene has no geometry")

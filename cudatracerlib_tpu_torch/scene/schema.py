@@ -237,6 +237,18 @@ def host_meta(scene: SceneData) -> dict:
     return scene.host
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point of the port builds on. The default is the
+    card; asking for a CUDA device without one raises (pass "cpu" to build
+    on the CPU): nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for {device!r}: the port builds on the card "
+            "unless the caller asks for the CPU (device='cpu')")
+    return dev
+
+
 def to_tensor(a, device) -> Tensor:
     """numpy -> tensor on `device`, with the JAX package's 32-bit
     canonicalisation (float64 -> float32, int64 -> int32)."""
@@ -251,7 +263,7 @@ def to_tensor(a, device) -> Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def scene_from_numpy(arrays: dict, host_meta: dict, device) -> SceneData:
+def scene_from_numpy(arrays: dict, host_meta: dict, device="cuda") -> SceneData:
     """Build the port's SceneData from a JAX SceneData flattened to numpy.
 
     `arrays` maps dotted leaf names ("geom.wide", "lights.al_rows",
@@ -259,7 +271,9 @@ def scene_from_numpy(arrays: dict, host_meta: dict, device) -> SceneData:
     scene holds as None are simply absent. Bitcast int32 payloads travel as
     the float32 bits they are stored in; nothing converts their values.
     The treelet tables arrive in the JAX device layout (transposed, padded)
-    and are turned back into the port's row-major layout."""
+    and are turned back into the port's row-major layout. `device` defaults
+    to the card (``resolve_device``)."""
+    device = resolve_device(device)
     arrays = dict(arrays)
     if "geom.tt_top" in arrays:
         from . import treelet

@@ -44,6 +44,95 @@ def cornell_box(width: int = 256, height: int = 256, spheres: bool = True):
     return sc
 
 
+def veach_mis(width: int = 512, height: int = 512):
+    """Veach MIS scene: four glossy bars of increasing roughness lit by four
+    sphere lights of increasing size and equal power (BASELINE config 2)."""
+    sc = host.DynamicScene()
+    floor_m = sc.add_material(host.MaterialSpec(reflectance=(0.4, 0.4, 0.4)))
+    back_m = sc.add_material(host.MaterialSpec(reflectance=(0.25, 0.25, 0.25)))
+    black = sc.add_material(host.MaterialSpec(reflectance=(0.0, 0.0, 0.0)))
+
+    rect = shapes.rectangle()
+    sc.create_node(rect, floor_m,
+                   tf.compose(tf.translate([0, -2, 0]), tf.rotate_deg([1, 0, 0], -90),
+                              tf.scale(12.0)), name="floor")
+    sc.create_node(rect, back_m,
+                   tf.compose(tf.translate([0, 2, 6]), tf.rotate_deg([0, 1, 0], 180),
+                              tf.scale(12.0)), name="back")
+
+    # four bars: thin slabs tilted toward the camera, roughness ramp
+    alphas = (0.005, 0.02, 0.05, 0.1)
+    for i, a in enumerate(alphas):
+        m = sc.add_material(host.MaterialSpec(
+            bsdf_type=schema.BSDF_ROUGHCONDUCTOR, alpha=a, distribution=1,
+            eta_c=(0.2, 0.92, 1.1), k_c=(3.9, 2.45, 2.14)))
+        y = -1.7 + i * 0.5
+        z = 2.0 - i * 0.7
+        sc.create_node(shapes.cube(), m,
+                       tf.compose(tf.translate([0, y, z]),
+                                  tf.rotate_deg([1, 0, 0], -25),
+                                  tf.scale([4.0, 0.03, 0.35])),
+                       name=f"bar{i}")
+
+    # four sphere lights, equal power: radiance ~ 1/r^2
+    radii = (0.035, 0.09, 0.25, 0.6)
+    xs = (-3.0, -1.0, 1.0, 3.0)
+    power = 3.0
+    for i, (r, x) in enumerate(zip(radii, xs)):
+        le = power / (r * r * 4 * np.pi * np.pi)
+        sc.create_node(shapes.sphere(radius=r, n_theta=12, n_phi=24), black,
+                       tf.translate([x, 2.2, 2.0]),
+                       emission=(le, le, le), name=f"light{i}")
+
+    cam = sensors.make_sensor(
+        schema.SENSOR_PERSPECTIVE,
+        tf.look_at([0, 0.8, -7.5], [0, 0.0, 2.0]),
+        fov_x_deg=38.0, film_w=width, film_h=height)
+    sc.set_sensor(cam)
+    return sc
+
+
+def veach_mis_anchor(width: int = 48, height: int = 48):
+    """Low-tessellation veach-mis variant for the external RMSE anchor
+    (tools/ref_renderer.py): same four-bar/four-sphere-light MIS setup, but
+    sphere lights at 6x12 tessellation so the brute-force (no-BVH) reference
+    renderer converges in minutes on one CPU core.  Geometry is shared data
+    between both renderers; everything else about them is independent."""
+    sc = host.DynamicScene()
+    floor_m = sc.add_material(host.MaterialSpec(reflectance=(0.4, 0.4, 0.4)))
+    back_m = sc.add_material(host.MaterialSpec(reflectance=(0.25, 0.25, 0.25)))
+    black = sc.add_material(host.MaterialSpec(reflectance=(0.0, 0.0, 0.0)))
+    rect = shapes.rectangle()
+    sc.create_node(rect, floor_m,
+                   tf.compose(tf.translate([0, -2, 0]), tf.rotate_deg([1, 0, 0], -90),
+                              tf.scale(12.0)), name="floor")
+    sc.create_node(rect, back_m,
+                   tf.compose(tf.translate([0, 2, 6]), tf.rotate_deg([0, 1, 0], 180),
+                              tf.scale(12.0)), name="back")
+    for i, a in enumerate((0.005, 0.02, 0.05, 0.1)):
+        m = sc.add_material(host.MaterialSpec(
+            bsdf_type=schema.BSDF_ROUGHCONDUCTOR, alpha=a, distribution=1,
+            eta_c=(0.2, 0.92, 1.1), k_c=(3.9, 2.45, 2.14)))
+        sc.create_node(shapes.cube(), m,
+                       tf.compose(tf.translate([0, -1.7 + i * 0.5, 2.0 - i * 0.7]),
+                                  tf.rotate_deg([1, 0, 0], -25),
+                                  tf.scale([4.0, 0.03, 0.35])),
+                       name=f"bar{i}")
+    radii = (0.035, 0.09, 0.25, 0.6)
+    xs = (-3.0, -1.0, 1.0, 3.0)
+    for i, (r, x) in enumerate(zip(radii, xs)):
+        le = 3.0 / (r * r * 4 * np.pi * np.pi)
+        sc.create_node(shapes.sphere(radius=r, n_theta=6, n_phi=12), black,
+                       tf.translate([x, 2.2, 2.0]),
+                       emission=(le, le, le), name=f"light{i}")
+    cam = sensors.make_sensor(
+        schema.SENSOR_PERSPECTIVE,
+        tf.look_at([0, 0.8, -7.5], [0, 0.0, 2.0]),
+        fov_x_deg=38.0, film_w=width, film_h=height)
+    sc.set_sensor(cam)
+    return sc
+
+
 def _noise_texture(n: int = 256, seed: int = 7) -> np.ndarray:
     """Multi-octave value-noise RGB image (keeps the image-texture path hot
     without any external asset)."""

@@ -30,16 +30,16 @@ B = 4096
 ROT = jtf.rotate_deg([0.3, 1.0, 0.2], 35.0)
 
 
-def _scene(scenes):
+def _scene(scenes, *device):
     sc = scenes.cornell_box(8, 8)
     sc.set_environment(scenes._sky_envmap(), scale=(1.0, 0.9, 0.8), to_world=ROT)
     sc.add_distant_light(direction=(-0.45, -0.75, 0.49), radiance=(2.0, 1.8, 1.5))
-    return sc.build()
+    return sc.build(*device)
 
 
 @pytest.fixture(scope="module")
 def scenes():
-    return _scene(jscenes), _scene(tscenes)
+    return _scene(jscenes), _scene(tscenes, "cpu")
 
 
 def _dirs():

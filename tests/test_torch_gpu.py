@@ -8,7 +8,9 @@ on the card's machine, which has no JAX:
 
 (``--noconftest`` skips tests/conftest.py, which sets JAX up.) The
 kernels are built with -fmad=false and must agree with their plain
-versions bit for bit: hits, visit lists, counts, step counts and flags."""
+versions bit for bit: hits, visit lists, counts, step counts and flags.
+K4, the pool traversal, must equal K1 on every field, for any order of
+the rays."""
 import numpy as np
 import pytest
 import torch
@@ -96,3 +98,43 @@ def test_path_without_nee_on_gpu(dev):
                     .render(1).cpu())
     rel = float((imgs[0] - imgs[1]).abs().mean() / imgs[1].mean())
     assert rel < 1e-3, rel
+
+
+@pytest.mark.gpu
+def test_pool_kernel_matches_k1_on_gpu(dev):
+    """K4 against K1 and the plain version on veach-mis camera rays and
+    random rays, closest / any-hit / mixed, and on the rays shuffled."""
+    sc = tscenes.veach_mis(64, 64).build(dev)
+    table = sc.geom.wide
+    pix = torch.arange(4096, dtype=torch.int32, device=dev)
+    cam = ttracer.gen_camera_rays(sc, pix, 0, 0, 64, 64)[0]
+    r = np.random.default_rng(3)
+    o = r.uniform(-3, 3, (N_RAYS, 3)).astype(np.float32)
+    d = r.normal(size=(N_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    B = 4096 + N_RAYS
+    rays = Rays(torch.cat([cam.o, torch.from_numpy(o).to(dev)]),
+                torch.cat([cam.d, torch.from_numpy(d).to(dev)]),
+                torch.full((B,), 1e-4, device=dev), torch.full((B,), 1e30, device=dev))
+    amask = torch.from_numpy(r.random(B) < 0.5).to(dev)
+    perm = torch.from_numpy(r.permutation(B)).to(dev)
+    shuffled = Rays(*(x[perm].contiguous() for x in rays))
+    for kw, kw_s in (({}, {}), (dict(any_hit=True), dict(any_hit=True)),
+                     (dict(any_mask=amask), dict(any_mask=amask[perm]))):
+        k4 = traversal8.intersect_wide_pool_cuda(table, rays, with_iters=True, **kw)
+        k1 = traversal8.intersect_wide_cuda(table, rays, with_iters=True, **kw)
+        p = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+        _equal((*k4[0], k4[1], k4[2]), (*k1[0], k1[1], k1[2]))
+        _equal((*k4[0], k4[1], k4[2]), (*p[0], p[1], p[2]))
+        ks = traversal8.intersect_wide_pool_cuda(table, shuffled, with_iters=True, **kw_s)
+        un = [None if x is None else torch.empty_like(x).index_copy_(0, perm, x)
+              for x in (*ks[0], ks[1], ks[2])]
+        _equal(un, (*k1[0], k1[1], k1[2]))
+
+
+@pytest.mark.gpu
+def test_microbench_kernels_match_plain_on_gpu(dev):
+    from cudatracerlib_tpu_torch.utils import microbench as mb
+    res = mb.measure(dev, table_rows=(331, 4096), gathers=65536, loop_steps=512,
+                     queue_items=(65536,))
+    assert mb.max_abs_err(res) == 0, res

@@ -12,7 +12,12 @@ image and a checkerboard texture, a distant light and the sky map) is held
 to the JAX PathTracer the same way at 32x32, depth 3. On the CPU the JAX
 package traverses the single table while the port runs the plain versions
 of its treelet path (K2, K3, K1 fallback), so the comparison also holds
-the treelet path to the single-table traversal end to end."""
+the treelet path to the single-table traversal end to end.
+
+veach-mis (four GGX rough-conductor bars, alpha 0.005-0.1, and four sphere
+lights as emissive meshes) is held to the JAX PathTracer pass for pass at
+32x32, depth 5, 2 passes, at the same bars; the port's pool traversal
+(K4's plain version on the CPU) gives the same film as K1's."""
 import os
 
 import numpy as np
@@ -34,7 +39,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "cornell_32_pt.npz")
 
 def test_pt_chunk_pass_for_pass():
     jtr = jpath.PathTracer(jscenes.cornell_box(32, 32).build(), 32, 32, max_depth=4)
-    ttr = tpath.PathTracer(tscenes.cornell_box(32, 32).build(), 32, 32, max_depth=4)
+    ttr = tpath.PathTracer(tscenes.cornell_box(32, 32).build("cpu"), 32, 32, max_depth=4)
     for _ in range(2):
         jtr.do_pass()
         ttr.do_pass()
@@ -59,7 +64,7 @@ def test_san_miguel_pass_for_pass(monkeypatch, tmp_path):
     monkeypatch.setattr(jtreelet, "partition_cached",
                         lambda table, **kw: jtreelet.partition(table, **kw))
     jsc = jscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
-    tsc = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    tsc = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build("cpu")
     assert traversal8.treelet_would_dispatch(tsc.geom)
     jtr = jpath.PathTracer(jsc, 32, 32, max_depth=3)
     ttr = tpath.PathTracer(tsc, 32, 32, max_depth=3)
@@ -81,7 +86,7 @@ def test_san_miguel_pass_for_pass(monkeypatch, tmp_path):
 
 def test_cornell_golden():
     before = traversal8.intersect_wide_cuda.launches
-    tr = tpath.PathTracer(tscenes.cornell_box(32, 32).build(), 32, 32,
+    tr = tpath.PathTracer(tscenes.cornell_box(32, 32).build("cpu"), 32, 32,
                           max_depth=4, spp_per_pass=1)
     img = tr.render(16).numpy()
     ref = np.load(GOLDEN)["img"]
@@ -93,8 +98,32 @@ def test_cornell_golden():
 
 
 def test_unported_features_raise():
-    sc = tscenes.cornell_box(8, 8).build()
+    sc = tscenes.cornell_box(8, 8).build("cpu")
     with pytest.raises(NotImplementedError):
         tpath.PathTracer(sc, 8, 8, sampler_type=2)
     with pytest.raises(NotImplementedError):
-        tpath.PathTracer(sc, 8, 8, active_types=(0, 5)).render(1)
+        tpath.PathTracer(sc, 8, 8, active_types=(0, 7)).render(1)
+
+
+def test_veach_mis_pass_for_pass():
+    jtr = jpath.PathTracer(jscenes.veach_mis(32, 32).build(), 32, 32, max_depth=5)
+    sc = tscenes.veach_mis(32, 32).build("cpu")
+    ttr = tpath.PathTracer(sc, 32, 32, max_depth=5)
+    ptr = tpath.PathTracer(sc, 32, 32, max_depth=5, pool=True)
+    assert ttr.active_types == (0, 6)     # diffuse and rough conductor
+    for _ in range(2):
+        jtr.do_pass()
+        ttr.do_pass()
+        ptr.do_pass()
+        j_rgb = np.asarray(jtr.film.rgb)
+        t_rgb = ttr.film.rgb.numpy()
+        rel = np.abs(t_rgb - j_rgb).mean() / j_rgb.mean()
+        assert rel < 0.005, rel
+        np.testing.assert_array_equal(ttr.film.weight.numpy(), np.asarray(jtr.film.weight))
+        j_rays, t_rays = jtr.rays_traced_live, ttr.rays_traced_live
+        assert abs(t_rays - j_rays) <= 1e-3 * j_rays, (t_rays, j_rays)
+    assert np.isfinite(t_rgb).all() and t_rgb.mean() > 0
+    assert ttr._ovf_dev.tolist() == [0, 0]
+    # the pool traversal (on the CPU K1's plain version) gives the same film
+    assert torch.equal(ptr.film.rgb, ttr.film.rgb)
+    assert torch.equal(ptr._iters_dev, ttr._iters_dev)

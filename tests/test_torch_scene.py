@@ -58,7 +58,7 @@ def bits(a):
 @pytest.fixture(scope="module")
 def builds():
     jsc = jscenes.cornell_box(32, 32).build()
-    tsc = tscenes.cornell_box(32, 32).build()
+    tsc = tscenes.cornell_box(32, 32).build("cpu")
     return jsc, tsc
 
 
@@ -123,7 +123,7 @@ def sm_builds(tmp_path_factory):
         mp.setattr(jtreelet, "partition_cached",
                    lambda table, **kw: jtreelet.partition(table, **kw))
         jsc = jscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
-    tsc = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    tsc = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build("cpu")
     return jsc, tsc
 
 
@@ -160,7 +160,7 @@ def test_san_miguel_build_byte_identical(sm_builds):
 
 def test_san_miguel_rebuild_and_bridge(sm_builds):
     jsc, tsc = sm_builds
-    again = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build()
+    again = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build("cpu")
     np.testing.assert_array_equal(bits(again.geom.wide.numpy()),
                                   bits(tsc.geom.wide.numpy()))
     # the bridge carries the JAX build across, treelet tables included
@@ -187,3 +187,53 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", ["veach_mis", "veach_mis_anchor"])
+def test_veach_build_byte_identical(name):
+    """veach-mis (2,164 triangles) and its anchor variant (532) stay under
+    the 4,096-triangle switch, so both packages run the numpy builder:
+    geometry, fat rows, the rough-conductor materials (eta_c, k_c, alpha,
+    distribution) and the area-light rows must be byte-identical."""
+    jsc = getattr(jscenes, name)(32, 32).build()
+    tsc = getattr(tscenes, name)(32, 32).build("cpu")
+    ja, ta = flatten(jsc), flatten(tsc)
+    checked = 0
+    for key in sorted(ta):
+        if not any(key.startswith(p) for p in TABLES):
+            continue
+        jv, tv = np.asarray(ja[key]), ta[key]
+        assert jv.shape == tv.shape and jv.dtype == tv.dtype, key
+        np.testing.assert_array_equal(bits(tv), bits(jv), err_msg=key)
+        checked += 1
+    assert checked >= 40
+    for k in ["mat_type", "mat_tex", "world_lo", "world_hi", "light_type"]:
+        np.testing.assert_array_equal(tsc.host[k], jsc.host[k], err_msg=k)
+    assert tsc.host["mat_type"].tolist().count(tschema.BSDF_ROUGHCONDUCTOR) == 4
+    assert tsc.host["light_type"].tolist() == [tschema.LIGHT_DIFFUSE] * 4
+    if name == "veach_mis":
+        assert tsc.num_tris == 2164 and tsc.geom.wide.shape == (331, 128)
+        assert tsc.geom.tt_top is None
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """build(), sensor_data(), new_film() and scene_from_numpy() target the
+    card unless asked for the CPU, and raise without one: nothing falls
+    back to the CPU."""
+    from cudatracerlib_tpu_torch.models import film as tfilm
+    from cudatracerlib_tpu_torch.models import path as tpath
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc = tscenes.cornell_box(8, 8)
+    for call in (sc.build, sc.sensor_data, lambda: tfilm.new_film(8, 8),
+                 lambda: tschema.scene_from_numpy({}, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sc.build(torch.device("cuda", 0))
+    built = sc.build("cpu")
+    assert built.device.type == "cpu" and sc.sensor_data("cpu").params.device.type == "cpu"
+    assert tfilm.new_film(8, 8, "cpu").rgb.device.type == "cpu"
+    # the tracer and the example scenes take the device of the scene
+    tr = tpath.PathTracer(built, 8, 8, max_depth=1)
+    assert tr.film.rgb.device.type == "cpu"
+    assert tscenes.veach_mis(8, 8).build(device="cpu").device.type == "cpu"

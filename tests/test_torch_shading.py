@@ -50,7 +50,7 @@ def setup(request):
     jb, tb = jscenes.cornell_box(32, 32), tscenes.cornell_box(32, 32)
     if extra:
         jb, tb = _add_lights(jb), _add_lights(tb)
-    jsc, tsc = jb.build(), tb.build()
+    jsc, tsc = jb.build(), tb.build("cpu")
     r = np.random.default_rng(3)
     o = r.uniform(0.05, 0.95, (N, 3)).astype(np.float32)
     d = r.normal(size=(N, 3)).astype(np.float32)

@@ -49,17 +49,17 @@ def _specs(host):
     ]
 
 
-def _scene(scenes, host):
+def _scene(scenes, host, *device):
     sc = scenes.cornell_box(8, 8)
     for spec in _specs(host):
         sc.add_material(host.MaterialSpec(reflectance=(0.5, 0.5, 0.5),
                                           tex_reflectance=spec))
-    return sc.build()
+    return sc.build(*device)
 
 
 @pytest.fixture(scope="module")
 def tables():
-    jsc, tsc = _scene(jscenes, jhost), _scene(tscenes, thost)
+    jsc, tsc = _scene(jscenes, jhost), _scene(tscenes, thost, "cpu")
     rng = np.random.default_rng(3)
     n_tex = tsc.textures.tex_type.shape[0]
     fp = np.exp(rng.uniform(np.log(1e-4), 0.0, B)).astype(np.float32)
@@ -140,4 +140,4 @@ def test_parallax_cone_maps_raise():
         parallax_scale=0.05,
         tex_bump=thost.TextureSpec(tex_type=schema.TEX_IMAGE, image=img)))
     with pytest.raises(NotImplementedError):
-        sc.build()
+        sc.build("cpu")

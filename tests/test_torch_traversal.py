@@ -88,7 +88,7 @@ def setup():
     amask = r.random(N_RAYS) < 0.5
     tmin, tmax = np.float32(1e-4), np.float32(1e9)
     jsc = jscenes.cornell_box(32, 32).build()
-    tsc = tscenes.cornell_box(32, 32).build()
+    tsc = tscenes.cornell_box(32, 32).build("cpu")
     jr = jtrav.Rays(o=jnp.asarray(o), d=jnp.asarray(d),
                     tmin=jnp.full(N_RAYS, tmin), tmax=jnp.full(N_RAYS, tmax))
     tr = Rays(o=torch.from_numpy(o), d=torch.from_numpy(d),

@@ -50,7 +50,7 @@ def assert_partitions_equal(p, j):
 
 @pytest.fixture(scope="module")
 def setup():
-    tsc = tscenes.cornell_box(64, 64).build()
+    tsc = tscenes.cornell_box(64, 64).build("cpu")
     jsc = jscenes.cornell_box(64, 64).build()
     kw = dict(treelet_rows=128, max_top_rows=256)
     part = treelet.partition(tsc.geom.wide.numpy(), **kw)
