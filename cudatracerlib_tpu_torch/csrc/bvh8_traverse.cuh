@@ -29,6 +29,23 @@
 // run traverse; K4 runs step itself, so that a lane can take a new ray
 // between two steps.
 //
+// step and traverse are templates over where a row comes from:
+// - the global source (GlobalRows) reads the table in device memory through
+//   L1/L2, one LDG.E.128.CONSTANT per float4. K3, K4 and the global
+//   variants of K1 and K2 use it;
+// - the shared source (SharedRows) reads the block's copy of the table in
+//   shared memory, staged by stage_rows with 16-byte cp.async copies
+//   (LDGSTS.E.BYPASS.128) and swizzled: float4 k of row i at i * 32 +
+//   (k ^ (i & 31)), so that the lanes of a quarter-warp reading one column
+//   of rows that differ in i & 7 fall on different banks. Its node and leaf
+//   steps compile to LDS.128 (43 per kernel, no generic LD; chip_smoke.py
+//   checks the SASS). The shared variants of K1 and K2 use it.
+// The ring stack is the caller's (Stack: any type with int& operator[]);
+// every kernel keeps it in local memory, an int[kMaxStack]. Stacks in
+// shared memory tied with it (csrc/schedule_probe.cu, PERF.md).
+// A row source changes where a load goes, never the arithmetic or its
+// order, so every variant equals every other bit for bit.
+//
 // Built with -fmad=false: nvcc then contracts no a*b+c into an FMA, the
 // kernels round op for op like their plain PyTorch versions
 // (ops/traversal8.py::_lockstep), and the two agree exactly. max/min
@@ -38,12 +55,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_queue.cuh"
+
 namespace ctl {
 
 constexpr int kDone = -1;
 constexpr int kPop = -0x40000000;
 constexpr int kMaxStack = 64;
 constexpr int kThreads = 128;
+// threads of a shared-table block: one block per SM (the table fills its
+// shared memory), as many threads as K1's and K2's registers allow at that
+// (at most 128 each; they take 80-100)
+constexpr int kPersistThreads = 512;
 constexpr int kNoVirtual = 0x7fffffff;
 
 __device__ __forceinline__ float maxp(float a, float b) {
@@ -88,6 +111,20 @@ struct Best {
   float u, v;
 };
 
+// Where a step reads its row: rows are 32 float4; float4 k of row i is at
+// row i's base + (k ^ swizzle(i)). The global source is the table in device
+// memory, read through L1/L2 as it is stored; the shared source is the
+// block's swizzled copy in shared memory (stage_rows below), so that the 8
+// lanes of a quarter-warp reading one column of rows that differ in i & 7
+// fall on different banks.
+struct GlobalRows {
+  static __device__ __forceinline__ int swizzle(int) { return 0; }
+};
+
+struct SharedRows {
+  static __device__ __forceinline__ int swizzle(int row) { return row & 31; }
+};
+
 struct NoVisit {
   __device__ __forceinline__ void operator()(int, float) {}
 };
@@ -109,11 +146,11 @@ struct Walk {
 
 // One step of the ray from state `cur` (not kDone): reads one row, updates
 // the best hit, the stack and the flags, and returns the next state.
-template <class Visit>
+template <class Rows = GlobalRows, class Stack, class Visit>
 __device__ __forceinline__ int step(const float4* __restrict__ table,
                                     int n_rows, int n_real, const Ray& r,
                                     int cur, bool anyh, int stack_depth,
-                                    int (&stack)[kMaxStack], Walk& w, Best& b,
+                                    Stack& stack, Walk& w, Best& b,
                                     uint8_t& flags, Visit& visit) {
   int row_idx = cur >= 0 ? (cur >> 8) : (-2 - cur);
   int nxt;
@@ -123,14 +160,16 @@ __device__ __forceinline__ int step(const float4* __restrict__ table,
   } else {
     row_idx = min(max(row_idx, 0), n_rows - 1);
     const float4* row = table + (size_t)row_idx * 32;
+    const int sw = Rows::swizzle(row_idx);
     if (cur >= 0) {
       float best_t = __int_as_float(0x7f800000);
       int best_j = 0, link_best = 0, elig_bits = 0;
 #pragma unroll
       for (int g = 0; g < 2; ++g) {
-        const float4 lx = row[g], ly = row[2 + g], lz = row[4 + g];
-        const float4 hx = row[6 + g], hy = row[8 + g], hz = row[10 + g];
-        const float4 lk = row[12 + g];
+        const float4 lx = row[g ^ sw], ly = row[(2 + g) ^ sw];
+        const float4 lz = row[(4 + g) ^ sw], hx = row[(6 + g) ^ sw];
+        const float4 hy = row[(8 + g) ^ sw], hz = row[(10 + g) ^ sw];
+        const float4 lk = row[(12 + g) ^ sw];
         const float alx[4] = {lx.x, lx.y, lx.z, lx.w};
         const float aly[4] = {ly.x, ly.y, ly.z, ly.w};
         const float alz[4] = {lz.x, lz.y, lz.z, lz.w};
@@ -183,8 +222,8 @@ __device__ __forceinline__ int step(const float4* __restrict__ table,
       for (int g = 0; g < 3; ++g) {
         float4 q[9];
 #pragma unroll
-        for (int a = 0; a < 9; ++a) q[a] = row[3 * a + g];
-        const float4 qi = row[27 + g];
+        for (int a = 0; a < 9; ++a) q[a] = row[(3 * a + g) ^ sw];
+        const float4 qi = row[(27 + g) ^ sw];
         const int ids[4] = {__float_as_int(qi.x), __float_as_int(qi.y),
                             __float_as_int(qi.z), __float_as_int(qi.w)};
 #pragma unroll
@@ -242,14 +281,14 @@ __device__ __forceinline__ int step(const float4* __restrict__ table,
 }
 
 // Runs the ray from state `cur` ((root << 8) | 0xFF) until it is done, its
-// step cap is hit, or (anyh) its first leaf hit.
-template <class Visit>
+// step cap is hit, or (anyh) its first leaf hit, on the caller's stack.
+template <class Rows, class Stack, class Visit>
 __device__ __forceinline__ void traverse(const float4* __restrict__ table,
                                          int n_rows, int n_real, const Ray& r,
                                          int cur, bool anyh, int stack_depth,
                                          int max_iters, Best& b, int& steps,
-                                         uint8_t& flags, Visit& visit) {
-  int stack[kMaxStack];
+                                         uint8_t& flags, Visit& visit,
+                                         Stack& stack) {
   Walk w;
   w.init();
   while (cur != kDone) {
@@ -258,9 +297,98 @@ __device__ __forceinline__ void traverse(const float4* __restrict__ table,
       break;
     }
     ++steps;
-    cur = step(table, n_rows, n_real, r, cur, anyh, stack_depth, stack, w, b,
-               flags, visit);
+    cur = step<Rows>(table, n_rows, n_real, r, cur, anyh, stack_depth, stack,
+                     w, b, flags, visit);
   }
+}
+
+// The same on a ring stack in local memory, from the global source.
+template <class Visit>
+__device__ __forceinline__ void traverse(const float4* __restrict__ table,
+                                         int n_rows, int n_real, const Ray& r,
+                                         int cur, bool anyh, int stack_depth,
+                                         int max_iters, Best& b, int& steps,
+                                         uint8_t& flags, Visit& visit) {
+  int stack[kMaxStack];
+  traverse<GlobalRows>(table, n_rows, n_real, r, cur, anyh, stack_depth,
+                       max_iters, b, steps, flags, visit, stack);
+}
+
+// ---- the shared-table variants of K1 and K2 --------------------------------
+
+// Copies the (n_rows, 128) table into the block's shared memory, float4 k
+// of row i at i * 32 + (k ^ (i & 31)), with 16-byte cp.async copies (all in
+// flight at once, through L2 only), and waits for the whole block.
+__device__ __forceinline__ void stage_rows(float4* rows,
+                                           const float4* __restrict__ table,
+                                           int n_rows) {
+  const int n = n_rows * 32;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int row = i >> 5;
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(
+        rows + row * 32 + ((i & 31) ^ SharedRows::swizzle(row)));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(table + i));
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+}
+
+constexpr int kMaxDevices = 64;
+
+// What a shared-table kernel's launch needs from the runtime, kept for each
+// device so that a launch asks the runtime nothing: the dynamic shared
+// bytes the kernel is opted in to, and the SM count. One per kernel (a
+// static beside its launch).
+struct SharedOptIn {
+  size_t bytes[kMaxDevices] = {};
+  int sms[kMaxDevices] = {};
+};
+
+// The grid of a shared-table launch of `kernel` on the current device: one
+// block of `threads` per SM, no more than `n_rays` needs, in *blocks. Opts
+// the kernel in to `bytes` of dynamic shared memory the first time it asks
+// for that many on this device. Returns the CUDA error: a table over the
+// card's limit is refused here (the caller raises), and the refusal is
+// cleared from the runtime's last error so that the next launch does not
+// report it.
+template <class Kernel>
+int shared_grid(Kernel kernel, SharedOptIn& opt, int threads, size_t bytes,
+                int n_rays, int* blocks) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (opt.bytes[dev] < bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    opt.bytes[dev] = bytes;
+  }
+  if (opt.sms[dev] == 0) {
+    cudaDeviceGetAttribute(&opt.sms[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  }
+  const int need = (n_rays + threads - 1) / threads;
+  *blocks = need < opt.sms[dev] ? need : opt.sms[dev];
+  return 0;
+}
+
+// Zeroes the ray queue's counter `next_ray` on the stream and launches
+// `kernel` on shared_grid's grid with `bytes` of dynamic shared memory;
+// returns the first CUDA error.
+template <class Kernel, class... Args>
+int launch_shared(Kernel kernel, SharedOptIn& opt, int threads, size_t bytes,
+                  int n_rays, int* next_ray, cudaStream_t stream,
+                  Args... args) {
+  int blocks = 0;
+  const int err = shared_grid(kernel, opt, threads, bytes, n_rays, &blocks);
+  if (err != 0) return err;
+  cudaMemsetAsync(next_ray, 0, sizeof(int), stream);
+  kernel<<<blocks, threads, bytes, stream>>>(args..., next_ray);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace ctl

@@ -23,17 +23,28 @@
 // its hit to the visit's own slot. Invalid slots (key >= n_treelets << 14)
 // exit at once. Launched over all slots, so the caller needs no host read.
 //
-// What bounds them on this card: K2's top table is a few hundred rows
-// (~128 KB) and stays in L1/L2. K3 reads 512-row slabs of 256 KB (over the
-// 227 KB a block may hold in shared memory) straight from device memory
-// through L1 and L2; the 1.2M-triangle table's slabs total ~109 MB, twice the
-// 50 MB L2, so the sort's coherence is what keeps K3's row loads in cache.
-// Both are per-thread state machines (bvh8_traverse.cuh, shared with K1) and
-// bound by divergence and dependent-load latency. Staging slabs in shared
-// memory is later work.
+// K2 has K1's two variants (traversal8.cu), picked by the same rule from
+// the top table's size: shared (top_visits_shared_kernel: one 512-thread
+// block per SM holds the swizzled top table in shared memory, its warps
+// take 32 rays at a time from a queue, rows by LDS.128) for a top table
+// that fits a block's shared memory, which San Miguel's 240 rows (123 KB)
+// do; global (top_visits_kernel: one thread per ray, rows through L1/L2)
+// for a larger one, up to the partition's 2,048-row cap. A K2 ray takes
+// some 17 steps in the top table (K1's rays on Cornell-class tables about
+// 3), so the cheaper rows and the queue's balance show: the shared variant
+// is ahead of the global one by 5-12% of device time (PERF.md), and like
+// K1 bound by issuing the state machine under divergence, not by bytes.
+//
+// K3 stays on the global source: its 512-row slabs are 256 KB, over the
+// 227 KB a block may hold, and a block's threads read many slabs (one per
+// visit). It reads them straight from device memory through L1 and L2; the
+// 1.2M-triangle table's slabs total ~109 MB, twice the 50 MB L2, so the
+// sort's coherence is what keeps K3's row loads in cache. It is bound by
+// divergence and dependent-load latency.
 //
 // Their plain PyTorch versions are ops/traversal_tt.py::top_visits and
-// ::treelet_hits. Launches go on the caller's stream and allocate nothing.
+// ::treelet_hits. Launches go on the caller's stream and allocate nothing;
+// K2's shared variant zeroes the caller's queue counter on the stream.
 
 #include "bvh8_traverse.cuh"
 
@@ -94,29 +105,26 @@ struct NearestVisits {
   }
 };
 
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-top_visits_kernel(const float4* __restrict__ top, int n_top,
-                  const float* __restrict__ o, const float* __restrict__ d,
-                  const float* __restrict__ tmin,
-                  const float* __restrict__ tmax,
-                  const uint8_t* __restrict__ any_mask, int n_rays,
-                  int any_hit, int stack_depth, int max_iters,
-                  float* __restrict__ t_out, int* __restrict__ tri_out,
-                  float* __restrict__ u_out, float* __restrict__ v_out,
-                  int* __restrict__ steps_out, uint8_t* __restrict__ flags_out,
-                  int* __restrict__ vid_out, float* __restrict__ vent_out,
-                  int* __restrict__ vcnt_out, float* __restrict__ mdrop_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+// Ray i through the top table from the row source `Rows` on `stack`.
+template <int V, class Rows, class Stack>
+__device__ __forceinline__ void top_ray(
+    const float4* __restrict__ top, int n_top, const float* __restrict__ o,
+    const float* __restrict__ d, const float* __restrict__ tmin,
+    const float* __restrict__ tmax, const uint8_t* __restrict__ any_mask,
+    int any_hit, int stack_depth, int max_iters, float* __restrict__ t_out,
+    int* __restrict__ tri_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ steps_out,
+    uint8_t* __restrict__ flags_out, int* __restrict__ vid_out,
+    float* __restrict__ vent_out, int* __restrict__ vcnt_out,
+    float* __restrict__ mdrop_out, int i, Stack& stack) {
   const Ray r = load_ray(o, d, tmin, i);
   const bool anyh = any_hit || (any_mask != nullptr && any_mask[i] != 0);
   Best b{tmax[i], -1, 0.0f, 0.0f};
   int steps = 0;
   uint8_t flags = 0;
   NearestVisits<V> nv;
-  traverse(top, n_top, n_top, r, 0xFF, anyh, stack_depth, max_iters, b, steps,
-           flags, nv);
+  traverse<Rows>(top, n_top, n_top, r, 0xFF, anyh, stack_depth, max_iters, b,
+                 steps, flags, nv, stack);
   t_out[i] = b.t;
   tri_out[i] = b.tri;
   u_out[i] = b.u;
@@ -130,6 +138,46 @@ top_visits_kernel(const float4* __restrict__ top, int n_top,
   }
   vcnt_out[i] = nv.count;
   mdrop_out[i] = nv.mdrop;
+}
+
+#define CTL_K2_PARAMS                                                        \
+  const float4 *__restrict__ top, int n_top, const float *__restrict__ o,    \
+      const float *__restrict__ d, const float *__restrict__ tmin,           \
+      const float *__restrict__ tmax, const uint8_t *__restrict__ any_mask,  \
+      int n_rays, int any_hit, int stack_depth, int max_iters,               \
+      float *__restrict__ t_out, int *__restrict__ tri_out,                  \
+      float *__restrict__ u_out, float *__restrict__ v_out,                  \
+      int *__restrict__ steps_out, uint8_t *__restrict__ flags_out,          \
+      int *__restrict__ vid_out, float *__restrict__ vent_out,               \
+      int *__restrict__ vcnt_out, float *__restrict__ mdrop_out
+#define CTL_K2_ARGS(TABLE)                                                   \
+  TABLE, n_top, o, d, tmin, tmax, any_mask, any_hit, stack_depth, max_iters, \
+      t_out, tri_out, u_out, v_out, steps_out, flags_out, vid_out, vent_out, \
+      vcnt_out, mdrop_out
+
+// The global variant: one thread per ray, top rows from device memory.
+template <int V>
+__global__ void __launch_bounds__(kThreads) top_visits_kernel(CTL_K2_PARAMS) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  int stack[kMaxStack];
+  top_ray<V, GlobalRows>(CTL_K2_ARGS(top), i, stack);
+}
+
+// The shared variant, as K1's (traversal8.cu): one block per SM stages the
+// top table, then each warp takes 32 rays at a time from the launch's queue.
+template <int V>
+__global__ void __launch_bounds__(kPersistThreads, 1)
+top_visits_shared_kernel(CTL_K2_PARAMS, int* next_ray) {
+  extern __shared__ float4 smem[];
+  stage_rows(smem, top, n_top);
+  int stack[kMaxStack];
+  bool drained = false;
+  while (!drained) {  // warp-uniform
+    const int i = warp_fetch(next_ray, true, n_rays, drained);
+    if (i < 0) continue;
+    top_ray<V, SharedRows>(CTL_K2_ARGS(smem), i, stack);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -173,23 +221,35 @@ treelet_hits_kernel(const float4* __restrict__ slabs, int n_treelets,
 }
 
 template <int V>
-void launch_top(const float* top, int n_top, const float* o, const float* d,
-                const float* tmin, const float* tmax, const uint8_t* any_mask,
-                int n_rays, int any_hit, int stack_depth, int max_iters,
-                float* t_out, int* tri_out, float* u_out, float* v_out,
-                int* steps_out, uint8_t* flags_out, int* vid_out,
-                float* vent_out, int* vcnt_out, float* mdrop_out,
-                cudaStream_t stream) {
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  top_visits_kernel<V><<<blocks, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(top), n_top, o, d, tmin, tmax, any_mask,
-      n_rays, any_hit, stack_depth, max_iters, t_out, tri_out, u_out, v_out,
-      steps_out, flags_out, vid_out, vent_out, vcnt_out, mdrop_out);
+int launch_top(int variant, const float* top, int n_top, const float* o,
+               const float* d, const float* tmin, const float* tmax,
+               const uint8_t* any_mask, int n_rays, int any_hit,
+               int stack_depth, int max_iters, float* t_out, int* tri_out,
+               float* u_out, float* v_out, int* steps_out, uint8_t* flags_out,
+               int* vid_out, float* vent_out, int* vcnt_out, float* mdrop_out,
+               int* next_ray, cudaStream_t stream) {
+  const float4* t4 = reinterpret_cast<const float4*>(top);
+  if (variant == 0) {
+    const int blocks = (n_rays + kThreads - 1) / kThreads;
+    top_visits_kernel<V><<<blocks, kThreads, 0, stream>>>(
+        t4, n_top, o, d, tmin, tmax, any_mask, n_rays, any_hit, stack_depth,
+        max_iters, t_out, tri_out, u_out, v_out, steps_out, flags_out, vid_out,
+        vent_out, vcnt_out, mdrop_out);
+    return (int)cudaGetLastError();
+  }
+  static SharedOptIn opt;
+  return launch_shared(top_visits_shared_kernel<V>, opt, kPersistThreads,
+                       (size_t)n_top * 512, n_rays, next_ray, stream, t4,
+                       n_top, o, d, tmin, tmax, any_mask, n_rays, any_hit,
+                       stack_depth, max_iters, t_out, tri_out, u_out, v_out,
+                       steps_out, flags_out, vid_out, vent_out, vcnt_out,
+                       mdrop_out);
 }
 
 }  // namespace
 
-// Returns a CUDA error code, or -1 for a V other than 3 and 6.
+// variant (0 global, 1 shared) and next_ray as ctl_traverse8's. Returns a
+// CUDA error code, or -1 for a V other than 3 and 6 or another variant.
 extern "C" int ctl_top_visits(const float* top, int n_top, const float* o,
                               const float* d, const float* tmin,
                               const float* tmax, const uint8_t* any_mask,
@@ -198,24 +258,15 @@ extern "C" int ctl_top_visits(const float* top, int n_top, const float* o,
                               float* u_out, float* v_out, int* steps_out,
                               uint8_t* flags_out, int* vid_out,
                               float* vent_out, int* vcnt_out,
-                              float* mdrop_out, void* stream) {
-  if (V != 3 && V != 6) return -1;
-  if (n_rays > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-#define CTL_TOP_CASE(N)                                                      \
-  case N:                                                                    \
-    launch_top<N>(top, n_top, o, d, tmin, tmax, any_mask, n_rays, any_hit,   \
-                  stack_depth, max_iters, t_out, tri_out, u_out, v_out,      \
-                  steps_out, flags_out, vid_out, vent_out, vcnt_out,         \
-                  mdrop_out, s);                                             \
-    break;
-    switch (V) {
-      CTL_TOP_CASE(3)
-      CTL_TOP_CASE(6)
-    }
-#undef CTL_TOP_CASE
-  }
-  return (int)cudaGetLastError();
+                              float* mdrop_out, int* next_ray, int variant,
+                              void* stream) {
+  if ((V != 3 && V != 6) || variant < 0 || variant > 1) return -1;
+  if (n_rays <= 0) return (int)cudaGetLastError();
+  auto launch = V == 3 ? launch_top<3> : launch_top<6>;
+  return launch(variant, top, n_top, o, d, tmin, tmax, any_mask, n_rays,
+                any_hit, stack_depth, max_iters, t_out, tri_out, u_out, v_out,
+                steps_out, flags_out, vid_out, vent_out, vcnt_out, mdrop_out,
+                next_ray, (cudaStream_t)stream);
 }
 
 extern "C" int ctl_treelet_hits(const float* slabs, int n_treelets, int rows,

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Each kernel file is one ``csrc/*.cu`` with a plain C interface; the
-headers it includes are ``csrc/*.cuh``. It is compiled by ``nvcc`` into a
-shared library under ``_build/<hash>/``, where the hash covers the source,
-every header and the flags, so an edited source or header rebuilds and an
-unchanged one loads at once. Nothing here runs at import time; a missing
+headers it includes are ``csrc/*.cuh`` (``schedule_probe.cu`` also
+includes two kernel files). It is compiled by ``nvcc`` into a shared
+library under ``_build/<hash>/``, where the hash covers the source, every
+file of ``csrc/`` and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once. Nothing here runs at import time; a missing
 ``nvcc`` raises when a kernel is first needed.
 """
 from __future__ import annotations
@@ -41,7 +42,8 @@ def find_nvcc() -> str:
 
 def _lib_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in [source] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+    for name in [source] + sorted(f for f in os.listdir(CSRC)
+                                  if f.endswith((".cu", ".cuh"))):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
@@ -51,7 +53,9 @@ def _lib_path(source: str) -> str:
 def build(*sources: str) -> None:
     """Compile and load the given ``csrc/`` files that are not loaded yet,
     with one nvcc process for each, all started together. Raises if any
-    fails; ``build_log`` records each one's seconds and ptxas report."""
+    fails; ``build_log`` records each one's seconds and ptxas report (kept
+    beside the library, so that a library built earlier reports it too;
+    empty when the report is missing)."""
     t0 = time.perf_counter()
     jobs = {}
     for source in sources:
@@ -68,13 +72,20 @@ def build(*sources: str) -> None:
         jobs[source] = (proc, tmp, lib_path)
     failed = []
     for source, (proc, tmp, lib_path) in jobs.items():
-        ptxas = ""
         if proc is not None:
             _, ptxas = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"nvcc failed on {source}:\n{ptxas}")
                 continue
+            with open(lib_path + ".ptxas", "w") as f:
+                f.write(ptxas)
             os.replace(tmp, lib_path)
+        else:   # built earlier: its report was kept beside it
+            try:
+                with open(lib_path + ".ptxas") as f:
+                    ptxas = f.read()
+            except FileNotFoundError:
+                ptxas = ""
         _LOADED[source] = ctypes.CDLL(lib_path)
         build_log[source] = dict(seconds=time.perf_counter() - t0,
                                  ptxas=ptxas, path=lib_path)

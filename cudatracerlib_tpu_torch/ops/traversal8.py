@@ -6,7 +6,9 @@ one traversal, with the same per-ray semantics, step counts and flags:
 - ``intersect_wide_cuda``: the wrapper of the hand-written Hopper kernel K1,
   ``csrc/traversal8.cu``, which replaces the TPU kernel
   ``cudatracerlib_tpu/ops/traversal_pl.py::_traverse_kernel``. It takes CUDA
-  tensors only.
+  tensors only. A table that fits a block's shared memory
+  (``table_variant``) runs the shared variant: one block per SM holds the
+  table; a larger one runs the global variant, rows from device memory.
 - ``intersect_wide_pool_cuda``: the wrapper of K4, ``csrc/traversal_pool.cu``,
   which replaces the TPU kernel ``traversal_pl.py::_traverse_kernel_pool``:
   persistent warps that take rays from a global queue. It computes exactly
@@ -32,6 +34,7 @@ counts, not the TPU kernel's lockstep iterations.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -48,6 +51,12 @@ MAX_ITERS = 4096
 FLAG_CAPPED = 1
 FLAG_OVERFLOW = 2
 _INF = float("inf")
+ROW_BYTES = 512
+# threads of a shared-variant block of K1 or K2, one block per SM
+# (kPersistThreads in csrc/bvh8_traverse.cuh)
+SHARED_THREADS = 512
+# the launch variants of K1 and K2, by their C entries' codes
+VARIANTS = {"global": 0, "shared": 1}
 # float32 operations of a node step, counted from csrc/bvh8_traverse.cuh:
 # 26 per child (6 subtractions and 6 products for the slab distances, 12
 # min/max, 2 compares) for 8 children. A leaf step does more (about 54 per
@@ -326,6 +335,40 @@ def _mask_u8(any_mask: Tensor, B: int, dev):
     return any_mask.view(torch.uint8)
 
 
+def table_variant(rows: int, shared_limit: int) -> str:
+    """The variant of K1 or K2 for a table of `rows` fat rows on a card whose
+    blocks may opt in to `shared_limit` bytes of shared memory: "shared"
+    when the table fits (rows x ROW_BYTES bytes, the shared variant's only
+    shared memory), else "global"."""
+    return "shared" if rows * ROW_BYTES <= shared_limit else "global"
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_limit(index: int) -> int:
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+
+
+def launch_variant(table: Tensor, forced: str = None) -> str:
+    """The variant a K1 or K2 launch on `table` ((R, 128), CUDA) takes:
+    ``table_variant`` of its rows and its card's opt-in shared-memory limit,
+    or `forced` (a test hook: chip_smoke.py and the gpu tests run every
+    variant on the same rays)."""
+    if forced is not None:
+        if forced not in VARIANTS:
+            raise ValueError(f"no K1/K2 variant {forced!r}: one of {list(VARIANTS)}")
+        return forced
+    return table_variant(table.shape[0], _shared_limit(table.device.index))
+
+
+def queue_counter(variant: str, dev):
+    """The ray queue counter a K1 or K2 launch of `variant` needs: an int32
+    scratch tensor for the shared variant (its C entry zeroes it on the
+    stream), None for the global one."""
+    if variant == "global":
+        return None
+    return torch.empty(1, dtype=torch.int32, device=dev)
+
+
 _WIDE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6 \
     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
 
@@ -367,24 +410,36 @@ def _stream(dev):
 def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
                         stack_depth: int = STACK_DEPTH,
                         max_iters: int = MAX_ITERS, roots: Tensor = None,
-                        with_iters: bool = False, any_mask: Tensor = None):
+                        with_iters: bool = False, any_mask: Tensor = None,
+                        _variant: str = None):
     """Launch K1 (``csrc/traversal8.cu``) on the current stream: the same
     signature, results, step counts and flags as ``intersect_wide``.
 
     Takes CUDA tensors only: (R, 128) float32 table; rays o, d (B, 3) and
     tmin, tmax (B,) float32; roots (B,) int32; any_mask (B,) bool. Raises on
-    anything else. Each launch adds one to ``intersect_wide_cuda.launches``."""
+    anything else, and when the card refuses the launch. The variant comes
+    from the table's size (``launch_variant``; `_variant` forces one); the
+    shared variant's ray queue counter is an int32 scratch tensor allocated
+    here (``queue_counter``). Each launch adds one to
+    ``intersect_wide_cuda.launches`` and to
+    ``intersect_wide_cuda.launches_by_variant[variant]``."""
     args, out = _wide_args(table, rays, any_hit, stack_depth, max_iters, roots,
                            any_mask)
+    variant = launch_variant(table, _variant)
+    counter = queue_counter(variant, table.device)
     fn = cuda_build.load_library("traversal8.cu").ctl_traverse8
-    fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p]
+    fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    res = _wide_result(fn(*args, _stream(table.device)), out, with_iters)
+    res = _wide_result(fn(*args, _ptr(counter), VARIANTS[variant],
+                          _stream(table.device)), out, with_iters)
     intersect_wide_cuda.launches += 1
+    intersect_wide_cuda.launches_by_variant[variant] += 1
     return res
 
 
 intersect_wide_cuda.launches = 0
+intersect_wide_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def intersect_wide_pool_cuda(table: Tensor, rays: Rays, any_hit: bool = False,

@@ -38,9 +38,10 @@ import torch
 
 from . import cuda_build
 from .traversal import Hit, Rays
-from .traversal8 import (MAX_ITERS, STACK_DEPTH, _check_args, _check_rays,
-                         _check_table, _flag_counts, _lockstep, _mask_u8,
-                         _ptr, _require, any_lanes)
+from .traversal8 import (MAX_ITERS, STACK_DEPTH, VARIANTS, _check_args,
+                         _check_rays, _check_table, _flag_counts, _lockstep,
+                         _mask_u8, _ptr, _require, any_lanes, launch_variant,
+                         queue_counter)
 from ..scene.treelet import VID_ROOT_BITS
 
 Tensor = torch.Tensor
@@ -81,12 +82,33 @@ def _lib():
 def top_visits_cuda(top: Tensor, rays: Rays, V: int = DEFAULT_V,
                     any_hit: bool = False, any_mask: Tensor = None,
                     stack_depth: int = STACK_DEPTH,
-                    max_iters: int = MAX_ITERS):
+                    max_iters: int = MAX_ITERS, _variant: str = None):
     """Launch K2 (``csrc/traversal_tt.cu``) on the current stream: the same
     signature, results, step counts and flags as ``top_visits``. Takes
-    CUDA tensors only and raises on anything else, and on a V outside
-    ``KERNEL_V``. Each launch adds one to ``top_visits_cuda.launches`` and
-    to ``top_visits_cuda.launches_by_v[V]``."""
+    CUDA tensors only and raises on anything else, on a V outside
+    ``KERNEL_V`` and when the card refuses the launch. The variant comes
+    from the top table's size, as K1's (``traversal8.launch_variant``;
+    `_variant` forces one). Each launch adds one to
+    ``top_visits_cuda.launches``, to ``top_visits_cuda.launches_by_v[V]``
+    and to ``top_visits_cuda.launches_by_variant[variant]``."""
+    _check_table(top, "top")
+    variant = launch_variant(top, _variant)
+    res = launch_top(_lib().ctl_top_visits, VARIANTS[variant],
+                     queue_counter(variant, top.device), top, rays, V,
+                     any_hit, any_mask, stack_depth, max_iters)
+    top_visits_cuda.launches += 1
+    top_visits_cuda.launches_by_v[V] += 1
+    top_visits_cuda.launches_by_variant[variant] += 1
+    return res
+
+
+def launch_top(fn, code: int, counter: Tensor, top: Tensor, rays: Rays,
+               V: int, any_hit: bool, any_mask: Tensor, stack_depth: int,
+               max_iters: int):
+    """Check K2's arguments, allocate its outputs and call `fn`, a C entry
+    with ``ctl_top_visits``'s arguments, with `code` (the variant) and
+    `counter` (the queue counter, or None); raises on an error. Returns
+    ``top_visits``'s outputs."""
     _check_args(any_hit, stack_depth, any_mask)
     if V not in KERNEL_V:
         raise ValueError(f"K2 is built for V in {KERNEL_V}, not {V}")
@@ -101,26 +123,24 @@ def top_visits_cuda(top: Tensor, rays: Rays, V: int = DEFAULT_V,
     vids = torch.empty((B, V), **i32)
     vent = torch.empty((B, V), **f32)
     mdrop = torch.empty(B, **f32)
-    fn = _lib().ctl_top_visits
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                   vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+                   vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
     fn.restype = ci
     err = fn(_ptr(top), top.shape[0], _ptr(rays.o), _ptr(rays.d),
              _ptr(rays.tmin), _ptr(rays.tmax), _ptr(mask_u8), B,
              int(bool(any_hit)), V, stack_depth, max_iters, _ptr(t), _ptr(tri),
              _ptr(u), _ptr(v), _ptr(steps), _ptr(flags), _ptr(vids),
-             _ptr(vent), _ptr(vcnt), _ptr(mdrop),
+             _ptr(vent), _ptr(vcnt), _ptr(mdrop), _ptr(counter), code,
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"K2 (top_visits) launch failed: error {err}")
-    top_visits_cuda.launches += 1
-    top_visits_cuda.launches_by_v[V] += 1
     return Hit(t=t, tri=tri, u=u, v=v), vids, vent, vcnt, mdrop, steps, flags
 
 
 top_visits_cuda.launches = 0
 top_visits_cuda.launches_by_v = dict.fromkeys(KERNEL_V, 0)
+top_visits_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 # ---------------------------------------------------------------- K3 ------

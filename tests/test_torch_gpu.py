@@ -138,3 +138,49 @@ def test_microbench_kernels_match_plain_on_gpu(dev):
     res = mb.measure(dev, table_rows=(331, 4096), gathers=65536, loop_steps=512,
                      queue_items=(65536,))
     assert mb.max_abs_err(res) == 0, res
+
+
+@pytest.mark.gpu
+def test_table_variants_match_plain_on_gpu(dev):
+    """K1's and K2's variants (shared table, forced global) and the two
+    designs of utils/schedule_probe.py (static stride, stacks in shared
+    memory) against the plain versions, closest / any-hit / mixed: K1 on
+    the Cornell table (shared by the size rule) and on the 20,000-triangle
+    San Miguel table (global by the rule, refused when forced shared), K2
+    on that scene's top table at V = 6 and 3."""
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
+    r = np.random.default_rng(11)
+    o = r.uniform(0.05, 0.95, (N_RAYS, 3)).astype(np.float32)
+    d = r.normal(size=(N_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = Rays(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                torch.full((N_RAYS,), 1e-4, device=dev),
+                torch.full((N_RAYS,), 1e9, device=dev))
+    amask = torch.from_numpy(r.random(N_RAYS) < 0.5).to(dev)
+    cornell = tscenes.cornell_box(32, 32).build(dev).geom.wide
+    geom = tscenes.san_miguel_stand_in(64, 64, target_tris=20000).build(dev).geom
+    assert traversal8.launch_variant(cornell) == "shared"
+    assert traversal8.launch_variant(geom.wide) == "global"
+    assert traversal8.launch_variant(geom.tt_top) == "shared"
+    K1, K2 = traversal8.intersect_wide_cuda, traversal_tt.top_visits_cuda
+    for kw in ({}, dict(any_hit=True), dict(any_mask=amask)):
+        for table in (cornell, geom.wide):
+            p = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+            for variant in (None, "global"):
+                k = K1(table, rays, with_iters=True, _variant=variant, **kw)
+                _equal((*k[0], k[1], k[2]), (*p[0], p[1], p[2]))
+            if table is cornell:
+                for design in probe.DESIGNS:
+                    k = probe.traverse8(table, rays, design, with_iters=True, **kw)
+                    _equal((*k[0], k[1], k[2]), (*p[0], p[1], p[2]))
+        for V in (6, 3):
+            p2 = traversal_tt.top_visits(geom.tt_top, rays, V, **kw)
+            for variant in (None, "global"):
+                k2 = K2(geom.tt_top, rays, V, _variant=variant, **kw)
+                _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
+            for design in probe.DESIGNS:
+                k2 = probe.top_visits(geom.tt_top, rays, V, design, **kw)
+                _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
+    with pytest.raises(RuntimeError):
+        K1(geom.wide, rays, _variant="shared")
+    torch.cuda.synchronize()

@@ -14,6 +14,8 @@ kappa = sum|terms| / |det|. The bound therefore adds 4 * eps32 * kappa,
 computed per lane in float64. Any-hit lanes report the first occluder met,
 which depends on traversal order, so only hit versus no-hit is compared
 there."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -184,6 +186,91 @@ def test_kernel_wrapper_rejects_cpu_tensors(setup):
     with pytest.raises(ValueError):
         traversal8.intersect_wide_cuda(s["tsc"].geom.wide, s["tr"])
     assert traversal8.intersect_wide_cuda.launches == 0
+    assert set(traversal8.intersect_wide_cuda.launches_by_variant.values()) == {0}
+
+
+# an H100's cudaDevAttrMaxSharedMemoryPerBlockOptin (227 KB): 454 fat rows
+H100_SHARED_OPTIN = 232448
+
+
+@pytest.fixture(scope="module")
+def scene_tables():
+    """The flat tables K1 traverses on the main path, at test size: Cornell,
+    veach-mis and the 20,000-triangle San Miguel stand-in's unsplit table
+    (at full size 211,592 rows)."""
+    return dict(
+        cornell=tscenes.cornell_box(32, 32).build("cpu").geom.wide,
+        veach_mis=tscenes.veach_mis(32, 32).build("cpu").geom.wide,
+        san_miguel=tscenes.san_miguel_stand_in(32, 32, target_tris=20000)
+        .build("cpu").geom.wide)
+
+
+@pytest.mark.parametrize("scene,rows,variant", [
+    ("cornell", 317, "shared"), ("veach_mis", 331, "shared"),
+    ("san_miguel", 2389, "global")])
+def test_variant_rule_on_the_scene_tables(scene_tables, scene, rows, variant):
+    """K1's variant follows the table's size against the card's shared
+    memory: Cornell and veach-mis fit an H100 block, San Miguel does not."""
+    table = scene_tables[scene]
+    assert table.shape == (rows, 128)
+    assert traversal8.table_variant(table.shape[0], H100_SHARED_OPTIN) == variant
+
+
+@pytest.mark.parametrize("rows,limit,variant", [
+    (454, H100_SHARED_OPTIN, "shared"), (455, H100_SHARED_OPTIN, "global"),
+    (2048, H100_SHARED_OPTIN, "global"),      # the largest unsplit table
+    (317, 166912, "shared"), (331, 166912, "global"),   # a 163 KB opt-in
+    (96, 49152, "shared"), (97, 49152, "global"),       # 48 KB, no opt-in
+    (1, 0, "global")])
+def test_variant_rule_at_the_limit(rows, limit, variant):
+    assert traversal8.table_variant(rows, limit) == variant
+
+
+def test_forced_variant_is_checked(setup):
+    table = setup["tsc"].geom.wide
+    assert traversal8.launch_variant(table, "global") == "global"
+    assert traversal8.launch_variant(table, "shared") == "shared"
+    with pytest.raises(ValueError):
+        traversal8.launch_variant(table, "texture")
+
+
+@pytest.mark.parametrize("variant,shape", [("shared", (1,)), ("global", None)])
+def test_only_the_shared_variant_gets_a_queue_counter(variant, shape):
+    counter = traversal8.queue_counter(variant, "cpu")
+    assert (counter is None) if shape is None else (
+        counter.shape == shape and counter.dtype == torch.int32)
+
+
+def test_schedule_probe_rejects_cpu_tensors(setup):
+    """The probe's designs run only on a card: CPU tensors raise before
+    anything is built."""
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
+    table = setup["tsc"].geom.wide
+    for design in probe.DESIGNS:
+        with pytest.raises(ValueError):
+            probe.traverse8(table, setup["tr"], design)
+        with pytest.raises(ValueError):
+            probe.top_visits(table, setup["tr"], 3, design)
+
+
+@pytest.mark.parametrize("report", [None, "ptxas info    : Used 86 registers"])
+def test_a_built_kernel_loads_with_or_without_its_ptxas_report(
+        report, monkeypatch, tmp_path):
+    """A library built earlier loads whether or not its ptxas report was
+    kept beside it (a report is a diagnostic, never a condition)."""
+    from cudatracerlib_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_ROOT", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "_LOADED", {})
+    monkeypatch.setattr(cuda_build, "build_log", {})
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: ("lib", path))
+    lib_path = cuda_build._lib_path("traversal8.cu")
+    os.makedirs(os.path.dirname(lib_path))
+    open(lib_path, "wb").close()
+    if report is not None:
+        with open(lib_path + ".ptxas", "w") as f:
+            f.write(report)
+    assert cuda_build.load_library("traversal8.cu") == ("lib", lib_path)
+    assert cuda_build.build_log["traversal8.cu"]["ptxas"] == (report or "")
 
 
 def test_intersect_scene_hands_the_kernels_contiguous_rays(setup, monkeypatch):

@@ -216,6 +216,23 @@ def test_flags_of_the_plain_phases(setup):
     assert int(st.reshape(N_RAYS, 3)[~valid].sum()) == 0
 
 
+@pytest.mark.parametrize("scene", ["cornell_split", "san_miguel"])
+def test_top_table_variant_rule(setup, scene, monkeypatch, tmp_path):
+    """K2's variant follows the top table's size, by K1's rule: the top
+    tables of the split Cornell box (this file's split) and of the
+    20,000-triangle San Miguel stand-in fit an H100 block's shared memory
+    (at full size San Miguel's top has 240 rows); a top table at the
+    partition's cap (2,048 rows) does not."""
+    if scene == "cornell_split":
+        top = setup["part"].top
+    else:
+        top = tscenes.san_miguel_stand_in(32, 32, target_tris=20000) \
+            .build("cpu").geom.tt_top
+    assert 1 <= top.shape[0] <= 454
+    assert traversal8.table_variant(top.shape[0], 232448) == "shared"
+    assert traversal8.table_variant(treelet.MAX_TOP_ROWS, 232448) == "global"
+
+
 def test_kernel_wrappers_reject_cpu_tensors(setup):
     s = setup
     with pytest.raises(ValueError):
@@ -225,4 +242,5 @@ def test_kernel_wrappers_reject_cpu_tensors(setup):
         traversal_tt.treelet_hits_cuda(s["slabs"], s["tr"], s["tr"].tmax, keys,
                                        keys, 3)
     assert traversal_tt.top_visits_cuda.launches == 0
+    assert set(traversal_tt.top_visits_cuda.launches_by_variant.values()) == {0}
     assert traversal_tt.treelet_hits_cuda.launches == 0
