@@ -11,11 +11,14 @@ failure exits non-zero, and nothing falls back to the CPU:
 1. the card's name and power limit; build every kernel (csrc/traversal8.cu:
    K1; csrc/traversal_tt.cu: K2, K3; csrc/traversal_pool.cu: K4;
    csrc/microbench.cu: P1-P3; and csrc/schedule_probe.cu, the designs the
-   shared variants were measured against), one nvcc each, all started
-   together, and print ptxas's registers, stack and spills; from
-   cuobjdump's SASS, each traversal kernel's 128-bit loads: the shared
-   variants of K1 and K2 must read rows with LDS (no generic LD), the
-   global kernels with LDG;
+   shared variants of K1 and K2, and K3, were measured against), one nvcc
+   each, all started together, and print ptxas's registers, stack and
+   spills; from cuobjdump's SASS, each traversal kernel's 128-bit loads:
+   the shared variants of K1 and K2 must read rows with LDS (no generic
+   LD), the global kernels with LDG, and the probe's K3 designs that stage
+   a slab must stage with LDGSTS and hold at least one step's row loads
+   (K3's LDG count) as LDS or generic LD (through a cluster's shared
+   windows);
 2. K1's variants against its plain version on the Cornell 512^2 table with
    131,072+513 rays inside the box: the shared variant (the one the size
    rule picks), the global variant forced, and the two designs of
@@ -28,7 +31,7 @@ failure exits non-zero, and nothing falls back to the CPU:
    device time (CUDA events queued behind a sleeping kernel, so the host's
    launch cost falls outside). K4 on the same rays in the same
    modes: identical to K1 and to the plain version, and again on the rays
-   shuffled (results un-shuffled after);
+   shuffled (results un-shuffled after); timed as K1's variants;
 3. PathTracer on Cornell 32^2, depth 4, 16 passes against
    tests/goldens/cornell_32_pt.npz (mean relative error < 0.02);
 4. the Cornell headline: PathTracer on Cornell 512^2, max_depth 6, chunks
@@ -55,8 +58,17 @@ failure exits non-zero, and nothing falls back to the CPU:
    K1 (the global variant by the size rule; the shared one forced must be
    refused) identical to its plain version; then at both visit budgets the
    path runs (V=6 for camera rays, V=3 for the rest), K2's variants (as
-   K1's in phase 2) and K3 identical to their plain versions (hits, visit
-   lists, counts, min-dropped t, steps, flags), K1 on the exact path's
+   K1's in phase 2), and K3 and the probe's three K3 designs (cluster,
+   split, walk), identical to their plain versions (hits, visit lists,
+   counts, min-dropped t, steps, flags) and timed as K1's; on the mixed
+   slots, the probe's cluster and walk designs at each chunk size and
+   staging threshold of K3_CHUNKS x K3_MIN_STAGES (identical, the
+   staged-segment count equal to the plain model's,
+   schedule_probe.treelet_segments, and the device time), the cluster and
+   split designs staging only (device
+   time), and the probe's split of the slots (segments, staged count
+   against the model, visits per staged segment, the share of valid
+   visits left unstaged); K1 on the exact path's
    fallback batch (tmax -1 on every ray whose visits did not overflow,
    mixed) identical to its plain version and timed, the two-phase result
    identical to the plain two-phase result,
@@ -81,16 +93,20 @@ failure exits non-zero, and nothing falls back to the CPU:
    zeroed around the run; the output of every timed configuration must
    equal its plain version's on the same inputs.
 
-The kernel table comes next: one row for each variant of K1 and K2 and
-for each of K3, K4 and P1-P3, with its launches on its own path (the
-global variant of K2 takes none on the main path), its time and its plain
-version's time (K1 shared on veach-mis, K1 global on the San Miguel
-fallback batch, K2 and K3 at V=3; the other shapes under by_scene, by_v,
-fallback_by_v and mixed_rays; the forced global variant and the probe's
-designs on the same rays beside K1's and K2's shared rows), and its bound: the larger of the bytes it must move over 3.35 TB/s and its float32
-operations over 67 TFLOP/s (traversal: the table once, the rays in and the
-hits out; the measured steps times a node step's operations). Then the
-card's name and power limit, and last the device record.
+The kernel table comes next: one row for each variant of K1 and K2, for
+K3 and each of the probe's K3 designs, and for K4 and P1-P3, with its
+launches on its own path (the global variant of K2 and the K3 designs
+take none on the main path), its time and its plain version's time (K1
+shared on veach-mis, K1 global on the San Miguel fallback batch, K2 and
+K3 at V=3; the other shapes under by_scene, by_v, fallback_by_v and
+mixed_rays; the forced global variant and the probe's designs on the same
+rays beside K1's and K2's shared rows; the probe's split of the slots
+beside its cluster design), its device time where taken, and its bound:
+the larger of the bytes it must move over 3.35 TB/s and its float32
+operations over 67 TFLOP/s (traversal: the table once, for K3 each slab a
+valid visit names, the rays in and the hits out; the measured steps times
+a node step's operations). Then the card's name and power limit, and last
+the device record.
 """
 import json
 import os
@@ -112,6 +128,14 @@ N_RAYS = 131072 + 513
 # forced, and the two designs the shared variant was measured against
 # (utils/schedule_probe.DESIGNS)
 K1_VARIANTS = (None, "global", "stride", "smem_stack")
+# K3's designs held to its plain version on the San Miguel slots: the kept
+# kernel (None) and the three of utils/schedule_probe.K3_DESIGNS
+K3_DESIGNS = (None, "cluster", "split", "walk")
+# the probe's cluster and walk designs at other chunk sizes and staging
+# thresholds (1 << 30: never staged), beside the probe's own (CHUNK,
+# MIN_STAGE)
+K3_CHUNKS = (1024, 4096, 16384)
+K3_MIN_STAGES = (64, 256, 1024, 1 << 30)
 SM_HALF = 131072
 VEACH_HALF = 65536
 REF_VEACH = os.path.join(HERE, "tests", "goldens", "ref_veach.npz")
@@ -133,6 +157,9 @@ SASS_NAME_RE = re.compile(r"(traverse8_shared_kernel|traverse8_kernel"
                           r"|top_visits_shared_kernel|top_visits_kernel"
                           r"|treelet_hits_kernel|traverse_pool_kernel)"
                           r"(I(?:L[bi]\d+E)+E)?")
+# K3's probe designs in a mangled name: the blocks of a cluster and where
+# the staged slab lives
+PROBE_K3_RE = re.compile(r"probe_treelet_kernelILi(\d)EN\w*?(Cluster|Split|Walk)Stage")
 SASS_LOAD_RE = re.compile(r"\b(?:LDS|LDG|LD|LDGSTS)(?:\.[A-Z0-9_]+)*\b")
 
 
@@ -182,9 +209,11 @@ def sass_loads(lib_path, nvcc):
     out, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            m = SASS_NAME_RE.search(ln)
+            m, p = SASS_NAME_RE.search(ln), PROBE_K3_RE.search(ln)
             args = re.findall(r"L[bi](\d+)E", m.group(2) or "") if m else []
             fn = (m.group(1) + (f"<{','.join(args)}>" if args else "")) if m else None
+            if p:
+                fn = f"probe_treelet_kernel<{p.group(2).lower()},{p.group(1)}>"
             if fn:
                 out[fn] = {}
             continue
@@ -278,18 +307,20 @@ def check_pool(scene_name, table, rays, amask, K1, K4, traversal8, Rays, seed):
         ms = (cuda_median_ms(lambda: K4(table, rays, **kw)),
               cuda_median_ms(lambda: K1(table, rays, **kw)),
               cuda_median_ms(lambda: traversal8.intersect_wide(table, rays, **kw)))
+        dms = device_ms(lambda: K4(table, rays, **kw)) if mode == "mixed" else None
         flagged = int((f4 != 0).sum())
         emit(phase="kernel_vs_plain", scene=scene_name, kernel="K4", mode=mode,
              rays=B, rows=table.shape[0], identical_to_k1=ok1,
              identical_to_plain=okp, shuffled_identical=oks,
              max_abs_err=max(err1, errp, errs), ms=ms[0], k1_ms=ms[1],
-             plain_ms=ms[2], steps=int(s4.sum()), min_steps=int(s4.min()),
+             plain_ms=ms[2], device_ms=dms, steps=int(s4.sum()),
+             min_steps=int(s4.min()),
              flagged=flagged, hit_rate=float((h4.tri >= 0).float().mean()))
         if not (ok1 and okp and oks):
             fail(f"K4 disagrees with K1 or the plain version ({scene_name}, {mode})")
         if flagged:
             fail(f"capped or overflowed rays in {scene_name} {mode}")
-        out[mode] = (max(err1, errp, errs), *ms, int(s4.sum()))
+        out[mode] = (max(err1, errp, errs), *ms, int(s4.sum()), dms)
     return out
 
 
@@ -411,18 +442,42 @@ def main():
              ptxas=ptxas)
     emit(phase="build", seconds_all=round(build_s, 3))
     # the shared variants must read their rows with LDS (not generic LD),
-    # the global ones with LDG
-    for src in ("traversal8.cu", "traversal_tt.cu", "traversal_pool.cu"):
+    # the global ones with LDG; K3's staging probe designs stage with
+    # LDGSTS and read a staged row on chip (LDS from the block's own shared
+    # memory, or a generic LD: through the cluster's shared windows, or
+    # where the split design's row may lie in either memory), so each must
+    # hold at least as many such 128-bit loads as K3 holds LDGs (one step's
+    # row loads): a staged row read with LDG fails
+    shared_bytes = dict(shared="rows * 512",
+                        staged="the staged rows * 512 / blocks")
+    k3_loads = None
+    for src in ("traversal8.cu", "traversal_tt.cu", "traversal_pool.cu",
+                "schedule_probe.cu"):
         loads = sass_loads(cuda_build.build_log[src]["path"],
                            cuda_build.find_nvcc())
+        if src == "schedule_probe.cu":
+            # K3's staging designs only (the walk stages nothing; the rest
+            # are K1's and K2's designs or copies of the kernels above)
+            loads = {fn: ops for fn, ops in loads.items()
+                     if fn.startswith("probe_treelet_kernel<")
+                     and "walk" not in fn}
+        else:
+            k3_loads = k3_loads or loads.get("treelet_hits_kernel")
+        step_loads = sum(n for op, n in (k3_loads or {}).items()
+                         if op.startswith("LDG."))
         for fn, ops in loads.items():
-            shared_table = "_shared_" in fn
-            emit(phase="sass", kernel=fn, loads_128=ops,
-                 dynamic_shared_bytes="rows * 512" if shared_table else 0)
+            kind = ("shared" if "_shared_" in fn else
+                    "staged" if fn.startswith("probe_treelet") else "global")
             lds = sum(n for op, n in ops.items() if op.startswith("LDS"))
             ldg = sum(n for op, n in ops.items() if op.startswith("LDG."))
             generic = sum(n for op, n in ops.items() if op.startswith("LD."))
-            if (lds == 0 or generic) if shared_table else ldg == 0:
+            emit(phase="sass", kernel=fn, kind=kind, loads_128=ops,
+                 on_chip_row_loads=lds + generic if kind == "staged" else None,
+                 dynamic_shared_bytes=shared_bytes.get(kind, 0))
+            bad = {"shared": lds == 0 or generic > 0, "global": ldg == 0,
+                   "staged": (lds + generic < step_loads or step_loads == 0
+                              or "LDGSTS.E.BYPASS.128" not in ops)}[kind]
+            if bad:
                 fail(f"{fn}: unexpected row loads {ops}")
 
     # 2. K1 against its plain version at the Cornell path's ray count
@@ -670,7 +725,97 @@ def main():
              shared_bytes=wide.shape[0] * traversal8.ROW_BYTES, error=str(e))
     else:
         fail("K1's shared variant on the San Miguel table was not refused")
-    k2_res = {}
+    n_tt = slabs.shape[0]
+    probe_split = (probe.CHUNK, probe.MIN_STAGE)
+
+    def k3_designs(V, slots):
+        """K3 and its probe designs (K3_DESIGNS) against its plain version
+        on each mode's sorted slots {mode: (keys, order, t_prune)}; then, on
+        the mixed slots, the probe's cluster and walk designs at each chunk
+        size and staging threshold of K3_CHUNKS x K3_MIN_STAGES (identical,
+        staged count against the plain model, device time), the cluster and
+        split designs staging only, and the probe's split of the slots.
+        Returns check_variants's result."""
+        def run(design, m):
+            keys, order, t_prune = m["slots"]
+            if design is None:
+                r = K3(slabs, sm_rays, t_prune, keys, order, V, **m["kw"])
+            else:
+                r = probe.treelet_hits(slabs, sm_rays, t_prune, keys, order, V,
+                                       design, **m["kw"])
+            return (*r[0], *r[1:]), r[1], r[2]
+
+        def plain(m):
+            keys, order, t_prune = m["slots"]
+            r = traversal_tt.treelet_hits(slabs, sm_rays, t_prune, keys, order,
+                                          V, **m["kw"])
+            return (*r[0], *r[1:]), r[1], r[2]
+        modes = {mode: dict(kw=kw, slots=slots[mode])
+                 for mode, kw in sm_modes.items()}
+        keys, order, t_prune = slots["mixed"]
+        tid = keys >> traversal_tt.VID_ROOT_BITS
+        valid = tid < n_tt
+        needed = int(torch.unique(tid[valid]).numel())
+        # K3 reads each slab that a valid visit names once, the rays (o, d,
+        # tmin, the prune t, the any-hit mask) and the B*V keys and slots,
+        # and writes one hit per slot (t, tri, u, v, steps, flags)
+        res = check_variants(
+            "K3", run, plain, modes, K3_DESIGNS,
+            bound=lambda steps: mb.bound_ms(
+                needed * slabs[0].numel() * 4 + B * 33 + B * V * 29,
+                steps * traversal8.NODE_STEP_FLOPS),
+            scene="san_miguel_stand_in", V=V, slots=B * V, treelets=n_tt,
+            slab_rows=slabs.shape[1], treelets_visited=needed,
+            cluster_blocks=probe.slab_variant(
+                slabs.shape[1], torch.cuda.get_device_properties(dev)
+                .shared_memory_per_block_optin))
+        kw = sm_modes["mixed"]
+        ref = plain(modes["mixed"])[0]
+
+        def probe_run(chunk, min_stage, design="cluster", stage_only=False,
+                      scratch=None):
+            return probe.treelet_hits(slabs, sm_rays, t_prune, keys, order, V,
+                                      design, chunk, min_stage, stage_only,
+                                      _scratch=scratch, **kw)
+        for chunk in K3_CHUNKS:
+            for min_stage in K3_MIN_STAGES:
+                staged = int(probe.treelet_segments(
+                    keys, n_tt, chunk, min_stage)[3].sum())
+                for design in ("cluster", "walk"):
+                    scratch = torch.empty(2, dtype=torch.int32, device=dev)
+                    got = probe_run(chunk, min_stage, design, scratch=scratch)
+                    ok, err = same((*got[0], *got[1:]), ref)
+                    dms = device_ms(lambda: probe_run(chunk, min_stage, design))
+                    emit(phase="k3_sweep", V=V, design=design, chunk=chunk,
+                         min_stage=min_stage, device_ms=dms, identical=ok,
+                         max_abs_err=err, staged=int(scratch[1]),
+                         staged_model=staged)
+                    if not ok or int(scratch[1]) != staged:
+                        fail(f"K3's {design} design at chunk {chunk}, "
+                             f"min_stage {min_stage}: identical {ok}, staged "
+                             f"{int(scratch[1])} against the model's {staged}")
+        stage_only = {d: device_ms(lambda: probe_run(*probe_split, design=d,
+                                                     stage_only=True))
+                      for d in ("cluster", "split")}
+        scratch = torch.empty(2, dtype=torch.int32, device=dev)
+        probe_run(*probe_split, scratch=scratch)
+        start, end, _, staged = probe.treelet_segments(keys, n_tt, *probe_split)
+        n_staged, n_valid = int(staged.sum()), int(valid.sum())
+        staged_visits = int((end - start)[staged].sum())
+        split = dict(chunk=probe_split[0], min_stage=probe_split[1],
+                     slots=B * V, valid_visits=n_valid,
+                     segments=int(start.numel()), staged=int(scratch[1]),
+                     staged_model=n_staged,
+                     visits_per_staged_segment=staged_visits / max(n_staged, 1),
+                     unstaged_share=1 - staged_visits / max(n_valid, 1),
+                     stage_only_device_ms=stage_only)
+        emit(phase="k3_split", V=V, **split)
+        if int(scratch[1]) != n_staged:
+            fail(f"K3 staged {int(scratch[1])} segments, the model {n_staged}")
+        k3_splits[V] = split
+        return res
+
+    k2_res, k3_res, k3_splits = {}, {}, {}
     for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
         def k2_run(variant, kw):
             if variant in probe.DESIGNS:
@@ -692,17 +837,16 @@ def main():
             scene="san_miguel_stand_in", V=V, rays=B, rows=top.shape[0],
             shared_bytes=top.shape[0] * traversal8.ROW_BYTES,
             rule=traversal8.launch_variant(top))
+        k2_out = {mode: K2(top, sm_rays, V, **kw) for mode, kw in sm_modes.items()}
+        k3_res[V] = k3_designs(V, {mode: traversal_tt.visit_slots(
+            k2[0], k2[1], k2[3], n_tt, traversal8.any_lanes(
+                B, kw.get("any_hit", False), kw.get("any_mask"), dev))[1:]
+            for (mode, kw), k2 in zip(sm_modes.items(), k2_out.values())})
         for mode, kw in sm_modes.items():
             h1 = k1_res[mode]
             any_lane = traversal8.any_lanes(B, kw.get("any_hit", False),
                                             kw.get("any_mask"), dev)
-            k2 = K2(top, sm_rays, V, **kw)
-            _, keys, order, t_prune = traversal_tt.visit_slots(
-                k2[0], k2[1], k2[3], slabs.shape[0], any_lane)
-            k3 = K3(slabs, sm_rays, t_prune, keys, order, V, **kw)
-            p3 = traversal_tt.treelet_hits(slabs, sm_rays, t_prune, keys, order,
-                                           V, **kw)
-            ok3, err3 = same((*k3[0], *k3[1:]), (*p3[0], *p3[1:]))
+            vcnt = k2_out[mode][3]
             tk = traversal_tt.two_phase(K2, K3, top, slabs, sm_rays, V=V,
                                         with_overflow=True, with_iters=True, **kw)
             tp = traversal_tt.two_phase(traversal_tt.top_visits,
@@ -722,7 +866,6 @@ def main():
                                         (h1.tri >= 0)[any_lane]))
             total, dropped = (int(x) for x in traversal_tt.count_dropped_visits(
                 top, sm_rays, V)) if mode == "closest" else (None, None)
-            vcnt = k2[3]
             times = dict(
                 treelet_ms=cuda_median_ms(lambda: traversal8.intersect_treelet_exact(
                     geom, sm_rays, coherent=coherent, **kw)),
@@ -733,14 +876,6 @@ def main():
                     traversal_tt.top_visits, traversal_tt.treelet_hits, top,
                     slabs, sm_rays, V=V, **kw)))
             if mode == "mixed":
-                # K3 reads the slabs, the rays, the prune t and the B*V keys
-                # and slots, and writes one hit per slot
-                kernel_ms["K3", V] = (err3, cuda_median_ms(lambda: K3(
-                    slabs, sm_rays, t_prune, keys, order, V, **kw)),
-                    cuda_median_ms(lambda: traversal_tt.treelet_hits(
-                        slabs, sm_rays, t_prune, keys, order, V, **kw)),
-                    mb.bound_ms(slabs.numel() * 4 + B * 33 + B * V * 29,
-                                int(k3[1].sum()) * traversal8.NODE_STEP_FLOPS))
                 # K1 on the exact path's fallback batch: every lane whose
                 # visits did not overflow has tmax -1 and takes one step
                 fb = Rays(sm_rays.o, sm_rays.d, sm_rays.tmin,
@@ -749,8 +884,7 @@ def main():
                     f"san_miguel_fallback_V{V}", wide, fb, sm_mask, (None,),
                     only_mixed=True)["mixed", None]
             emit(phase="sm_kernels_vs_plain", mode=mode, rays=B, V=V,
-                 k3_identical=ok3, two_phase_identical=okt,
-                 max_abs_err=max(err3, errt),
+                 two_phase_identical=okt, max_abs_err=errt,
                  visits=int(vcnt.sum()), visits_kept=int(vcnt.clamp_max(V).sum()),
                  dropped_visits=int((vcnt - V).clamp_min(0).sum()),
                  count_dropped_visits=[total, dropped],
@@ -758,9 +892,9 @@ def main():
                  flags=[int(x) for x in ex_flags.tolist()],
                  exact_t_identical=t_same, tri_ties=ties,
                  any_hit_lanes_identical=hit_same, **times)
-            if not (ok3 and okt):
-                fail(f"K3 or the two-phase path disagrees with its plain "
-                     f"version ({mode}, V={V})")
+            if not okt:
+                fail(f"the two-phase path disagrees with its plain version "
+                     f"({mode}, V={V})")
             if not (t_same and hit_same):
                 fail(f"the treelet path disagrees with K1 beyond t-ties "
                      f"({mode}, V={V})")
@@ -875,18 +1009,20 @@ def main():
         return row(name, src, replaces, launches_n, err, r["ms"], r["plain_ms"],
                    r["bound"], device_ms=r["device_ms"], **extra)
 
-    def tt_row(kname, name, src, replaces):
-        by_v = {f"V{V}": dict(launches=launches[kname, V], ms=kernel_ms[kname, V][1],
-                              plain_ms=kernel_ms[kname, V][2],
-                              bound_ms=kernel_ms[kname, V][3][0])
-                for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)}
-        k = (kname, traversal8.V_INCOHERENT)
-        return row(name, src, replaces,
-                   sum(launches[kname, V] for V in (traversal8.V_COHERENT,
-                                                    traversal8.V_INCOHERENT)),
-                   max(kernel_ms[kname, V][0] for V in (traversal8.V_COHERENT,
-                                                        traversal8.V_INCOHERENT)),
-                   *kernel_ms[k][1:], by_v=by_v)
+    def k3_row(name, src, design):
+        """One row per K3 design at V=3, both budgets under by_v: the kept
+        kernel (design None) with its launches on the main path, the
+        probe's designs with none; the probe's split of the slots beside
+        the cluster design."""
+        n = {V: launches["K3", V] if design is None else 0 for V in k3_res}
+        by_v = {f"V{V}": dict(launches=n[V], **brief(k3_res[V]["mixed", design]))
+                for V in k3_res}
+        return vrow(name, src, "cudatracerlib_tpu/ops/traversal_tt.py:340",
+                    sum(n.values()), max(max_err(k3_res[V], design) for V in k3_res),
+                    k3_res[traversal8.V_INCOHERENT]["mixed", design],
+                    design=design or "kept", by_v=by_v,
+                    split={f"V{V}": k3_splits[V] for V in k3_splits}
+                    if design == "cluster" else None)
 
     def k2_row(name, variant):
         by_v = {f"V{V}": dict(launches=launches["K2", V] if variant is None else 0,
@@ -937,12 +1073,13 @@ def main():
         *k1_rows,
         k2_row("top_visits_shared_kernel", None),
         k2_row("top_visits_kernel", "global"),
-        tt_row("K3", "treelet_hits_kernel", "traversal_tt.cu",
-               "cudatracerlib_tpu/ops/traversal_tt.py:340"),
+        k3_row("treelet_hits_kernel", "traversal_tt.cu", None),
+        *(k3_row(f"probe_treelet_kernel<{d}>", "schedule_probe.cu", d)
+          for d in probe.K3_DESIGNS),
         row("traverse_pool_kernel", "traversal_pool.cu",
             "cudatracerlib_tpu/ops/traversal_pl.py:298", k4_launches,
             k4_res["mixed"][0], k4_res["mixed"][1], k4_res["mixed"][3],
-            k4_bound),
+            k4_bound, device_ms=k4_res["mixed"][5]),
         row("chase_rows_kernel", "microbench.cu",
             "tools/microbench_r2.py:89", mb_launches["P1"], *mb_row(p1)),
         row("gather_rows_thread_kernel", "microbench.cu",

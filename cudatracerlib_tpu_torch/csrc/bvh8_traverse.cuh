@@ -29,7 +29,8 @@
 // run traverse; K4 runs step itself, so that a lane can take a new ray
 // between two steps.
 //
-// step and traverse are templates over where a row comes from:
+// step and traverse are templates over where a row comes from; a source
+// gives a row's base pointer (row) and its swizzle:
 // - the global source (GlobalRows) reads the table in device memory through
 //   L1/L2, one LDG.E.128.CONSTANT per float4. K3, K4 and the global
 //   variants of K1 and K2 use it;
@@ -40,6 +41,9 @@
 //   of rows that differ in i & 7 fall on different banks. Its node and leaf
 //   steps compile to LDS.128 (43 per kernel, no generic LD; chip_smoke.py
 //   checks the SASS). The shared variants of K1 and K2 use it.
+// csrc/schedule_probe.cu adds the sources of K3's rejected designs (a slab
+// over a cluster's shared memory; a slab split between shared and device
+// memory).
 // The ring stack is the caller's (Stack: any type with int& operator[]);
 // every kernel keeps it in local memory, an int[kMaxStack]. Stacks in
 // shared memory tied with it (csrc/schedule_probe.cu, PERF.md).
@@ -112,16 +116,24 @@ struct Best {
 };
 
 // Where a step reads its row: rows are 32 float4; float4 k of row i is at
-// row i's base + (k ^ swizzle(i)). The global source is the table in device
-// memory, read through L1/L2 as it is stored; the shared source is the
-// block's swizzled copy in shared memory (stage_rows below), so that the 8
-// lanes of a quarter-warp reading one column of rows that differ in i & 7
-// fall on different banks.
+// row(table, i) + (k ^ swizzle(i)). The global source is the table in
+// device memory, read through L1/L2 as it is stored; the shared source is
+// the block's swizzled copy in shared memory (stage_rows below), so that
+// the 8 lanes of a quarter-warp reading one column of rows that differ in
+// i & 7 fall on different banks.
 struct GlobalRows {
+  static __device__ __forceinline__ const float4* row(const float4* table,
+                                                      int i) {
+    return table + (size_t)i * 32;
+  }
   static __device__ __forceinline__ int swizzle(int) { return 0; }
 };
 
 struct SharedRows {
+  static __device__ __forceinline__ const float4* row(const float4* table,
+                                                      int i) {
+    return table + (size_t)i * 32;
+  }
   static __device__ __forceinline__ int swizzle(int row) { return row & 31; }
 };
 
@@ -159,7 +171,7 @@ __device__ __forceinline__ int step(const float4* __restrict__ table,
     nxt = kPop;
   } else {
     row_idx = min(max(row_idx, 0), n_rows - 1);
-    const float4* row = table + (size_t)row_idx * 32;
+    const float4* row = Rows::row(table, row_idx);
     const int sw = Rows::swizzle(row_idx);
     if (cur >= 0) {
       float best_t = __int_as_float(0x7f800000);
@@ -316,19 +328,20 @@ __device__ __forceinline__ void traverse(const float4* __restrict__ table,
 
 // ---- the shared-table variants of K1 and K2 --------------------------------
 
-// Copies the (n_rows, 128) table into the block's shared memory, float4 k
-// of row i at i * 32 + (k ^ (i & 31)), with 16-byte cp.async copies (all in
-// flight at once, through L2 only), and waits for the whole block.
+// Copies n_rows rows of the (., 128) table, every `stride`-th from row 0
+// on, into the block's shared memory as local rows 0, 1, ...: float4 k of
+// local row j at j * 32 + (k ^ (j & 31)), with 16-byte cp.async copies (all
+// in flight at once, through L2 only), and waits for the whole block.
 __device__ __forceinline__ void stage_rows(float4* rows,
                                            const float4* __restrict__ table,
-                                           int n_rows) {
+                                           int n_rows, int stride = 1) {
   const int n = n_rows * 32;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int row = i >> 5;
     const unsigned dst = (unsigned)__cvta_generic_to_shared(
         rows + row * 32 + ((i & 31) ^ SharedRows::swizzle(row)));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(table + i));
+                 "l"(table + (size_t)row * stride * 32 + (i & 31)));
   }
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();

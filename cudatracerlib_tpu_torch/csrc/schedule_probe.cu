@@ -1,22 +1,44 @@
 // The designs that the shared variants of K1 and K2 (traversal8.cu,
-// traversal_tt.cu) were measured against. On no render path: the wrappers
-// in utils/schedule_probe.py launch them, and chip_smoke.py holds them to
-// the plain versions and times them beside the kept variants, on the same
-// rays in the same process (PERF.md, section 6).
+// traversal_tt.cu) and K3 were measured against. On no render path: the
+// wrappers in utils/schedule_probe.py launch them, and chip_smoke.py holds
+// them to the plain versions and times them beside the kept kernels, on
+// the same rays in the same process (PERF.md, section 6).
 //
-// Each runs the kept kernels' per-ray code (trace_ray, top_ray) on the
-// swizzled table in shared memory, one 512-thread block per SM, and
-// changes one thing:
+// K1's and K2's run the kept kernels' per-ray code (trace_ray, top_ray) on
+// the swizzled table in shared memory, one 512-thread block per SM, and
+// change one thing:
 // - design 0, "stride": rays by a static stride (ray = the thread's index
 //   in the grid + k * the grid's threads) instead of the per-warp queue;
 //   the stacks in local memory, as kept;
 // - design 1, "smem_stack": the per-warp queue, as kept, with each
 //   thread's ring stack in shared memory after the table, one column per
 //   thread (stack_depth * 4 * 512 more bytes per block).
-// Both compute what the kept variants compute, bit for bit.
+// K3's stage each treelet slab on chip for the visits that share it, as
+// the TPU kernel stages one slab in VMEM per grid block, with K3's per-slot
+// code (treelet_visit): a persistent grid of 512-thread blocks, one per
+// SM, walks chunks of the sorted slots (treelet_chunks) and stages the
+// slab of each long enough treelet segment:
+// - design 0, "cluster": the slab spread over a cluster of n = 1, 2, 4 or
+//   8 blocks (utils/schedule_probe.slab_variant: 2 for 512-row slabs), row
+//   i in block i % n, read through the cluster's distributed shared memory;
+// - design 1, "split": one block, no cluster, holds rows 0-452 of the slab
+//   (453 x 512 bytes and the walk's two words fill the 227 KB a block may
+//   hold) and reads rows 453-511 from device memory; every row through a
+//   generic load;
+// - design 2, "walk": design 1's schedule with nothing staged and no
+//   shared memory, every row from device memory (the schedule's own cost).
+// Their chunk size, fewest visits of a staged segment and a stage-only
+// switch are given at run time, so that one call can time other choices.
+// All compute what the kept kernels compute, bit for bit.
+
+#include <cooperative_groups.h>
 
 #include "traversal8.cu"
 #include "traversal_tt.cu"
+
+// The start of a block's dynamic shared memory, where K3's probe designs
+// stage a slab.
+extern __shared__ float4 staged_rows[];
 
 namespace {
 
@@ -121,6 +143,258 @@ int launch_probe_top(int design, const float4* top, int n_top,
                        vid_out, vent_out, vcnt_out, mdrop_out);
 }
 
+// ---- K3's designs ----------------------------------------------------------
+
+constexpr int kCluster = 0;
+constexpr int kSplit = 1;
+constexpr int kWalk = 2;
+constexpr int kSplitRows = 453;
+
+// The cluster design's staged slab, spread over the dynamic shared memory
+// of a cluster of kRanks blocks (`table` is not read): row i lives in block
+// rank i % kRanks at local row i / kRanks, swizzled by the local row. With
+// kRanks a compile-time power of two the rank and the local row are a mask
+// and a shift of the row index, so the source holds no pointer and no
+// runtime state; a row in another block is read through that block's
+// shared window (distributed shared memory, a generic LD).
+template <int kRanks>
+struct ClusterStage {
+  static __device__ __forceinline__ const float4* row(const float4*, int i) {
+    const float4* local = staged_rows + (size_t)(i / kRanks) * 32;
+    if constexpr (kRanks == 1) {
+      return local;
+    } else {
+      return cooperative_groups::this_cluster().map_shared_rank(
+          const_cast<float4*>(local), (unsigned)(i % kRanks));
+    }
+  }
+  static __device__ __forceinline__ int swizzle(int row) {
+    return (row / kRanks) & 31;
+  }
+  // this block's rows of the slab: rows rank, rank + kRanks, ...
+  static __device__ __forceinline__ void stage(const float4* slab, int rows,
+                                               unsigned rank) {
+    stage_rows(staged_rows, slab + (size_t)rank * 32,
+               (rows - (int)rank + kRanks - 1) / kRanks, kRanks);
+  }
+  static __device__ __forceinline__ const float4* table(const float4*) {
+    return nullptr;
+  }
+};
+
+// The split design's staged slab: rows below kSplitRows in the block's
+// shared memory, swizzled as SharedRows; the rest read from the slab in
+// device memory (`table`).
+struct SplitStage {
+  static __device__ __forceinline__ const float4* row(const float4* table,
+                                                      int i) {
+    return i < kSplitRows ? staged_rows + i * 32 : table + (size_t)i * 32;
+  }
+  static __device__ __forceinline__ int swizzle(int row) {
+    return row < kSplitRows ? row & 31 : 0;
+  }
+  static __device__ __forceinline__ void stage(const float4* slab, int rows,
+                                               unsigned) {
+    stage_rows(staged_rows, slab, rows < kSplitRows ? rows : kSplitRows);
+  }
+  static __device__ __forceinline__ const float4* table(const float4* slab) {
+    return slab;
+  }
+};
+
+// The walk design's "staged" slab stays in device memory: the split
+// design's schedule (one block per SM; chunks, segments, barriers) with no
+// shared memory and no copy, to tell the schedule's cost from the
+// staging's.
+struct WalkStage : GlobalRows {
+  static __device__ __forceinline__ void stage(const float4*, int, unsigned) {}
+  static __device__ __forceinline__ const float4* table(const float4* slab) {
+    return slab;
+  }
+};
+
+template <int kRanks>
+__device__ __forceinline__ void cluster_sync() {
+  if constexpr (kRanks == 1) {
+    __syncthreads();
+  } else {
+    cooperative_groups::this_cluster().sync();
+  }
+}
+
+// The word `w` of the cluster's first block (this block's own when kRanks
+// is 1).
+template <int kRanks>
+__device__ __forceinline__ int* leader_word(int* w) {
+  if constexpr (kRanks == 1) {
+    return w;
+  } else {
+    return cooperative_groups::this_cluster().map_shared_rank(w, 0u);
+  }
+}
+
+// The end of the run of treelet `tid` that starts at sorted slot lo, within
+// [lo, hi): the first slot whose key names a later treelet (keys sorted).
+__device__ __forceinline__ int segment_end(const int* __restrict__ keys,
+                                           int lo, int hi, int tid) {
+  int a = lo + 1, b = hi;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    if ((keys[m] >> kVidRootBits) > tid) {
+      b = m;
+    } else {
+      a = m + 1;
+    }
+  }
+  return a;
+}
+
+// K3's slots on a persistent cluster of kRanks blocks, `Staged` being where
+// a staged slab lives. The cluster takes chunks of `chunk` sorted slots
+// from the queue counter queue[0] and walks each chunk's treelet segments
+// (runs of one treelet id), finding their ends by binary search over the
+// keys. A segment of at least `min_stage` visits is staged: each block
+// copies its share of the slab into its shared memory, adds one to
+// queue[1] (the staged segments), and after a cluster barrier the
+// cluster's warps take the segment's slots from a counter in the first
+// block's shared memory, reading rows on chip. A run of shorter segments,
+// and the invalid slots sorted last, are taken the same way, their slabs
+// read from device memory. A barrier closes each step, before any block
+// overwrites its share or exits, so no block reads a share that its owner
+// has moved on from. With stage_only the cluster stages and walks but
+// traverses nothing. Every decision is the same in every thread, so the
+// barriers are uniform. A visit whose treelet is not the staged one (keys
+// out of order) reads device memory, so any order gives K3's result.
+template <int kRanks, class Staged>
+__device__ __forceinline__ void treelet_chunks(CTL_K3_PARAMS, int chunk,
+                                               int min_stage, bool stage_only,
+                                               int* queue) {
+  __shared__ int s_chunk, s_next;
+  unsigned rank = 0;
+  if constexpr (kRanks > 1) {
+    rank = cooperative_groups::this_cluster().block_rank();
+  }
+  const bool leader = rank == 0 && threadIdx.x == 0;
+  int stack[kMaxStack];
+  if (leader) s_chunk = atomicAdd(queue, 1);
+  cluster_sync<kRanks>();
+  for (;;) {
+    const int c = *static_cast<volatile int*>(leader_word<kRanks>(&s_chunk));
+    if (c >= (n_visits + chunk - 1) / chunk) break;
+    const int hi = min(n_visits, (c + 1) * chunk);
+    for (int lo = c * chunk; lo < hi;) {
+      const int tid = keys[lo] >> kVidRootBits;
+      int end = segment_end(keys, lo, hi, tid);
+      const bool staged = tid < n_treelets && end - lo >= min_stage;
+      const float4* slab = slabs + (size_t)tid * rows * 32;
+      if (staged) {
+        Staged::stage(slab, rows, rank);
+        if (leader) atomicAdd(queue + 1, 1);
+      } else {
+        while (end < hi) {  // the following short or invalid segments
+          const int t2 = keys[end] >> kVidRootBits;
+          const int e2 = segment_end(keys, end, hi, t2);
+          if (t2 < n_treelets && e2 - end >= min_stage) break;
+          end = e2;
+        }
+      }
+      if (leader) s_next = lo;
+      cluster_sync<kRanks>();
+      // every thread has read this chunk's id: the leader claims the next
+      if (leader && end == hi) s_chunk = atomicAdd(queue, 1);
+      if (!stage_only) {
+        const int staged_tid = staged ? tid : -1;
+        bool drained = false;
+        while (!drained) {  // warp-uniform
+          const int i =
+              warp_fetch(leader_word<kRanks>(&s_next), true, end, drained);
+          if (i < 0) continue;
+          if ((keys[i] >> kVidRootBits) == staged_tid) {
+            treelet_visit<Staged>(CTL_K3_ARGS, Staged::table(slab), i, stack);
+          } else {
+            treelet_visit<GlobalRows>(
+                CTL_K3_ARGS, visit_slab(slabs, rows, keys, i), i, stack);
+          }
+        }
+      }
+      cluster_sync<kRanks>();
+      lo = end;
+    }
+  }
+  cluster_sync<kRanks>();
+}
+
+template <int kRanks, class Staged>
+__global__ void __launch_bounds__(kPersistThreads, 1)
+probe_treelet_kernel(CTL_K3_PARAMS, int chunk, int min_stage, int stage_only,
+                     int* queue) {
+  treelet_chunks<kRanks, Staged>(CTL_K3_ARGS, chunk, min_stage,
+                                 stage_only != 0, queue);
+}
+
+// What a cluster launch of one kernel needs from the runtime, kept for each
+// device so that a launch asks the runtime nothing: the dynamic shared
+// bytes it is opted in to, and how many of its clusters fit on the card at
+// once with that many bytes.
+struct ClusterOptIn {
+  size_t bytes[kMaxDevices] = {};
+  int clusters[kMaxDevices] = {};
+};
+
+// Zeroes queue[0..1] on the stream and launches `kernel` as a persistent
+// grid of clusters of `ranks` blocks of kPersistThreads threads with
+// `bytes` of dynamic shared memory each: as many clusters as fit on the
+// card at once, no more than n_chunks. Returns the first CUDA error (a
+// refused opt-in or launch is returned, and cleared from the runtime's last
+// error; a configuration of which no cluster fits is refused).
+template <class... Params, class... Args>
+int launch_cluster(void (*kernel)(Params...), ClusterOptIn& opt, int ranks,
+                   size_t bytes, int n_chunks, int* queue,
+                   cudaStream_t stream, Args... args) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks);
+  cfg.blockDim = dim3(kPersistThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (opt.clusters[dev] == 0 || opt.bytes[dev] < bytes) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    int clusters = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    }
+    if (err == cudaSuccess && clusters <= 0) {
+      err = cudaErrorInvalidConfiguration;
+    }
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    opt.bytes[dev] = bytes;
+    opt.clusters[dev] = clusters;
+  }
+  const int clusters = opt.clusters[dev] < n_chunks ? opt.clusters[dev]
+                                                    : n_chunks;
+  cfg.gridDim = dim3(clusters * ranks);
+  cudaMemsetAsync(queue, 0, 2 * sizeof(int), stream);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args..., queue);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ctl_traverse8's arguments, with `design` (0 stride, 1 smem_stack) in
@@ -164,4 +438,56 @@ extern "C" int ctl_probe_top_visits(
                 max_iters, t_out, tri_out, u_out, v_out, steps_out, flags_out,
                 vid_out, vent_out, vcnt_out, mdrop_out, next_ray,
                 (cudaStream_t)stream);
+}
+
+// ctl_treelet_hits's arguments, then queue (an int32[2] of the caller's:
+// the chunk queue's counter and, after the launch, the count of staged
+// segments; zeroed here on the stream), `design` (0 cluster, 1 split,
+// 2 walk), the cluster design's blocks per cluster (1, 2, 4 or 8; the
+// others take 1), the chunk size, the fewest visits of a staged segment
+// and stage_only (stage and walk, traverse nothing: the outputs are not
+// written). Returns a CUDA error code, or -1 for another design, blocks
+// count or chunk < 1.
+extern "C" int ctl_probe_treelet_hits(
+    const float* slabs, int n_treelets, int rows, const float* o,
+    const float* d, const float* tmin, const float* t_prune,
+    const uint8_t* any_mask, int any_hit, const int* keys, const int* order,
+    int n_visits, int V, int stack_depth, int max_iters, float* t_out,
+    int* tri_out, float* u_out, float* v_out, int* steps_out,
+    uint8_t* flags_out, int* queue, int design, int ranks, int chunk,
+    int min_stage, int stage_only, void* stream) {
+  if (design < kCluster || design > kWalk || chunk < 1) return -1;
+  if (design != kCluster) ranks = 1;
+  if (ranks != 1 && ranks != 2 && ranks != 4 && ranks != 8) return -1;
+  if (n_visits <= 0) return (int)cudaGetLastError();
+  static ClusterOptIn opt[6];
+  using Kernel = void (*)(const float4*, int, int, const float*, const float*,
+                          const float*, const float*, const uint8_t*, int,
+                          const int*, const int*, int, int, int, int, float*,
+                          int*, float*, float*, int*, uint8_t*, int, int, int,
+                          int*);
+  Kernel kernel = probe_treelet_kernel<1, WalkStage>;
+  int slot = 5;
+  size_t bytes = 0;
+  if (design == kSplit) {
+    kernel = probe_treelet_kernel<1, SplitStage>;
+    slot = 4;
+    bytes = (size_t)(rows < kSplitRows ? rows : kSplitRows) * 512;
+  } else if (design == kCluster) {
+    const Kernel by_ranks[4] = {probe_treelet_kernel<1, ClusterStage<1>>,
+                                probe_treelet_kernel<2, ClusterStage<2>>,
+                                probe_treelet_kernel<4, ClusterStage<4>>,
+                                probe_treelet_kernel<8, ClusterStage<8>>};
+    slot = ranks == 1 ? 0 : ranks == 2 ? 1 : ranks == 4 ? 2 : 3;
+    kernel = by_ranks[slot];
+    bytes = (size_t)((rows + ranks - 1) / ranks) * 512;
+  }
+  return launch_cluster(kernel, opt[slot], ranks, bytes,
+                        (n_visits + chunk - 1) / chunk, queue,
+                        (cudaStream_t)stream,
+                        reinterpret_cast<const float4*>(slabs), n_treelets,
+                        rows, o, d, tmin, t_prune, any_mask, any_hit, keys,
+                        order, n_visits, V, stack_depth, max_iters, t_out,
+                        tri_out, u_out, v_out, steps_out, flags_out, chunk,
+                        min_stage, stage_only);
 }

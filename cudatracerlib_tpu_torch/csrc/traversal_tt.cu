@@ -35,12 +35,20 @@
 // is ahead of the global one by 5-12% of device time (PERF.md), and like
 // K1 bound by issuing the state machine under divergence, not by bytes.
 //
-// K3 stays on the global source: its 512-row slabs are 256 KB, over the
-// 227 KB a block may hold, and a block's threads read many slabs (one per
-// visit). It reads them straight from device memory through L1 and L2; the
-// 1.2M-triangle table's slabs total ~109 MB, twice the 50 MB L2, so the
-// sort's coherence is what keeps K3's row loads in cache. It is bound by
-// divergence and dependent-load latency.
+// K3 reads its slabs straight from device memory through L1 and L2: the
+// 1.2M-triangle table's 414 slabs of 512 rows total ~109 MB, twice the
+// 50 MB L2, and the sort's coherence (a warp's visits share a slab and
+// nearby roots) keeps its row loads in cache; asking for no shared memory
+// leaves the SM all of its L1. A visit takes some 4 steps. Staging each
+// slab on chip for the visits that share it, as the TPU kernel does in
+// VMEM, was built and measured (csrc/schedule_probe.cu: a slab over the
+// shared memory of a cluster of 2 blocks read through distributed shared
+// memory, or 453 of its rows in one block's): on the San Miguel slots both
+// took 2.2-4.1x K3's device time, and so did the persistent chunk walk
+// they need with nothing staged (PERF.md): the barrier that closes each
+// staged segment makes the block or cluster wait for the slowest of some
+// 1.5 visits per thread, and staging and walking alone cost 41% of K3. So
+// K3 keeps one thread per slot; its blocks retire on their own.
 //
 // Their plain PyTorch versions are ops/traversal_tt.py::top_visits and
 // ::treelet_hits. Launches go on the caller's stream and allocate nothing;
@@ -180,37 +188,43 @@ top_visits_shared_kernel(CTL_K2_PARAMS, int* next_ray) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-treelet_hits_kernel(const float4* __restrict__ slabs, int n_treelets,
-                    int rows, const float* __restrict__ o,
-                    const float* __restrict__ d,
-                    const float* __restrict__ tmin,
-                    const float* __restrict__ t_prune,
-                    const uint8_t* __restrict__ any_mask, int any_hit,
-                    const int* __restrict__ keys,
-                    const int* __restrict__ order, int n_visits, int V,
-                    int stack_depth, int max_iters, float* __restrict__ t_out,
-                    int* __restrict__ tri_out, float* __restrict__ u_out,
-                    float* __restrict__ v_out, int* __restrict__ steps_out,
-                    uint8_t* __restrict__ flags_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_visits) return;
+#define CTL_K3_PARAMS                                                         \
+  const float4 *__restrict__ slabs, int n_treelets, int rows,                 \
+      const float *__restrict__ o, const float *__restrict__ d,               \
+      const float *__restrict__ tmin, const float *__restrict__ t_prune,      \
+      const uint8_t *__restrict__ any_mask, int any_hit,                      \
+      const int *__restrict__ keys, const int *__restrict__ order,            \
+      int n_visits, int V, int stack_depth, int max_iters,                    \
+      float *__restrict__ t_out, int *__restrict__ tri_out,                   \
+      float *__restrict__ u_out, float *__restrict__ v_out,                   \
+      int *__restrict__ steps_out, uint8_t *__restrict__ flags_out
+#define CTL_K3_ARGS                                                           \
+  slabs, n_treelets, rows, o, d, tmin, t_prune, any_mask, any_hit, keys,      \
+      order, n_visits, V, stack_depth, max_iters, t_out, tri_out, u_out,      \
+      v_out, steps_out, flags_out
+
+// Sorted slot i: its visit from the visit's local root, pruned by its ray's
+// t, its rows read from `table` through the source Rows (K3: the visit's
+// slab in device memory), written to the visit's own slot. An invalid slot
+// (its treelet id past the last) writes t=inf, tri=-1, 0 steps, no flags.
+template <class Rows, class Stack>
+__device__ __forceinline__ void treelet_visit(CTL_K3_PARAMS,
+                                              const float4* table, int i,
+                                              Stack& stack) {
   const int key = keys[i];
   const int slot = order[i];
-  const int tid = key >> kVidRootBits;
   Best b{__int_as_float(0x7f800000), -1, 0.0f, 0.0f};
   int steps = 0;
   uint8_t flags = 0;
-  if (tid < n_treelets) {
+  if ((key >> kVidRootBits) < n_treelets) {
     const int ray = slot / V;
     const Ray r = load_ray(o, d, tmin, ray);
     const bool anyh = any_hit || (any_mask != nullptr && any_mask[ray] != 0);
     b.t = t_prune[ray];
     const int root = key & ((1 << kVidRootBits) - 1);
     NoVisit none;
-    traverse(slabs + (size_t)tid * rows * 32, rows, kNoVirtual, r,
-             (root << 8) | 0xFF, anyh, stack_depth, max_iters, b, steps, flags,
-             none);
+    traverse<Rows>(table, rows, kNoVirtual, r, (root << 8) | 0xFF, anyh,
+                   stack_depth, max_iters, b, steps, flags, none, stack);
   }
   t_out[slot] = b.t;
   tri_out[slot] = b.tri;
@@ -218,6 +232,23 @@ treelet_hits_kernel(const float4* __restrict__ slabs, int n_treelets,
   v_out[slot] = b.v;
   steps_out[slot] = steps;
   flags_out[slot] = flags;
+}
+
+// The slab of sorted slot i's visit in device memory.
+__device__ __forceinline__ const float4* visit_slab(
+    const float4* __restrict__ slabs, int rows,
+    const int* __restrict__ keys, int i) {
+  return slabs + (size_t)(keys[i] >> kVidRootBits) * rows * 32;
+}
+
+// K3: one thread per slot, every slab from device memory.
+__global__ void __launch_bounds__(kThreads)
+treelet_hits_kernel(CTL_K3_PARAMS) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_visits) return;
+  int stack[kMaxStack];
+  treelet_visit<GlobalRows>(CTL_K3_ARGS, visit_slab(slabs, rows, keys, i), i,
+                            stack);
 }
 
 template <int V>

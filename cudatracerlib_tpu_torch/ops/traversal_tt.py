@@ -186,6 +186,12 @@ def treelet_hits(slabs: Tensor, rays: Rays, t_prune: Tensor, keys: Tensor,
 treelet_hits.cuda_calls = 0
 
 
+def _check_k3(V: int, any_hit: bool, stack_depth: int, any_mask: Tensor):
+    _check_args(any_hit, stack_depth, any_mask)
+    if V not in KERNEL_V:
+        raise ValueError(f"K3 runs on K2's visit slots: V in {KERNEL_V}, not {V}")
+
+
 def treelet_hits_cuda(slabs: Tensor, rays: Rays, t_prune: Tensor,
                       keys: Tensor, order: Tensor, V: int,
                       any_hit: bool = False, any_mask: Tensor = None,
@@ -193,12 +199,28 @@ def treelet_hits_cuda(slabs: Tensor, rays: Rays, t_prune: Tensor,
                       max_iters: int = MAX_ITERS):
     """Launch K3 (``csrc/traversal_tt.cu``) on the current stream over all
     S visit slots: the same signature, results, step counts and flags as
-    ``treelet_hits``. Takes CUDA tensors only and raises on anything else.
-    Each launch adds one to ``treelet_hits_cuda.launches`` and to
+    ``treelet_hits``. Takes CUDA tensors only and raises on anything else,
+    on a V outside ``KERNEL_V`` and when the card refuses the launch. Each
+    launch adds one to ``treelet_hits_cuda.launches`` and to
     ``treelet_hits_cuda.launches_by_v[V]``."""
-    _check_args(any_hit, stack_depth, any_mask)
-    if V not in KERNEL_V:
-        raise ValueError(f"K3 runs on K2's visit slots: V in {KERNEL_V}, not {V}")
+    _check_k3(V, any_hit, stack_depth, any_mask)
+    _check_table(slabs, "slabs", 2)   # before the build
+    res = launch_treelet(_lib().ctl_treelet_hits, (), slabs, rays, t_prune,
+                         keys, order, V, any_hit, any_mask, stack_depth,
+                         max_iters)
+    treelet_hits_cuda.launches += 1
+    treelet_hits_cuda.launches_by_v[V] += 1
+    return res
+
+
+def launch_treelet(fn, extra, slabs: Tensor, rays: Rays, t_prune: Tensor,
+                   keys: Tensor, order: Tensor, V: int, any_hit: bool,
+                   any_mask: Tensor, stack_depth: int, max_iters: int):
+    """Check K3's arguments, allocate its outputs and call `fn`, a C entry
+    with ``ctl_treelet_hits``'s arguments up to the outputs, then the
+    (ctypes type, value) pairs `extra`, then the stream; raises on an
+    error. Returns ``treelet_hits``'s outputs."""
+    _check_k3(V, any_hit, stack_depth, any_mask)
     _check_table(slabs, "slabs", 2)
     dev = slabs.device
     B = _check_rays(rays, dev, with_tmax=False)
@@ -212,21 +234,18 @@ def treelet_hits_cuda(slabs: Tensor, rays: Rays, t_prune: Tensor,
     t, u, v = (torch.empty(S, dtype=torch.float32, device=dev) for _ in range(3))
     tri, steps = (torch.empty(S, dtype=torch.int32, device=dev) for _ in range(2))
     flags = torch.empty(S, dtype=torch.uint8, device=dev)
-    fn = _lib().ctl_treelet_hits
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, ci, vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci,
-                   vp, vp, vp, vp, vp, vp, vp]
+    fn.argtypes = ([vp, ci, ci, vp, vp, vp, vp, vp, ci, vp, vp, ci, ci, ci, ci]
+                   + [vp] * 6 + [typ for typ, _ in extra] + [vp])
     fn.restype = ci
     err = fn(_ptr(slabs), slabs.shape[0], slabs.shape[1], _ptr(rays.o),
              _ptr(rays.d), _ptr(rays.tmin), _ptr(t_prune), _ptr(mask_u8),
              int(bool(any_hit)), _ptr(keys), _ptr(order), S, V, stack_depth,
              max_iters, _ptr(t), _ptr(tri), _ptr(u), _ptr(v), _ptr(steps),
-             _ptr(flags),
+             _ptr(flags), *(x for _, x in extra),
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
         raise RuntimeError(f"K3 (treelet_hits) launch failed: error {err}")
-    treelet_hits_cuda.launches += 1
-    treelet_hits_cuda.launches_by_v[V] += 1
     return Hit(t=t, tri=tri, u=u, v=v), steps, flags
 
 

@@ -1,20 +1,37 @@
-"""The designs that the shared variants of K1 and K2 were measured against.
+"""The designs that the shared variants of K1 and K2, and K3, were
+measured against.
 
-``csrc/schedule_probe.cu`` holds them; on no render path. Each takes the
-kept shared variant (the table in shared memory, one 512-thread block per
-SM, stacks in local memory, rays from a per-warp queue) and changes one
-thing:
+``csrc/schedule_probe.cu`` holds them; on no render path. K1's and K2's
+take the kept shared variant (the table in shared memory, one 512-thread
+block per SM, stacks in local memory, rays from a per-warp queue) and
+change one thing:
 
 - ``"stride"``: rays by a static stride over the grid's threads instead
   of the queue;
 - ``"smem_stack"``: each thread's ring stack in shared memory after the
   table.
 
-``traverse8`` and ``top_visits`` take the arguments and return the outputs
-of ``ops.traversal8.intersect_wide_cuda`` and
-``ops.traversal_tt.top_visits_cuda``, bit for bit alike; ``chip_smoke.py``
-holds them to the plain versions and times them beside the kept variants
-on the same rays. CUDA tensors only; the library is built at first use.
+K3's stage each treelet slab on chip for the visits that share it, with
+K3's per-slot code: a persistent grid of 512-thread blocks, one per SM,
+walks chunks of the sorted slots and stages the slab of each treelet
+segment of at least `min_stage` visits (``treelet_segments`` models the
+split; the chunk size, the threshold and a stage-only switch are
+arguments of ``treelet_hits``):
+
+- ``"cluster"``: the slab spread over the shared memory of a cluster of
+  ``slab_variant`` blocks (2 for 512-row slabs), read through the
+  cluster's distributed shared memory;
+- ``"split"``: one block, no cluster, holds rows 0-452 of the slab in its
+  shared memory and reads the rest from device memory;
+- ``"walk"``: the split design's schedule with nothing staged and no
+  shared memory (the schedule's own cost).
+
+``traverse8``, ``top_visits`` and ``treelet_hits`` take the arguments and
+return the outputs of ``ops.traversal8.intersect_wide_cuda``,
+``ops.traversal_tt.top_visits_cuda`` and ``treelet_hits_cuda``, bit for
+bit alike; ``chip_smoke.py`` holds them to the plain versions and times
+them beside the kept variants on the same rays. CUDA tensors only; the
+library is built at first use.
 """
 from __future__ import annotations
 
@@ -24,16 +41,23 @@ import torch
 
 from ..ops import cuda_build, traversal8, traversal_tt
 from ..ops.traversal import Rays
+from ..scene.treelet import VID_ROOT_BITS
 
 DESIGNS = {"stride": 0, "smem_stack": 1}
+K3_DESIGNS = {"cluster": 0, "split": 1, "walk": 2}
+CLUSTER_MAX = 8    # the largest cluster the cluster design is built for
+# the K3 designs' chunk of sorted slots and fewest visits of a staged
+# segment, unless a call gives others (chip_smoke.py times a sweep)
+CHUNK = 4096
+MIN_STAGE = 256
 
 
 def _lib():
     return cuda_build.load_library("schedule_probe.cu")
 
 
-def _counter(dev):
-    return torch.empty(1, dtype=torch.int32, device=dev)
+def _counter(dev, n=1):
+    return torch.empty(n, dtype=torch.int32, device=dev)
 
 
 def traverse8(table, rays: Rays, design: str, any_hit: bool = False,
@@ -60,3 +84,74 @@ def top_visits(top, rays: Rays, V: int, design: str, any_hit: bool = False,
         _lib().ctl_probe_top_visits, DESIGNS[design], _counter(top.device),
         top, rays, V, any_hit, any_mask, traversal8.STACK_DEPTH,
         traversal8.MAX_ITERS)
+
+
+def slab_variant(rows: int, shared_limit: int,
+                 cluster_max: int = CLUSTER_MAX) -> int:
+    """The blocks of the cluster design's cluster for a slab of `rows` fat
+    rows on a card whose blocks may opt in to `shared_limit` bytes of
+    shared memory: the fewest, a power of two up to `cluster_max`, whose
+    shares (ceil(rows / n) rows of ROW_BYTES each, the design's only
+    dynamic shared memory) fit; 0 when none does. On an H100 (454 rows a
+    block): 2 for 512-row slabs, 4 for 1,024."""
+    n = 1
+    while n <= cluster_max:
+        if -(-rows // n) * traversal8.ROW_BYTES <= shared_limit:
+            return n
+        n *= 2
+    return 0
+
+
+def treelet_segments(keys, n_treelets: int, chunk: int, min_stage: int):
+    """Plain model of how the K3 designs split the sorted slots: chunks of
+    `chunk` slots, each cut into segments, the runs of one treelet id
+    within the chunk. Returns (start, end, tid, staged) over the valid
+    segments in slot order, each (n_segments,): int64 bounds, the treelet
+    id, and whether a design stages the segment's slab (at least
+    `min_stage` visits). Invalid slots (treelet id n_treelets, sorted last)
+    fall in no segment."""
+    S, dev = keys.shape[0], keys.device
+    tid = (keys >> VID_ROOT_BITS).long()
+    pos = torch.arange(S, device=dev)
+    first = pos % chunk == 0
+    first[1:] |= tid[1:] != tid[:-1]
+    start = pos[first]
+    end = torch.cat([start[1:], torch.full((1,), S, device=dev)])
+    seg_tid = tid[start]
+    valid = seg_tid < n_treelets
+    start, end, seg_tid = start[valid], end[valid], seg_tid[valid]
+    return start, end, seg_tid, end - start >= min_stage
+
+
+def treelet_hits(slabs, rays: Rays, t_prune, keys, order, V: int,
+                 design: str, chunk: int = CHUNK, min_stage: int = MIN_STAGE,
+                 stage_only: bool = False, any_hit: bool = False,
+                 any_mask=None, _scratch=None):
+    """K3 in `design` (``K3_DESIGNS``) on chunks of `chunk` sorted slots,
+    staging the segments of at least `min_stage` visits: the outputs of
+    ``ops.traversal_tt.treelet_hits_cuda``, bit for bit. Its int32[2]
+    scratch, allocated here or given as `_scratch`, holds after the launch
+    the chunk queue's counter and the number of segments it staged
+    (``treelet_segments``). With `stage_only` it stages and walks but
+    traverses nothing, and its outputs are not written. Raises on CPU
+    tensors, an unknown design, and a slab no cluster holds."""
+    if design not in K3_DESIGNS:
+        raise ValueError(f"no K3 design {design!r}: one of {list(K3_DESIGNS)}")
+    traversal_tt._check_k3(V, any_hit, traversal8.STACK_DEPTH, any_mask)
+    traversal8._check_table(slabs, "slabs", 2)   # before the build
+    dev = slabs.device
+    ranks = 1
+    if design == "cluster":
+        ranks = slab_variant(slabs.shape[1], traversal8._shared_limit(dev.index))
+        if not ranks:
+            raise ValueError(f"no cluster of up to {CLUSTER_MAX} blocks holds "
+                             f"a slab of {slabs.shape[1]} rows")
+    scratch = _counter(dev, 2) if _scratch is None else _scratch
+    traversal8._require(scratch, "_scratch", torch.int32, (2,), dev)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return traversal_tt.launch_treelet(
+        _lib().ctl_probe_treelet_hits,
+        [(vp, traversal8._ptr(scratch)), (ci, K3_DESIGNS[design]), (ci, ranks),
+         (ci, chunk), (ci, min_stage), (ci, int(stage_only))],
+        slabs, rays, t_prune, keys, order, V, any_hit, any_mask,
+        traversal8.STACK_DEPTH, traversal8.MAX_ITERS)

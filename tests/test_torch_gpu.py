@@ -56,8 +56,16 @@ def test_kernel_matches_plain_on_gpu(dev):
 @pytest.mark.gpu
 def test_treelet_kernels_match_plain_on_gpu(dev):
     """K2 and K3 on the 20,000-triangle San Miguel stand-in, camera rays,
-    closest / any-hit / mixed, V = 6 and 3; then the whole treelet path
-    (with its K1 fallback) against K1 on the unsplit table."""
+    closest / any-hit / mixed, V = 6 and 3; K3's probe designs (cluster,
+    split, walk), each at the probe's chunk and staging threshold and at
+    chunks of 256 slots staging every segment, with its count of staged
+    segments against the plain model's, and the cluster design again on
+    the slots shuffled; then the whole treelet path (with its K1 fallback)
+    against K1 on the unsplit table; last the cluster design on the table
+    re-split into 256-, 1,024- and 2,048-row slabs (clusters of 1, 4 and 8
+    blocks)."""
+    from cudatracerlib_tpu_torch.scene import treelet
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
     sc = tscenes.san_miguel_stand_in(64, 64, target_tris=20000).build(dev)
     geom = sc.geom
     top, slabs = geom.tt_top, geom.tt_slabs
@@ -65,6 +73,7 @@ def test_treelet_kernels_match_plain_on_gpu(dev):
     # the wrappers take contiguous rays (camera rays share one origin view)
     rays = Rays(*(x.contiguous() for x in ttracer.gen_camera_rays(sc, pix, 0, 0, 64, 64)[0]))
     amask = torch.from_numpy(np.random.default_rng(1).random(4096) < 0.5).to(dev)
+    splits = [(probe.CHUNK, probe.MIN_STAGE), (256, 1)]
     for kw in ({}, dict(any_hit=True), dict(any_mask=amask)):
         anyh = traversal8.any_lanes(4096, kw.get("any_hit", False),
                                     kw.get("any_mask"), dev)
@@ -77,11 +86,43 @@ def test_treelet_kernels_match_plain_on_gpu(dev):
             k3 = traversal_tt.treelet_hits_cuda(slabs, rays, t_prune, keys, order, V, **kw)
             p3 = traversal_tt.treelet_hits(slabs, rays, t_prune, keys, order, V, **kw)
             _equal((*k3[0], *k3[1:]), (*p3[0], *p3[1:]))
+            for design in probe.K3_DESIGNS:
+                for split in splits:
+                    scratch = torch.empty(2, dtype=torch.int32, device=dev)
+                    k3 = probe.treelet_hits(slabs, rays, t_prune, keys, order, V,
+                                            design, *split, _scratch=scratch, **kw)
+                    _equal((*k3[0], *k3[1:]), (*p3[0], *p3[1:]))
+                    staged = probe.treelet_segments(keys, slabs.shape[0], *split)[3]
+                    assert int(scratch[1]) == int(staged.sum())
+            perm = torch.from_numpy(np.random.default_rng(V).permutation(
+                keys.shape[0])).to(dev)
+            k3 = probe.treelet_hits(slabs, rays, t_prune, keys[perm].contiguous(),
+                                    order[perm].contiguous(), V, "cluster",
+                                    256, 1, **kw)
+            _equal((*k3[0], *k3[1:]), (*p3[0], *p3[1:]))
         ref = traversal8.intersect_wide_cuda(geom.wide, rays, **kw)
         for coherent in (True, False):
             ex = traversal8.intersect_treelet_exact(geom, rays, coherent=coherent, **kw)
             assert torch.equal(ex.tri >= 0, ref.tri >= 0)
             assert torch.equal(ex.t[~anyh], ref.t[~anyh])
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    wide = geom.wide.cpu().numpy()
+    no_any = torch.zeros(4096, dtype=torch.bool, device=dev)
+    for rows, blocks in ((256, 1), (1024, 4), (2048, 8)):
+        part = treelet.partition(wide, treelet_rows=rows)
+        assert part.slabs.shape[1] == rows
+        assert probe.slab_variant(rows, limit) == blocks
+        top_r = torch.from_numpy(part.top).to(dev)
+        slabs_r = torch.from_numpy(part.slabs).to(dev)
+        k2 = traversal_tt.top_visits_cuda(top_r, rays, 3)
+        _, keys, order, t_prune = traversal_tt.visit_slots(
+            k2[0], k2[1], k2[3], slabs_r.shape[0], no_any)
+        p3 = traversal_tt.treelet_hits(slabs_r, rays, t_prune, keys, order, 3)
+        for split in splits:
+            k3 = probe.treelet_hits(slabs_r, rays, t_prune, keys, order, 3,
+                                    "cluster", *split)
+            _equal((*k3[0], *k3[1:]), (*p3[0], *p3[1:]))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -27,9 +27,11 @@ from cudatracerlib_tpu.scene import treelet as jtreelet
 from cudatracerlib_tpu.utils import example_scenes as jscenes
 from cudatracerlib_tpu_torch.models import tracer as ttracer
 from cudatracerlib_tpu_torch.ops import traversal8, traversal_tt
+from cudatracerlib_tpu_torch.ops.traversal import Rays
 from cudatracerlib_tpu_torch.scene import native_bvh as tnative
 from cudatracerlib_tpu_torch.scene import treelet
 from cudatracerlib_tpu_torch.utils import example_scenes as tscenes
+from cudatracerlib_tpu_torch.utils import schedule_probe as probe
 
 torch.set_num_threads(2)
 N_RAYS = 2048
@@ -243,4 +245,98 @@ def test_kernel_wrappers_reject_cpu_tensors(setup):
                                        keys, 3)
     assert traversal_tt.top_visits_cuda.launches == 0
     assert set(traversal_tt.top_visits_cuda.launches_by_variant.values()) == {0}
+    assert traversal_tt.treelet_hits_cuda.launches == 0
+
+
+# the probe's cluster design: blocks per cluster from the slab's rows
+# against an H100's opt-in limit (232,448 bytes, 454 rows a block):
+# (rows, cluster_max, blocks; 0 when no cluster holds the slab)
+@pytest.mark.parametrize("rows,cluster_max,blocks", [
+    (128, 8, 1), (454, 8, 1), (455, 8, 2), (512, 8, 2), (908, 8, 2),
+    (909, 8, 4), (1024, 8, 4), (2048, 8, 8), (8 * 454, 8, 8),
+    (8 * 454 + 1, 8, 0), (4096, 8, 0), (2048, 4, 0)])
+def test_slab_variant_rule(rows, cluster_max, blocks):
+    assert probe.slab_variant(rows, 232448, cluster_max) == blocks
+
+
+@pytest.fixture(scope="module")
+def sm_slots():
+    """The 20,000-triangle San Miguel stand-in at 32x32 and phase 2's
+    inputs for its camera rays at V=3, from the plain phase 1."""
+    sc = tscenes.san_miguel_stand_in(32, 32, target_tris=20000).build("cpu")
+    pix = torch.arange(1024, dtype=torch.int32)
+    rays = ttracer.gen_camera_rays(sc, pix, 0, 0, 32, 32)[0]
+    hit1, vids, _, vcnt, _, _, _ = traversal_tt.top_visits(sc.geom.tt_top, rays, 3)
+    n_tt = sc.geom.tt_slabs.shape[0]
+    valid, keys, order, _ = traversal_tt.visit_slots(
+        hit1, vids, vcnt, n_tt, torch.zeros(1024, dtype=torch.bool))
+    return dict(slabs=sc.geom.tt_slabs, keys=keys, n_tt=n_tt,
+                n_valid=int(valid.sum()))
+
+
+def test_slab_variant_on_san_miguel_slabs(sm_slots):
+    """The stand-in's slabs have 512 rows, as at full size: the cluster
+    design spreads one over 2 blocks; re-split into 1,024-row slabs over
+    4; the whole 2,389-row table would need 8 blocks of 299 rows."""
+    rows = sm_slots["slabs"].shape[1]
+    assert rows == 512
+    assert probe.slab_variant(rows, 232448) == 2
+    assert probe.slab_variant(2 * rows, 232448) == 4
+    assert probe.slab_variant(2389, 232448) == 8
+
+
+@pytest.mark.parametrize("chunk,min_stage", [(64, 8), (256, 100), (4096, 1),
+                                             (4096, 4096)])
+def test_treelet_segments_model(sm_slots, chunk, min_stage):
+    """The plain model of the K3 designs' work split, on the sorted keys of
+    the stand-in's slots: every valid slot lies in exactly one segment, no
+    invalid slot in any; a segment is one treelet's run within one chunk;
+    the staged count follows the rule, counted here by a loop."""
+    keys, n_tt = sm_slots["keys"], sm_slots["n_tt"]
+    start, end, tid, staged = probe.treelet_segments(keys, n_tt, chunk,
+                                                     min_stage)
+    S = keys.shape[0]
+    cover = torch.zeros(S, dtype=torch.int64)
+    for a, b in zip(start.tolist(), end.tolist()):
+        assert a < b and a // chunk == (b - 1) // chunk
+        cover[a:b] += 1
+    slot_tid = keys.long() >> 14
+    valid = slot_tid < n_tt
+    assert int(valid.sum()) == sm_slots["n_valid"] > 0
+    assert torch.equal(cover, valid.long())
+    for a, b, t in zip(start.tolist(), end.tolist(), tid.tolist()):
+        assert bool((slot_tid[a:b] == t).all())
+    runs = []   # (chunk, tid, length) of the valid runs, by a plain loop
+    for i, t in enumerate(slot_tid.tolist()):
+        if t >= n_tt:
+            continue
+        if runs and tuple(runs[-1][:2]) == (i // chunk, t):
+            runs[-1][2] += 1
+        else:
+            runs.append([i // chunk, t, 1])
+    assert len(runs) == start.shape[0]
+    assert int(staged.sum()) == sum(n >= min_stage for _, _, n in runs)
+    assert torch.equal(staged, (end - start) >= min_stage)
+
+
+def test_k3_wrappers_raise(sm_slots):
+    """K3's wrapper and the probe's raise on CPU tensors and on a V K3 is
+    not built for, and the probe on an unknown design, before any launch
+    or build."""
+    slabs, keys = sm_slots["slabs"], sm_slots["keys"]
+    rays = Rays(o=torch.zeros(1024, 3), d=torch.ones(1024, 3),
+                tmin=torch.zeros(1024), tmax=torch.ones(1024))
+    order = torch.arange(keys.shape[0], dtype=torch.int32)
+    tp = torch.ones(1024)
+    with pytest.raises(ValueError, match="CUDA"):
+        traversal_tt.treelet_hits_cuda(slabs, rays, tp, keys, order, 3)
+    with pytest.raises(ValueError, match="V in"):
+        traversal_tt.treelet_hits_cuda(slabs, rays, tp, keys, order, 4)
+    for design in probe.K3_DESIGNS:
+        with pytest.raises(ValueError, match="CUDA"):
+            probe.treelet_hits(slabs, rays, tp, keys, order, 3, design)
+    with pytest.raises(ValueError, match="V in"):
+        probe.treelet_hits(slabs, rays, tp, keys, order, 4, "cluster")
+    with pytest.raises(ValueError, match="no K3 design"):
+        probe.treelet_hits(slabs, rays, tp, keys, order, 3, "global")
     assert traversal_tt.treelet_hits_cuda.launches == 0
