@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, check
 each against its plain PyTorch version, and run the Cornell, veach-mis and
-San Miguel path-tracing passes and the microbenchmarks P1-P3.
+San Miguel path-tracing passes, the PrimTracer, BDPT and light-tracer
+passes and the microbenchmarks P1-P3.
 
     python3 chip_smoke.py [--profile]
 
@@ -41,17 +42,22 @@ failure exits non-zero, and nothing falls back to the CPU:
    in phase 2; the shared variant's prologue from the device times of both
    variants on one ray and on one dead ray per thread of a full grid;
 4b. the veach anchor: veach_mis_anchor(48, 48), depth 8, rr_depth 4, NEE,
-   256 spp as 16 passes of spp_per_pass=16, through K4 (pool=True); RMSE
-   against the mean of tests/goldens/ref_veach.npz's two seeds under 2.5x
-   their RMSE, the mean within test_rmse_anchor.py's bound and within 20%
-   of the reference's (the JAX package's renders lie 10-16% under); pool=False
-   (K1) gives the same film bit for bit;
+   256 spp as 16 passes of spp_per_pass=16, through K1; RMSE against the
+   mean of tests/goldens/ref_veach.npz's two seeds under 2.5x their RMSE,
+   the mean within test_rmse_anchor.py's bound and within 20% of the
+   reference's (the JAX package's renders lie 10-16% under);
 4c. the veach-mis headline: 512^2, depth 5, chunks of 65,536 lanes, NEE
-   with MIS, 8 passes per run after a warm-up pass, runs through K1, K4,
-   K4, K1 (pool=False / True); counts zeroed around each run: K4 launches
-   in the pool runs and K1 (all shared) in the others, and nothing else,
-   0 plain calls,
-   0 capped or overflowed rays, a finite non-black film;
+   with MIS, 8 passes after a warm-up pass, counts zeroed around them: K1
+   (all shared) and nothing else, 0 plain calls, 0 capped or overflowed
+   rays, a finite non-black film;
+4d-4f. the light-path slice (light_path_phases): the PrimTracer headline
+   (Cornell 512^2, shading normals), the BDPT and light-tracer headlines
+   (the glass Cornell box 256^2, depth 6) with K1's launches per pass by
+   mode held to the count worked out from the code, one pass of each
+   profiled and one pass of each (PrimTracer's too) recorded and held,
+   traversal by traversal, to K1's plain version; the card's BDPT and
+   light-tracer images against their goldens, and all three against the
+   CPU's, pass by pass;
 5. the San Miguel stand-in at full width (1.2M triangles; host build
    seconds: native BVH, treelet partition) and 131,072 camera rays plus
    131,072 random rays from the courtyard, closest / any-hit / mixed:
@@ -70,8 +76,11 @@ failure exits non-zero, and nothing falls back to the CPU:
    against the model, visits per staged segment, the share of valid
    visits left unstaged); K1 on the exact path's
    fallback batch (tmax -1 on every ray whose visits did not overflow,
-   mixed) identical to its plain version and timed, the two-phase result
-   identical to the plain two-phase result,
+   mixed) identical to its plain version and timed, and K4 on the same
+   batch against K1 and the plain version as in phase 2 (K4 is on no
+   render path; this sizes up its per-lane refill where few lanes of a
+   warp are live), the two-phase result identical to the plain two-phase
+   result,
    and the exact treelet path (K2 + K3 + K1 fallback) held to K1 on the
    unsplit table: t identical on every closest-hit lane, tri identical
    except on lanes where two triangles tie in t (counted and printed),
@@ -81,14 +90,15 @@ failure exits non-zero, and nothing falls back to the CPU:
    through K1 alone (the treelet tables dropped): mean relative error
    < 1e-3, K2 and K3 launched at both V in the first run and not at all
    in the second;
-7. the slice's headline: San Miguel 1024^2, depth 5, chunks of 131,072
+7. the San Miguel headline: San Miguel 1024^2, depth 5, chunks of 131,072
    lanes, 2 passes. The launch counts are zeroed just before and read just
    after; K1, and K2 and K3 at both V, must all launch (every K2 launch
    shared, every K1 launch global), no CUDA tensor may reach a plain
    version, and no ray may be capped or overflow. With
    --profile, one more pass runs under torch.profiler and its kernel table
    is printed, summed over each kernel's template instantiations (and in
-   4c one more veach-mis pass through K1 and through K4);
+   4c one more veach-mis pass; the BDPT and light-tracer passes of 4e are
+   profiled in every run);
 8. P1-P3 (utils/microbench.py) timed at their full sizes, with the counts
    zeroed around the run; the output of every timed configuration must
    equal its plain version's on the same inputs.
@@ -96,12 +106,14 @@ failure exits non-zero, and nothing falls back to the CPU:
 The kernel table comes next: one row for each variant of K1 and K2, for
 K3 and each of the probe's K3 designs, and for K4 and P1-P3, with its
 launches on its own path (the global variant of K2 and the K3 designs
-take none on the main path), its time and its plain version's time (K1
-shared on veach-mis, K1 global on the San Miguel fallback batch, K2 and
-K3 at V=3; the other shapes under by_scene, by_v, fallback_by_v and
-mixed_rays; the forced global variant and the probe's designs on the same
-rays beside K1's and K2's shared rows; the probe's split of the slots
-beside its cluster design), its device time where taken, and its bound:
+take none on the main path, nor does K4), its time and its plain
+version's time (K1 shared on veach-mis, K1 global on the San Miguel
+fallback batch, K2 and K3 at V=3, K4 on veach-mis; the other shapes under
+by_scene, by_tracer (one BDPT and one light-tracer pass, summed by mode),
+by_v, fallback_by_v and mixed_rays; the forced global variant and the
+probe's designs on the same rays beside K1's and K2's shared rows; the
+probe's split of the slots beside its cluster design), its device time
+where taken, and its bound:
 the larger of the bytes it must move over 3.35 TB/s and its float32
 operations over 67 TFLOP/s (traversal: the table once, for K3 each slab a
 valid visit names, the rays in and the hits out; the measured steps times
@@ -144,6 +156,19 @@ CAL = 2.5   # tests/test_rmse_anchor.py's calibration of the noise floor
 # reference's: the JAX package's own renders of the anchor (seeds 0-2, on
 # the CPU) lie 10-16% under it, and the port's equal them
 MEAN_GAP = 0.2
+# the light-path slice's headlines: PrimTracer passes timed after the
+# warm-up; BDPT and light-tracer depth and timed passes (bench.py's config 4)
+PRIM_PASSES = 20
+LP_DEPTH = 6
+LP_PASSES = 4
+# the card's renders against the CPU's on the same inputs: passes of BDPT
+# and the light tracer (each pass draws a fresh RNG stream), and the limit
+# on the mean relative error of every cumulative image, PrimTracer's too:
+# the card's images lay 2.5e-8 to 1.8e-7 from the CPU's and the goldens
+# (H100 80GB HBM3), the splats' atomic adds and the card's transcendental
+# functions rounding a last bit differently
+CARD_CPU_PASSES = 6
+CARD_CPU_LIMIT = 1e-5
 # device_ms's sleeping kernel: ~6 ms at the H100's 1.755 GHz, longer than
 # the host takes to queue its calls
 SLEEP_CYCLES = 10_000_000
@@ -224,23 +249,26 @@ def sass_loads(lib_path, nvcc):
     return out
 
 
-def check_variants(label, run, plain, modes, variants, bound=None, **info):
+def check_variants(label, run, plain, modes, variants, bound=None,
+                   timed=("mixed",), plain_reps=5, **info):
     """Each variant of a kernel against its plain version on the same inputs
     in each mode. run(variant, kw) and plain(kw) return (fields, steps,
     flags); every field must be identical and no lane flagged. Each variant
-    is timed as a median of 5 synchronised runs (and, in the mixed mode, by
-    its device time); the plain version in the mixed mode. Emits one line
-    per mode and variant (None: the variant the size rule picks); returns
-    {(mode, variant): dict(err, ms, device_ms, plain_ms, steps, bound)}."""
+    is timed as a median of 5 synchronised runs (and, in the modes of
+    `timed`, by its device time); the plain version in the modes of `timed`,
+    as a median of `plain_reps` runs. Emits one line per mode and variant
+    (None: the variant the size rule picks); returns {(mode, variant):
+    dict(err, ms, device_ms, plain_ms, steps, bound)}."""
     out = {}
     for mode, kw in modes.items():
         ref = plain(kw)
-        plain_ms = cuda_median_ms(lambda: plain(kw)) if mode == "mixed" else None
+        plain_ms = (cuda_median_ms(lambda: plain(kw), reps=plain_reps)
+                    if mode in timed else None)
         for variant in variants:
             got = run(variant, kw)
             ok, err = same(got[0], ref[0])
             ms = cuda_median_ms(lambda: run(variant, kw))
-            dms = device_ms(lambda: run(variant, kw)) if mode == "mixed" else None
+            dms = device_ms(lambda: run(variant, kw)) if mode in timed else None
             steps, flagged = int(got[1].sum()), int((got[2] != 0).sum())
             res = dict(err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
                        steps=steps, bound=bound(steps) if bound else None)
@@ -354,13 +382,240 @@ def profile_pass(tr, scene_name, **extra):
                    ms=e.self_device_time_total / 1e3) for e in top_k], **extra)
 
 
+def record_k1(run, traversal8, Rays):
+    """Run `run()` with intersect_scene's kernel choice (traversal8._wide_fn)
+    wrapped so that each K1 call's table, a copy of its rays and its mode
+    are recorded (every call still launches K1 and counts); returns the list
+    of (table, rays, kw)."""
+    calls, orig = [], traversal8._wide_fn
+
+    def wide_fn(table, pool=False):
+        fn = orig(table, pool)
+
+        def rec(table, rays, **kw):
+            calls.append((table, Rays(*(x.clone() for x in rays)),
+                          {k: v for k, v in kw.items()
+                           if k in ("any_hit", "any_mask") and v is not None}))
+            return fn(table, rays, **kw)
+        return rec
+    traversal8._wide_fn = wide_fn
+    try:
+        run()
+    finally:
+        traversal8._wide_fn = orig
+    return calls
+
+
+def k1_on_calls(label, calls, K1, traversal8, mb):
+    """K1 against its plain version on each recorded call of one pass
+    (check_variants: every field identical, the call timed, its device time
+    and one plain run taken, its bound by trav_bound), summed by mode.
+    Emits one more line per mode; returns {mode: dict}."""
+    out = {}
+    for i, (table, rays, kw) in enumerate(calls):
+        mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
+        B = rays.o.shape[0]
+
+        def run(variant, kw):
+            h, st, fl = K1(table, rays, with_iters=True, **kw)
+            return (*h, st, fl), st, fl
+
+        def plain(kw):
+            h, st, fl = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+            return (*h, st, fl), st, fl
+        res = check_variants(
+            "K1", run, plain, {mode: kw}, (None,), timed=(mode,), plain_reps=1,
+            bound=lambda steps: trav_bound(table, B, steps, mode == "mixed",
+                                           mb, traversal8),
+            pass_of=label, call=i, rays=B)[mode, None]
+        r = out.setdefault(mode, dict(launches=0, rays=0, live_rays=0, err=0.0,
+                                      ms=0.0, device_ms=0.0, plain_ms=0.0,
+                                      steps=0, bound_ms=0.0))
+        r["launches"] += 1
+        r["rays"] += B
+        r["live_rays"] += int((rays.tmax > rays.tmin).sum())
+        r["err"] = max(r["err"], res["err"])
+        for k in ("ms", "device_ms", "plain_ms", "steps"):
+            r[k] += res[k]
+        r["bound_ms"] += res["bound"][0]
+    for mode, r in out.items():
+        emit(phase="kernel_on_pass", kernel="K1", pass_of=label, mode=mode,
+             identical=True, max_abs_err=r["err"], **{k: v for k, v in r.items()
+                                                      if k != "err"})
+    return out
+
+
+def timed_passes(tr, n):
+    """n passes of `tr`, each timed to torch.cuda.synchronize (do_pass);
+    returns (pass seconds, live rays per pass or None)."""
+    secs, rays_n = [], []
+    for _ in range(n):
+        before = getattr(tr, "rays_traced_live", None)
+        tr.do_pass()
+        secs.append(tr.last_pass_seconds)
+        if before is not None:
+            rays_n.append(tr.rays_traced_live - before)
+    return secs, rays_n or None
+
+
+def card_vs_cpu(name, make, scene_fn, size, passes, dev, **extra):
+    """The same tracer on the card and on the CPU, pass by pass: the mean
+    relative error of the cumulative image after each pass, every image
+    finite and not black; fails over CARD_CPU_LIMIT. Returns the readings."""
+    trs = [make(scene_fn(size, size).build(d)) for d in (dev, "cpu")]
+    rels = []
+    for _ in range(passes):
+        imgs = [tr.render(1).cpu().numpy() for tr in trs]
+        for img in imgs:
+            if not np.isfinite(img).all() or not img.mean() > 0.0:
+                fail(f"the {name} card-vs-CPU image is not finite and non-black")
+        rels.append(float(np.abs(imgs[0] - imgs[1]).mean()
+                          / max(imgs[1].mean(), 1e-9)))
+    emit(phase="card_vs_cpu", tracer=name, size=size, passes=passes,
+         rel_err=max(rels), rel_err_by_pass=rels, limit=CARD_CPU_LIMIT, **extra)
+    if not max(rels) < CARD_CPU_LIMIT:
+        fail(f"the {name} card image differs from the CPU image: {rels}")
+    return rels
+
+
+def golden_rel(img, name):
+    """tests/test_goldens_family.py's rule: the mean relative error against
+    tests/goldens/<name>."""
+    ref = np.load(os.path.join(HERE, "tests", "goldens", name))["img"]
+    return float(np.abs(img - ref).mean() / max(ref.mean(), 1e-6))
+
+
+def light_path_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant,
+                      primmod, bdptmod, ltmod, filmmod, example_scenes,
+                      traversal8, mb):
+    """4d. the PrimTracer headline (BASELINE config 1): Cornell 512^2,
+    shading normals, one warm-up pass, then PRIM_PASSES timed passes, one K1
+    launch (shared) per pass; one more pass profiled and one recorded, its
+    K1 call held to the plain version and timed; the 64^2 card film within
+    CARD_CPU_LIMIT of the CPU film. 4e. the BDPT headline (BASELINE config 4): the glass Cornell box
+    256^2, depth 6, a warm-up pass, then LP_PASSES timed passes, its K1
+    launches per pass by mode against the count worked out from the code
+    (NUM_LIGHT_V closest-hit light-walk and any-hit splat traversals, then
+    per camera bounce one closest-hit, one any-hit NEE and NUM_LIGHT_V
+    any-hit connection traversals), one pass profiled; K1 against its plain
+    version on every traversal of one more pass, recorded; then the light
+    tracer likewise (1 + 2 * depth launches per pass). 4f. the card's
+    images: BDPT (Cornell 32^2, depth 4, 6 passes) and the light tracer
+    (depth 4, 12 passes) against their goldens (mean relative error < 0.02),
+    and both on the glass Cornell box 32^2, depth 6, CARD_CPU_PASSES
+    passes, against the same renders on the CPU (card_vs_cpu). Returns the
+    K1 records of one PrimTracer, one BDPT and one light-tracer pass."""
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_mode=dict(K1.launches_by_mode), K4=K4.launches,
+                    plain=plain_calls())
+
+    def check_image(img, what):
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail(f"the {what} image is not finite and non-black")
+
+    def record(tr, label):
+        calls = record_k1(tr.do_pass, traversal8, Rays)
+        return dict(launches_per_pass=len(calls),
+                    by_mode=k1_on_calls(label, calls, K1, traversal8, mb))
+
+    out = {}
+    # 4d. PrimTracer
+    scene = example_scenes.cornell_box(512, 512).build(dev)
+    tr = primmod.PrimTracer(scene, 512, 512, draw_mode=primmod.D_NORMAL_SHADE)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    it0, rw0 = int(tr._iters_dev), int(tr._rows_dev)
+    secs, _ = timed_passes(tr, PRIM_PASSES)
+    c = counts()
+    k1_by_variant["prim"] = c["K1_by_variant"]
+    img = filmmod.develop(tr.film).cpu().numpy()
+    emit(phase="headline", scene="cornell_box", tracer="PrimTracer",
+         draw_mode="D_NORMAL_SHADE", size=512, passes=PRIM_PASSES,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         mrays_per_s=512 * 512 * PRIM_PASSES / sum(secs) / 1e6,
+         steps=int(tr._iters_dev) - it0, rows=int(tr._rows_dev) - rw0,
+         launches=c, launches_per_pass=c["K1"] / PRIM_PASSES,
+         mean_value=float(img.mean()))
+    check_image(img, "PrimTracer")
+    if (c["K1"] != PRIM_PASSES or c["K1_by_variant"]["shared"] != c["K1"]
+            or c["K4"] or c["plain"]):
+        fail(f"the PrimTracer run took the wrong kernels: {c}")
+    profile_pass(tr, "cornell_box", tracer="PrimTracer")
+    out["prim"] = record(tr, "prim_cornell_512")
+    card_vs_cpu("PrimTracer", lambda s: primmod.PrimTracer(
+        s, 64, 64, draw_mode=primmod.D_NORMAL_SHADE), example_scenes.cornell_box,
+        64, 1, dev)
+    del tr, scene
+
+    # 4e. BDPT and the light tracer on the glass Cornell box
+    scene = example_scenes.cornell_glass(256, 256).build(dev)
+    nv = bdptmod.NUM_LIGHT_V
+    for name, make, want in (
+            ("bdpt", lambda: bdptmod.BDPT(scene, 256, 256, max_depth=LP_DEPTH),
+             dict(closest=nv + LP_DEPTH, any_hit=nv + LP_DEPTH * (1 + nv), mixed=0)),
+            ("lt", lambda: ltmod.LightTracer(scene, 256, 256, max_depth=LP_DEPTH),
+             dict(closest=LP_DEPTH, any_hit=1 + LP_DEPTH, mixed=0))):
+        tr = make()
+        tr.do_pass()
+        torch.cuda.synchronize()
+        zero_counts()
+        secs, rays_n = timed_passes(tr, LP_PASSES)
+        c = counts()
+        k1_by_variant[name] = c["K1_by_variant"]
+        img = filmmod.develop(tr.film).cpu().numpy()
+        per_pass = {m: n / LP_PASSES for m, n in c["K1_by_mode"].items()}
+        emit(phase="headline", scene="cornell_glass", tracer=type(tr).__name__,
+             size=256, max_depth=LP_DEPTH, passes=LP_PASSES,
+             seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+             mpaths_per_s=256 * 256 * LP_PASSES / sum(secs) / 1e6,
+             spp_per_s=LP_PASSES / sum(secs), live_rays=int(sum(rays_n)),
+             mrays_per_s=sum(rays_n) / sum(secs) / 1e6, launches=c,
+             launches_per_pass_by_mode=per_pass, expected_per_pass_by_mode=want,
+             mean_radiance=float(img.mean()))
+        check_image(img, name)
+        if (per_pass != {m: float(n) for m, n in want.items()}
+                or c["K1_by_variant"]["shared"] != c["K1"] or c["K4"] or c["plain"]):
+            fail(f"the {name} run took the wrong kernels: {c}, expected {want} per pass")
+        profile_pass(tr, "cornell_glass", tracer=type(tr).__name__)
+        out[name] = record(tr, f"{name}_cornell_glass_256")
+        del tr
+    del scene
+
+    # 4f. the card's images against the goldens and the CPU
+    for name, make, passes, golden in (
+            ("bdpt", lambda s: bdptmod.BDPT(s, 32, 32, max_depth=4), 6,
+             "cornell_32_bdpt.npz"),
+            ("lt", lambda s: ltmod.LightTracer(s, 32, 32, max_depth=4), 12,
+             "cornell_32_lt.npz")):
+        img = make(example_scenes.cornell_box(32, 32).build(dev)).render(passes)
+        img = img.cpu().numpy()
+        rel = golden_rel(img, golden)
+        emit(phase="golden", tracer=name, size=32, max_depth=4, passes=passes,
+             rel_err=rel, limit=0.02)
+        check_image(img, f"{name} golden")
+        if not rel < 0.02:
+            fail(f"{name} golden drift {rel}")
+    for name, cls in (("BDPT", bdptmod.BDPT), ("LightTracer", ltmod.LightTracer)):
+        card_vs_cpu(name, lambda s: cls(s, 32, 32, max_depth=LP_DEPTH),
+                    example_scenes.cornell_glass, 32, CARD_CPU_PASSES, dev,
+                    scene="cornell_glass", max_depth=LP_DEPTH)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     if not os.path.isdir(os.path.join(HERE, "cudatracerlib_tpu_torch")):
         fail("run from a checkout of the repository")
+    from cudatracerlib_tpu_torch.models import bdpt as bdptmod
     from cudatracerlib_tpu_torch.models import film as filmmod
+    from cudatracerlib_tpu_torch.models import lighttracer as ltmod
     from cudatracerlib_tpu_torch.models import path as pathmod
+    from cudatracerlib_tpu_torch.models import prim as primmod
     from cudatracerlib_tpu_torch.models import tracer as tracermod
     from cudatracerlib_tpu_torch.ops import cuda_build, traversal8, traversal_tt
     from cudatracerlib_tpu_torch.ops.traversal import Rays
@@ -393,6 +648,7 @@ def main():
             f.launches_by_v = dict.fromkeys(f.launches_by_v, 0)
         for f in (K1, K2):
             f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
+        K1.launches_by_mode = dict.fromkeys(K1.launches_by_mode, 0)
         for f in plains:
             f.cuda_calls = 0
 
@@ -512,12 +768,7 @@ def main():
     tr = pathmod.PathTracer(scene512, 512, 512, max_depth=6, chunk_size=65536)
     torch.cuda.synchronize()
     zero_counts()
-    secs, rays_n = [], []
-    for _ in range(4):
-        before = tr.rays_traced_live
-        tr.do_pass()
-        secs.append(tr.last_pass_seconds)
-        rays_n.append(tr.rays_traced_live - before)
+    secs, rays_n = timed_passes(tr, 4)
     img = filmmod.develop(tr.film).cpu().numpy()
     launches, plain_n = K1.launches, plain_calls()
     k1_by_variant = {"cornell_box": dict(K1.launches_by_variant)}
@@ -588,96 +839,66 @@ def main():
     spp, aw, ah, adepth = (int(g[k]) for k in ("spp", "w", "h", "max_depth"))
     noise = float(np.sqrt(((ref_a - ref_b) ** 2).mean()))
     anchor = example_scenes.veach_mis_anchor(aw, ah).build(dev)
-    films, anchor_runs = {}, {}
-    for pool in (True, False):
-        zero_counts()
-        t0 = time.perf_counter()
-        ta = pathmod.PathTracer(anchor, aw, ah, max_depth=adepth, rr_depth=4,
-                                use_nee=True, spp_per_pass=16, pool=pool)
-        ta.render_batched(spp // 16)
-        films[pool] = ta.film
-        anchor_runs["K4" if pool else "K1"] = dict(
-            seconds=time.perf_counter() - t0, k1=K1.launches, k4=K4.launches,
-            plain=plain_calls(), ovf=[int(x) for x in ta._ovf_dev.tolist()])
-    got = filmmod.develop(films[True]).cpu().numpy().astype(np.float64)
+    zero_counts()
+    t0 = time.perf_counter()
+    ta = pathmod.PathTracer(anchor, aw, ah, max_depth=adepth, rr_depth=4,
+                            use_nee=True, spp_per_pass=16)
+    ta.render_batched(spp // 16)
+    anchor_run = dict(seconds=time.perf_counter() - t0, k1=K1.launches,
+                      k4=K4.launches, plain=plain_calls(),
+                      ovf=[int(x) for x in ta._ovf_dev.tolist()])
+    got = filmmod.develop(ta.film).cpu().numpy().astype(np.float64)
     rmse = float(np.sqrt(((got - 0.5 * (ref_a + ref_b)) ** 2).mean()))
     mean_got, mean_ref = float(got.mean()), float(ref_a.mean())
     mean_bound = 0.05 * max(mean_ref, 1e-6) + 3.0 * noise
     mean_gap = abs(mean_got - mean_ref) / max(mean_ref, 1e-6)
-    same_film = all(torch.equal(getattr(films[True], f), getattr(films[False], f))
-                    for f in ("rgb", "weight"))
     emit(phase="veach_anchor", size=aw, spp=spp, passes=spp // 16,
          spp_per_pass=16, max_depth=adepth, rmse=rmse, noise_floor=noise,
          limit=CAL * noise, mean=mean_got, mean_ref=mean_ref,
          mean_bound=mean_bound, mean_gap=mean_gap, mean_gap_limit=MEAN_GAP,
-         pool_film_identical=same_film, runs=anchor_runs)
+         run=anchor_run)
     if not (rmse < CAL * noise and abs(mean_got - mean_ref) < mean_bound
             and mean_gap < MEAN_GAP):
         fail(f"veach anchor: RMSE {rmse} vs {CAL} x {noise}, mean {mean_got} vs {mean_ref}")
-    if not same_film:
-        fail("the veach anchor's film differs between K4 and K1")
-    if (anchor_runs["K4"]["k4"] <= 0 or anchor_runs["K4"]["k1"]
-            or anchor_runs["K1"]["k1"] <= 0 or anchor_runs["K1"]["k4"]
-            or anchor_runs["K4"]["plain"] or anchor_runs["K1"]["plain"]):
-        fail(f"the anchor runs took the wrong kernels: {anchor_runs}")
-    del anchor, films
+    if anchor_run["k1"] <= 0 or anchor_run["k4"] or anchor_run["plain"]:
+        fail(f"the anchor run took the wrong kernels: {anchor_run}")
+    del anchor, ta
 
-    # 4c. the veach-mis headline: K1 and K4 in turns, after a warm-up pass
-    vtr = {pool: pathmod.PathTracer(veach, 512, 512, max_depth=5,
-                                    chunk_size=65536, pool=pool)
-           for pool in (False, True)}
-    for t in vtr.values():
-        t.do_pass()
-    k4_launches = 0
-    for pool in (False, True, True, False):
-        t = vtr[pool]
-        torch.cuda.synchronize()
-        zero_counts()
-        secs, rays_n = [], []
-        for _ in range(8):
-            before = t.rays_traced_live
-            t.do_pass()
-            secs.append(t.last_pass_seconds)
-            rays_n.append(t.rays_traced_live - before)
-        counts = dict(K1=K1.launches, K4=K4.launches, K2=K2.launches,
-                      K3=K3.launches, plain=plain_calls(),
-                      K1_by_variant=dict(K1.launches_by_variant))
-        k4_launches += counts["K4"]
-        if not pool:
-            by_v = k1_by_variant.setdefault(
-                "veach_mis", dict.fromkeys(traversal8.VARIANTS, 0))
-            for v, n in K1.launches_by_variant.items():
-                by_v[v] += n
-            if K1.launches_by_variant["shared"] != K1.launches:
-                fail(f"veach-mis K1 launches not all shared: "
-                     f"{K1.launches_by_variant}")
-        emit(phase="headline", scene="veach_mis", tris=veach.num_tris, size=512,
-             max_depth=5, chunk_size=65536, passes=8, pool=pool,
-             kernel="K4" if pool else "K1",
-             seconds_per_pass=statistics.median(secs), pass_seconds=secs,
-             live_rays=int(sum(rays_n)), mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
-             launches=counts)
-        want, other = ("K4", "K1") if pool else ("K1", "K4")
-        if (counts[want] <= 0 or counts[other] or counts["K2"] or counts["K3"]
-                or counts["plain"]):
-            fail(f"the veach-mis {want} run took the wrong kernels: {counts}")
-    for pool, t in vtr.items():
-        img = filmmod.develop(t.film).cpu().numpy()
-        capped, overflowed = (int(x) for x in t._ovf_dev.tolist())
-        if not np.isfinite(img).all() or not img.mean() > 0.0:
-            fail("the veach-mis image is not finite and non-black")
-        if capped or overflowed:
-            fail(f"veach-mis: capped {capped} / overflowed {overflowed} rays")
+    # 4c. the veach-mis headline, after a warm-up pass
+    vtr = pathmod.PathTracer(veach, 512, 512, max_depth=5, chunk_size=65536)
+    vtr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    secs, rays_n = timed_passes(vtr, 8)
+    counts = dict(K1=K1.launches, K4=K4.launches, K2=K2.launches,
+                  K3=K3.launches, plain=plain_calls(),
+                  K1_by_variant=dict(K1.launches_by_variant))
+    k1_by_variant["veach_mis"] = dict(K1.launches_by_variant)
+    img = filmmod.develop(vtr.film).cpu().numpy()
+    capped, overflowed = (int(x) for x in vtr._ovf_dev.tolist())
+    emit(phase="headline", scene="veach_mis", tris=veach.num_tris, size=512,
+         max_depth=5, chunk_size=65536, passes=8, kernel="K1",
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         live_rays=int(sum(rays_n)), mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+         launches=counts, steps=int(vtr._iters_dev), capped=capped,
+         overflowed=overflowed, mean_radiance=float(img.mean()))
+    if (counts["K1"] <= 0 or counts["K4"] or counts["K2"] or counts["K3"]
+            or counts["plain"]):
+        fail(f"the veach-mis run took the wrong kernels: {counts}")
+    if K1.launches_by_variant["shared"] != K1.launches:
+        fail(f"veach-mis K1 launches not all shared: {K1.launches_by_variant}")
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        fail("the veach-mis image is not finite and non-black")
+    if capped or overflowed:
+        fail(f"veach-mis: capped {capped} / overflowed {overflowed} rays")
     if profile:
-        for pool, t in vtr.items():
-            profile_pass(t, "veach_mis", kernel="K4" if pool else "K1")
-    same_film = torch.equal(vtr[False].film.rgb, vtr[True].film.rgb)
-    emit(phase="veach_films", passes=17 + int(profile), k1_k4_identical=same_film,
-         steps=int(vtr[True]._iters_dev), capped=0, overflowed=0,
-         mean_radiance=float(img.mean()))
-    if not same_film:
-        fail("the veach-mis films of K1 and K4 differ")
+        profile_pass(vtr, "veach_mis", kernel="K1")
     del vtr, veach
+
+    # 4d-4f. the light-path slice: PrimTracer, BDPT and LightTracer
+    light_path = light_path_phases(
+        dev, K1, K4, zero_counts, plain_calls, k1_by_variant, primmod, bdptmod,
+        ltmod, filmmod, example_scenes, traversal8, mb)
 
     # 5. San Miguel at full width: host build, then K2, K3 and K1 on its tables
     t0 = time.perf_counter()
@@ -815,7 +1036,7 @@ def main():
         k3_splits[V] = split
         return res
 
-    k2_res, k3_res, k3_splits = {}, {}, {}
+    k2_res, k3_res, k3_splits, k4_fallback = {}, {}, {}, {}
     for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
         def k2_run(variant, kw):
             if variant in probe.DESIGNS:
@@ -883,6 +1104,10 @@ def main():
                 kernel_ms["K1_fallback", V] = k1_variants(
                     f"san_miguel_fallback_V{V}", wide, fb, sm_mask, (None,),
                     only_mixed=True)["mixed", None]
+                # K4 on the same batch: its per-lane refill against K1's
+                # one thread per ray, identical on every field
+                k4_fallback[V] = check_pool(f"san_miguel_fallback_V{V}", wide, fb,
+                                            sm_mask, K1, K4, traversal8, Rays, 7 + V)
             emit(phase="sm_kernels_vs_plain", mode=mode, rays=B, V=V,
                  two_phase_identical=okt, max_abs_err=errt,
                  visits=int(vcnt.sum()), visits_kept=int(vcnt.clamp_max(V).sum()),
@@ -933,12 +1158,7 @@ def main():
     tr = pathmod.PathTracer(scene, 1024, 1024, max_depth=5, chunk_size=131072)
     torch.cuda.synchronize()
     zero_counts()
-    secs, rays_n = [], []
-    for _ in range(2):
-        before = tr.rays_traced_live
-        tr.do_pass()
-        secs.append(tr.last_pass_seconds)
-        rays_n.append(tr.rays_traced_live - before)
+    secs, rays_n = timed_passes(tr, 2)
     launches = {"K1": K1.launches}
     for name, f in (("K2", K2), ("K3", K3)):
         launches.update({(name, V): n for V, n in f.launches_by_v.items()})
@@ -1050,7 +1270,10 @@ def main():
                                 designs={d: brief(res["mixed", d])
                                          for d in probe.DESIGNS})
                        for sc, res in (("cornell_box", k1_cornell),
-                                       ("veach_mis", k1_veach))}),
+                                       ("veach_mis", k1_veach))},
+             by_tracer={name: dict(launches=k1_by_variant[name]["shared"],
+                                   one_pass=rec)
+                        for name, rec in light_path.items()}),
         vrow("traverse8_kernel", "traversal8.cu",
              "cudatracerlib_tpu/ops/traversal_pl.py:188",
              sm_by_variant["K1"]["global"],
@@ -1077,9 +1300,15 @@ def main():
         *(k3_row(f"probe_treelet_kernel<{d}>", "schedule_probe.cu", d)
           for d in probe.K3_DESIGNS),
         row("traverse_pool_kernel", "traversal_pool.cu",
-            "cudatracerlib_tpu/ops/traversal_pl.py:298", k4_launches,
-            k4_res["mixed"][0], k4_res["mixed"][1], k4_res["mixed"][3],
-            k4_bound, device_ms=k4_res["mixed"][5]),
+            "cudatracerlib_tpu/ops/traversal_pl.py:298", 0,
+            max(k4_res["mixed"][0], *(r["mixed"][0] for r in k4_fallback.values())),
+            k4_res["mixed"][1], k4_res["mixed"][3], k4_bound,
+            device_ms=k4_res["mixed"][5], on_path=False,
+            fallback_by_v={f"V{V}": dict(
+                ms=r["mixed"][1], k1_ms=r["mixed"][2], plain_ms=r["mixed"][3],
+                device_ms=r["mixed"][5],
+                k1_device_ms=kernel_ms["K1_fallback", V]["device_ms"])
+                for V, r in k4_fallback.items()}),
         row("chase_rows_kernel", "microbench.cu",
             "tools/microbench_r2.py:89", mb_launches["P1"], *mb_row(p1)),
         row("gather_rows_thread_kernel", "microbench.cu",

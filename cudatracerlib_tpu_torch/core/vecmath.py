@@ -14,6 +14,10 @@ def dot(a: Tensor, b: Tensor) -> Tensor:
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+def absdot(a: Tensor, b: Tensor) -> Tensor:
+    return dot(a, b).abs()
+
+
 def cross(a: Tensor, b: Tensor) -> Tensor:
     ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
     bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
@@ -36,6 +40,17 @@ def normalize(a: Tensor) -> Tensor:
 def reflect(w: Tensor, n: Tensor) -> Tensor:
     """Reflect direction ``w`` (pointing away from surface) about normal ``n``."""
     return 2.0 * dot(w, n)[..., None] * n - w
+
+
+def refract(w: Tensor, n: Tensor, eta: Tensor, cos_theta_t: Tensor) -> Tensor:
+    """Refract direction ``w`` (pointing away from the surface) about ``n``.
+
+    ``eta`` is the material's relative IOR (int/ext); ``cos_theta_t`` is the
+    signed transmitted cosine from ``fresnel_dielectric_ext`` (opposite sign
+    of ``dot(w, n)``): wo = -eta_r*w + (eta_r*dot(w,n) + cos_theta_t)*n with
+    eta_r = eta_i/eta_t for this crossing."""
+    eta_r = torch.where(cos_theta_t < 0, 1.0 / eta, eta)
+    return n * (eta_r * dot(w, n) + cos_theta_t)[..., None] - w * eta_r[..., None]
 
 
 def coordinate_system(n: Tensor):

@@ -1,12 +1,14 @@
 """The BSDF system: sample / evaluate / pdf.
 
-Port of ``cudatracerlib_tpu/models/bsdf.py`` for the diffuse, conductor
+Port of ``cudatracerlib_tpu/models/bsdf.py`` for the diffuse, smooth
+dielectric (with the RGB dispersion roulette), thin dielectric, conductor
 and rough-conductor BSDFs. Material rows are gathered into a flat
 ``BsdfCtx``, with their textures evaluated (ops/texture.py), and every lane
 evaluates the closed forms of the types present in the scene (a static
-tuple), selecting per-lane results with masks. The other 10 simple types
-and the nested (coating, rough coating, blend) materials are not ported
-yet: asking for them raises.
+tuple), selecting per-lane results with masks. The other 8 simple types,
+the nested (coating, rough coating, blend) materials and the dielectric's
+spectral (hero-wavelength) branch are not ported yet: asking for them
+raises.
 
 Conventions (Mitsuba): directions in the local shading frame, +z = normal,
 `wi` the fixed incident direction, `wo` the sampled/queried outgoing one,
@@ -38,8 +40,11 @@ Tensor = torch.Tensor
 INV_PI = 1.0 / math.pi
 
 ALL_TYPES = tuple(range(16))
-PORTED_TYPES = (schema.BSDF_DIFFUSE, schema.BSDF_CONDUCTOR,
+PORTED_TYPES = (schema.BSDF_DIFFUSE, schema.BSDF_DIELECTRIC,
+                schema.BSDF_THINDIELECTRIC, schema.BSDF_CONDUCTOR,
                 schema.BSDF_ROUGHCONDUCTOR)
+_DELTA_TYPES = (schema.BSDF_DIELECTRIC, schema.BSDF_THINDIELECTRIC,
+                schema.BSDF_CONDUCTOR, schema.BSDF_NULL)
 _NESTED_TYPES = (schema.BSDF_COATING, schema.BSDF_ROUGHCOATING,
                  schema.BSDF_BLEND)
 # BSDFs that transmit (skip the two-sided flip)
@@ -201,6 +206,61 @@ def _conductor_sample(ctx, wi, u):
                      eta=torch.ones(shape, dtype=torch.float32, device=wi.device))
 
 
+_LAM2_RGB = (0.610 ** 2, 0.550 ** 2, 0.465 ** 2)   # um^2, the RGB channels
+
+
+def _dielectric_sample(ctx, wi, u):
+    # dispersion: params[23] > 0 is a Cauchy B coefficient (um^2). A channel
+    # is chosen by roulette on u[..., 2] and the path continues
+    # monochromatically (weight x3 on that channel)
+    if ctx.lam_um is not None:
+        raise NotImplementedError("spectral transport is not ported yet")
+    disp_b = ctx.params[:, 23]
+    eta_base = ctx.params[:, 4]
+    dispersive = disp_b > 0.0
+    lam2 = torch.tensor(_LAM2_RGB, dtype=torch.float32, device=wi.device)
+    eta_rgb = eta_base[:, None] + disp_b[:, None] / lam2[None, :]
+    chan = (u[..., 2] * 3.0).to(torch.int32).clamp(0, 2)
+    oh = torch.arange(3, device=wi.device)[None, :] == chan[:, None]
+    eta_chan = torch.where(oh, eta_rgb, 0.0).sum(dim=1)
+    eta = torch.where(dispersive, eta_chan, eta_base)
+    F, cos_t = fresnel.fresnel_dielectric_ext(wi[..., 2], eta)
+    reflect = u[..., 0] < F
+    wo_r = _mirror(wi)
+    n = torch.zeros_like(wi)
+    n[..., 2] = 1.0
+    wo_t = vm.refract(wi, n, eta, cos_t)
+    wo = torch.where(reflect[..., None], wo_r, wo_t)
+    # radiance scaling on refraction: (eta_i/eta_t)^2
+    factor = torch.where(cos_t < 0, 1.0 / eta, eta)
+    w_t = ctx.c1 * (factor * factor)[..., None]
+    weight = torch.where(reflect[..., None], ctx.c0, w_t)
+    # dispersive lanes are monochromatic either way (F depends on the
+    # channel): isolate the sampled channel with x3 roulette compensation
+    chan_mask = torch.where(oh, 3.0, 0.0)
+    weight = torch.where(dispersive[..., None], weight * chan_mask, weight)
+    stype = torch.where(reflect, records.T_DELTA_REFLECTION,
+                        records.T_DELTA_TRANSMISSION)
+    eta_out = torch.where(reflect, 1.0, torch.where(cos_t < 0, eta, 1.0 / eta))
+    pdf = torch.where(reflect, F, 1.0 - F)
+    return SampleOut(wo=wo, weight=weight, pdf=pdf.clamp_min(1e-12),
+                     sampled_type=stype.to(torch.int32), eta=eta_out)
+
+
+def _thindielectric_sample(ctx, wi, u):
+    eta = ctx.params[:, 4]
+    R = fresnel.fresnel_dielectric(wi[..., 2].abs(), eta)
+    R = torch.where(R < 1.0, R * 2.0 / (1.0 + R), 1.0)  # double interface
+    reflect = u[..., 0] < R
+    wo = torch.where(reflect[..., None], _mirror(wi), -wi)
+    weight = torch.where(reflect[..., None], ctx.c0, ctx.c1)
+    stype = torch.where(reflect, records.T_DELTA_REFLECTION,
+                        records.T_DELTA_TRANSMISSION)
+    pdf = torch.where(reflect, R, 1.0 - R)
+    return SampleOut(wo=wo, weight=weight, pdf=pdf.clamp_min(1e-12),
+                     sampled_type=stype.to(torch.int32), eta=torch.ones_like(R))
+
+
 def _roughconductor_eval(ctx, wi, wo):
     up = (wi[..., 2] > 0) & (wo[..., 2] > 0)
     a_u, a_v = _alphas(ctx.params)
@@ -231,10 +291,13 @@ def _roughconductor_sample(ctx, wi, u):
                      eta=torch.ones(shape, dtype=torch.float32, device=wi.device))
 
 
-# the conductor is a pure delta lobe: it has a sampler and no evaluation
+# the conductor and the (thin) dielectric are pure delta lobes: they have a
+# sampler and no evaluation (their evaluate is the zero lobe)
 _EVAL_FNS = {schema.BSDF_DIFFUSE: _diffuse_eval,
              schema.BSDF_ROUGHCONDUCTOR: _roughconductor_eval}
 _SAMPLE_FNS = {schema.BSDF_DIFFUSE: _diffuse_sample,
+               schema.BSDF_DIELECTRIC: _dielectric_sample,
+               schema.BSDF_THINDIELECTRIC: _thindielectric_sample,
                schema.BSDF_CONDUCTOR: _conductor_sample,
                schema.BSDF_ROUGHCONDUCTOR: _roughconductor_sample}
 
@@ -306,3 +369,12 @@ def sample_with_rng(ctx: BsdfCtx, wi: Tensor, state: Tensor,
     if u_override is not None:
         u = torch.where(override_mask[..., None], u_override, u)
     return sample(ctx, wi, u, active_types), state
+
+
+def is_delta_only(ctx: BsdfCtx) -> Tensor:
+    """Lanes whose material has no smooth component (pure delta)."""
+    m = torch.zeros(ctx.mat_type.shape, dtype=torch.bool,
+                    device=ctx.mat_type.device)
+    for t in _DELTA_TYPES:
+        m |= ctx.mat_type == t
+    return m

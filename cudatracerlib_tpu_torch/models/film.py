@@ -1,9 +1,9 @@
 """Film / image accumulation buffers.
 
 Port of ``cudatracerlib_tpu/models/film.py``. Unlike the JAX package's
-functional updates, ``add_samples`` adds into the film's tensors in place
-(``index_add_``) and returns the same film: a pass then allocates no new
-image buffers.
+functional updates, ``add_samples`` and ``splat`` add into the film's
+tensors in place (``index_add_``) and return the same film: a pass then
+allocates no new image buffers.
 """
 from __future__ import annotations
 
@@ -57,6 +57,21 @@ def add_samples(film: Film, pixel_x: Tensor, pixel_y: Tensor, value: Tensor,
     return film
 
 
+def splat(film: Film, pixel_x: Tensor, pixel_y: Tensor, value: Tensor,
+          mask=None) -> Film:
+    """Add light-tracing splats at integer pixel coords (in place; coords
+    must lie inside the film: a CUDA index out of range stops the device,
+    so the callers clip them). On a card the adds are atomic and their
+    order varies from run to run, so a splat film equals another only
+    within float rounding."""
+    if mask is not None:
+        value = torch.where(mask[:, None], value, 0.0)
+    value = torch.where(torch.isfinite(value), value, 0.0)
+    flat = (pixel_y * film.w + pixel_x).long()
+    film.splat.view(-1, 3).index_add_(0, flat, value)
+    return film
+
+
 def develop(film: Film, splat_scale=None) -> Tensor:
     """Resolve to linear HDR RGB."""
     w = film.weight.clamp_min(1e-8)[..., None]
@@ -64,3 +79,20 @@ def develop(film: Film, splat_scale=None) -> Tensor:
     if splat_scale is None:
         splat_scale = 1.0 / max(film.n_passes, 1.0)
     return img + film.splat * splat_scale
+
+
+def to_srgb_u8(hdr: Tensor) -> Tensor:
+    from ..core import spectrum
+    return (spectrum.linear_to_srgb(hdr).clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def save_png(hdr: Tensor, path: str):
+    import numpy as np
+    from PIL import Image as PILImage
+    arr = np.asarray(to_srgb_u8(hdr).cpu())
+    PILImage.fromarray(arr).save(path)
+
+
+def save_hdr_npz(hdr: Tensor, path: str):
+    import numpy as np
+    np.savez_compressed(path, hdr=np.asarray(hdr.cpu()))

@@ -32,6 +32,18 @@ class EmitterDirect(NamedTuple):
     light_idx: Tensor  # (B,) i32
 
 
+class EmitterRay(NamedTuple):
+    """Sampled emission ray for light tracing and BDPT."""
+    o: Tensor          # (B, 3)
+    d: Tensor          # (B, 3)
+    n: Tensor          # (B, 3) emitter surface normal (zeros for point)
+    power: Tensor      # (B, 3) full path weight Le*cos/(pdf_pos*pdf_dir*pdf_sel)
+    pdf_pos: Tensor    # (B,) area pdf (incl. selection)
+    pdf_dir: Tensor    # (B,) direction pdf (solid angle)
+    light_idx: Tensor  # (B,) i32
+    le: Tensor         # (B, 3) emitted radiance / intensity at the origin
+
+
 def has_env_static(lights: schema.LightTable) -> bool:
     """Shape-level check for an environment light: the builder emits a 1x1
     black placeholder map when no infinite light exists."""
@@ -257,6 +269,120 @@ def sample_emitter_direct(scene: schema.SceneData, ref_p: Tensor,
     return EmitterDirect(p=p_out, d=d_out, dist=dist_out, n=n_out,
                          radiance_over_pdf=rop, pdf=pdf_sa, is_delta=is_delta,
                          light_idx=idx), state
+
+
+def sample_emitter_ray(scene: schema.SceneData, state: Tensor) -> tuple:
+    """Sample an emission ray carrying its full power weight: the entry
+    point of light tracing and BDPT's light walk (ParticleProcess emission
+    sampling). Every lane computes each light type's closed form and
+    selects by its sampled row's type."""
+    lights = scene.lights
+    state, u_sel = rngmod.next_float(state)
+    idx, pdf_sel = _select_light(lights, u_sel)
+    row = _light_fat_rows(lights)[idx.long()]
+    NP = schema.N_LIGHT_PARAMS
+    ltype = row[:, 0].view(torch.int32)
+    p = row[:, 1:1 + NP]
+    B, dev = u_sel.shape[0], u_sel.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    state, u_pos = rngmod.next_float2(state)
+    state, u_dir = rngmod.next_float2(state)
+
+    world_c = 0.5 * (scene.world_lo + scene.world_hi)
+    world_r = (0.5 * vm.length(scene.world_hi - scene.world_lo)).clamp_min(1e-3) * 1.01
+
+    # point: uniform sphere
+    o_pt = p[:, 0:3]
+    d_pt = warp.square_to_uniform_sphere(u_dir)
+    w_pt = p[:, 3:6] * (4.0 * math.pi)
+    pdfp_pt = torch.ones(B, **f32)
+    pdfd_pt = torch.full((B,), warp.INV_FOURPI, **f32)
+
+    # spot: cone with falloff
+    cos_cut = p[:, 6]
+    d_cone = warp.square_to_uniform_cone(u_dir, cos_cut)
+    spot_t, spot_s = vm.coordinate_system(p[:, 8:11])
+    d_spot = (spot_t * d_cone[:, 0:1] + spot_s * d_cone[:, 1:2]
+              + p[:, 8:11] * d_cone[:, 2:3])
+    pdf_cone = warp.square_to_uniform_cone_pdf(cos_cut)
+    cos_beam = p[:, 7]
+    fall = ((d_cone[:, 2] - cos_cut) / (cos_beam - cos_cut).clamp_min(1e-6)).clamp(0, 1)
+    fall = fall * fall * (3 - 2 * fall)
+    w_spot = p[:, 3:6] * (fall / pdf_cone)[..., None]
+    pdfd_spot = torch.full((B,), 1.0, **f32) * pdf_cone
+
+    # distant: point on a disk of the world's radius, fixed direction
+    dir_d = p[:, 0:3]
+    t1, t2 = vm.coordinate_system(dir_d)
+    disk = warp.square_to_uniform_disk_concentric(u_pos) * world_r
+    o_dist = world_c - dir_d * world_r[..., None] + t1 * disk[:, 0:1] + t2 * disk[:, 1:2]
+    area_disk = math.pi * world_r * world_r
+    w_dist = p[:, 3:6] * area_disk[..., None]
+    pdfp_dist = 1.0 / area_disk * torch.ones(B, **f32)
+    pdfd_dist = torch.ones(B, **f32)
+
+    # area: position by the alias-sampled triangle + cosine direction
+    first = row[:, 1 + NP].view(torch.int32)
+    count = row[:, 2 + NP].view(torch.int32).clamp_min(1)
+    state, u_tri = rngmod.next_float(state)
+    ai = _sample_area_tri(lights, first, count, u_tri)
+    trow = lights.al_rows[ai.clamp(0, lights.al_rows.shape[0] - 1).long()]
+    bary = warp.square_to_uniform_triangle(u_pos)
+    o_ar = trow[:, 0:3] + trow[:, 3:6] * bary[:, 0:1] + trow[:, 6:9] * bary[:, 1:2]
+    ng = trow[:, 9:12]
+    local = warp.square_to_cosine_hemisphere(u_dir)
+    fr_t, fr_s = vm.coordinate_system(ng)
+    d_ar = fr_t * local[:, 0:1] + fr_s * local[:, 1:2] + ng * local[:, 2:3]
+    area_total = p[:, 6].clamp_min(1e-12)
+    w_ar = p[:, 3:6] * (math.pi * area_total)[..., None]
+    pdfp_ar = 1.0 / area_total
+    pdfd_ar = warp.square_to_cosine_hemisphere_pdf(local)
+
+    # env: direction from the map (pointing into the scene), origin on the
+    # far disk
+    if has_env_static(lights):
+        He, We = lights.env_map.shape[0], lights.env_map.shape[1]
+        y, x, pmf = _env_sample_pixel(lights, u_dir)
+        u_img = (x.to(torch.float32) + 0.5) / We
+        v_img = (y.to(torch.float32) + 0.5) / He
+        d_from_env, sin_te = _env_direction_from_uv(lights, u_img, v_img)
+        d_env = -d_from_env  # radiance flows opposite the direction to the env
+        le_env = lights.env_map.reshape(-1, 3)[(y * We + x).long()] * p[:, 3:6]
+        jac_e = (He * We) / (2.0 * math.pi * math.pi * sin_te.clamp_min(1e-5))
+        pdf_env_d = (pmf * jac_e).clamp_min(1e-12)
+        e1, e2 = vm.coordinate_system(d_env)
+        disk_e = warp.square_to_uniform_disk_concentric(u_pos) * world_r
+        o_env = (world_c - d_env * world_r[..., None] + e1 * disk_e[:, 0:1]
+                 + e2 * disk_e[:, 1:2])
+        area_e = math.pi * world_r * world_r
+        w_env = le_env * (area_e / pdf_env_d)[..., None]
+        pdfp_env = 1.0 / area_e * torch.ones(B, **f32)
+        pdfd_env = pdf_env_d
+    else:
+        d_env = d_pt
+        o_env = o_pt
+        le_env = torch.zeros((B, 3), **f32)
+        w_env = torch.zeros((B, 3), **f32)
+        pdfp_env = torch.ones(B, **f32)
+        pdfd_env = torch.ones(B, **f32)
+
+    masks = [ltype == schema.LIGHT_POINT, ltype == schema.LIGHT_SPOT,
+             ltype == schema.LIGHT_DISTANT, ltype == schema.LIGHT_DIFFUSE,
+             ltype == schema.LIGHT_INFINITE]
+
+    def sel(*tv):
+        return _select_cases(masks, tv)
+
+    zero3 = torch.zeros_like(o_pt)
+    o = sel(o_pt, o_pt, o_dist, o_ar, o_env)
+    d = sel(d_pt, d_spot, dir_d, d_ar, d_env)
+    n = sel(zero3, zero3, dir_d, ng, d_env)
+    w = sel(w_pt, w_spot, w_dist, w_ar, w_env) / pdf_sel[..., None]
+    pdf_pos = sel(pdfp_pt, pdfp_pt, pdfp_dist, pdfp_ar, pdfp_env) * pdf_sel
+    pdf_dir = sel(pdfd_pt, pdfd_spot, pdfd_dist, pdfd_ar, pdfd_env)
+    le = sel(p[:, 3:6], p[:, 3:6] * fall[..., None], p[:, 3:6], p[:, 3:6], le_env)
+    return EmitterRay(o=o, d=d, n=n, power=w, pdf_pos=pdf_pos, pdf_dir=pdf_dir,
+                      light_idx=idx, le=le), state
 
 
 def eval_hit_emitter(scene: schema.SceneData, light_id: Tensor, ng: Tensor,

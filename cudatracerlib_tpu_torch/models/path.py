@@ -5,8 +5,7 @@ by bounce in a Python loop; inactive lanes carry tmax=0 rays. Each bounce
 traces ONE mixed wavefront: this bounce's closest-hit rays together with
 the previous bounce's NEE shadow rays (per-lane any-hit, ``any_mask``), the
 reference's deferred shadow-ray queue. The last bounce's shadow rays are
-traced after the loop. With ``pool`` every traversal of a small table goes
-to the pool kernel K4 instead of K1 (same results, other ray schedule).
+traced after the loop.
 
 Not ported yet (they raise): media, alpha, bump, parallax, BSSRDF,
 spectral transport, sequence samplers and regularization.
@@ -48,13 +47,11 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                 with_bssrdf: bool = False, regularize: bool = False,
                 regularize_alpha: float = 0.08, with_textures: bool = True,
                 return_rays: bool = False, sampler_type: int = 0,
-                pixel_idx: Tensor = None, sample_idx=0, spectral: int = 0,
-                pool: bool = False):
+                pixel_idx: Tensor = None, sample_idx=0, spectral: int = 0):
     """Estimate radiance along each lane's camera ray. Returns (L, state), or
     with return_rays (L, state, rays, iters, rows, ovf): int64 counters of
     live rays traced, traversal steps, 512-byte rows read, and the (2,)
-    capped / stack-overflowed ray counts. `pool` goes to every
-    ``intersect_scene`` call (K4 instead of K1 on small tables)."""
+    capped / stack-overflowed ray counts."""
     if with_media is None:
         with_media = int(schema.host_meta(scene)["n_media"]) > 0
     _unported(with_media=with_media, with_alpha=with_alpha,
@@ -106,15 +103,14 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                 tmin=torch.cat([trace_rays.tmin, p_rays.tmin]),
                 tmax=torch.cat([trace_rays.tmax, p_rays.tmax]))
             h2, it1, rw1, ov1 = traversal8.intersect_scene(
-                geom, comb, with_iters=True, coherent=coherent, any_mask=amask,
-                pool=pool)
+                geom, comb, with_iters=True, coherent=coherent, any_mask=amask)
             hit = traversal.Hit(t=h2.t[:B], tri=h2.tri[:B],
                                 u=h2.u[:B], v=h2.v[:B])
             occluded_prev = h2.tri[B:] >= 0
             L = L + torch.where((p_act & ~occluded_prev)[:, None], p_contrib, 0.0)
         else:
             hit, it1, rw1, ov1 = traversal8.intersect_scene(
-                geom, trace_rays, with_iters=True, coherent=coherent, pool=pool)
+                geom, trace_rays, with_iters=True, coherent=coherent)
         niters = niters + it1
         nrows = nrows + rw1
         novf = novf + ov1
@@ -208,7 +204,7 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     if merge:
         # resolve the LAST bounce's pending shadow queue
         occ_hit, itf, rwf, ovf_ = traversal8.intersect_scene(
-            geom, p_rays, any_hit=True, with_iters=True, pool=pool)
+            geom, p_rays, any_hit=True, with_iters=True)
         L = L + torch.where((p_act & ~occ_hit.valid)[:, None], p_contrib, 0.0)
         niters = niters + itf
         nrows = nrows + rwf
@@ -222,15 +218,13 @@ class PathTracer(tracer.TracerBase):
     """Progressive unidirectional path tracer (reference PathTracer).
 
     The scene's device is the tracer's (``DynamicScene.build`` puts it on
-    the card unless asked for the CPU). `pool` sends every traversal of a
-    small table (no treelet tables) to the pool kernel K4 instead of K1;
-    the film is the same."""
+    the card unless asked for the CPU)."""
 
     def __init__(self, scene, width, height, max_depth: int = 8,
                  rr_depth: int = 3, use_nee: bool = True, regularize: bool = False,
                  spp_per_pass: int = 1, chunk_size: int = 1 << 17, seed: int = 0,
                  active_types: Optional[Sequence[int]] = None,
-                 sampler_type: int = 0, spectral: int = 0, pool: bool = False):
+                 sampler_type: int = 0, spectral: int = 0):
         super().__init__(scene, width, height, spp_per_pass=spp_per_pass, seed=seed)
         _unported(regularize=regularize, sampler_type=sampler_type,
                   spectral=spectral, alpha=bsdfmod.scene_has_alpha(scene),
@@ -251,7 +245,7 @@ class PathTracer(tracer.TracerBase):
             w=width, h=height, chunk=self.chunk_size,
             max_depth=max_depth, rr_depth=rr_depth, use_nee=use_nee,
             spp=spp_per_pass, active_types=self.active_types,
-            with_textures=self.with_textures, pool=pool)
+            with_textures=self.with_textures)
 
     def render_pass(self, scene, film, pass_idx):
         for c in range(self._n_chunks):
@@ -282,7 +276,7 @@ def _pt_chunk(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
               with_bump: bool = False, with_parallax: bool = False,
               with_bssrdf: bool = False, regularize: bool = False,
               with_textures: bool = True, sampler_type: int = 0,
-              spectral: int = 0, pool: bool = False):
+              spectral: int = 0):
     """One chunk of one pass: `chunk` lanes from pixel chunk_idx*chunk on,
     `spp` samples each, added into `film`. Returns the film and the
     counters advanced by this chunk."""
@@ -301,7 +295,7 @@ def _pt_chunk(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
             with_bssrdf=with_bssrdf, regularize=regularize,
             with_textures=with_textures, return_rays=True,
             sampler_type=sampler_type, pixel_idx=pixel_idx,
-            sample_idx=sample_idx, spectral=spectral, pool=pool)
+            sample_idx=sample_idx, spectral=spectral)
         rays_ctr = rays_ctr + nr
         iters_ctr = iters_ctr + ni
         rows_ctr = rows_ctr + nw

@@ -46,6 +46,8 @@ def gen_camera_rays(scene: schema.SceneData, pixel_idx: Tensor, sample_idx,
 class TracerBase:
     """Host-side pass loop: owns the film, pass counter and wall-clock stats."""
 
+    progressive = True
+
     def __init__(self, scene: schema.SceneData, width: int, height: int,
                  spp_per_pass: int = 1, seed: int = 0):
         self.scene = scene
@@ -85,3 +87,19 @@ class TracerBase:
         eagerly, so there is no batch to fuse)."""
         for _ in range(n_passes):
             self.do_pass()
+
+    def debug_pixel(self, x: int, y: int):
+        """Re-run the integrator for one pixel (reference Tracer::Debug) on
+        a one-lane batch for inspection."""
+        pix = torch.tensor([y * self.width + x], dtype=torch.int32,
+                           device=self.scene.device)
+        return self._debug_lane(pix)
+
+    def _debug_lane(self, pixel_idx):
+        raise NotImplementedError
+
+    def status(self) -> dict:
+        spp = self.pass_idx * self.spp_per_pass
+        return dict(passes=self.pass_idx, spp=spp,
+                    seconds=self.accum_seconds,
+                    spp_per_second=spp / max(self.accum_seconds, 1e-9))

@@ -21,8 +21,8 @@ one traversal, with the same per-ray semantics, step counts and flags:
 
 ``intersect_scene`` sends a table with treelet tables to the two-phase
 treelet traversal (``ops/traversal_tt.py``) with K1 as its exactness
-fallback, and any other table by its device to K1 (K4 with ``pool``) or to
-the plain version.
+fallback, and any other table by its device to K1 or to the plain version.
+K4 is called only through ``intersect_wide_pool``.
 
 Per ray: a stack entry is (row << 8) | unvisited-child mask; the stack is a
 ring of ``stack_depth`` entries that drops its oldest entry when a push
@@ -421,8 +421,9 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
     from the table's size (``launch_variant``; `_variant` forces one); the
     shared variant's ray queue counter is an int32 scratch tensor allocated
     here (``queue_counter``). Each launch adds one to
-    ``intersect_wide_cuda.launches`` and to
-    ``intersect_wide_cuda.launches_by_variant[variant]``."""
+    ``intersect_wide_cuda.launches``, to
+    ``intersect_wide_cuda.launches_by_variant[variant]`` and to
+    ``intersect_wide_cuda.launches_by_mode[mode]`` (``launch_mode``)."""
     args, out = _wide_args(table, rays, any_hit, stack_depth, max_iters, roots,
                            any_mask)
     variant = launch_variant(table, _variant)
@@ -435,11 +436,22 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
                           _stream(table.device)), out, with_iters)
     intersect_wide_cuda.launches += 1
     intersect_wide_cuda.launches_by_variant[variant] += 1
+    intersect_wide_cuda.launches_by_mode[launch_mode(any_hit, any_mask)] += 1
     return res
+
+
+MODES = ("closest", "any_hit", "mixed")
+
+
+def launch_mode(any_hit: bool, any_mask: Tensor = None) -> str:
+    """A traversal's mode: "any_hit" (every lane), "mixed" (per-lane
+    any_mask) or "closest"."""
+    return "any_hit" if any_hit else "closest" if any_mask is None else "mixed"
 
 
 intersect_wide_cuda.launches = 0
 intersect_wide_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+intersect_wide_cuda.launches_by_mode = dict.fromkeys(MODES, 0)
 
 
 def intersect_wide_pool_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
@@ -494,19 +506,17 @@ def treelet_would_dispatch(geom, coherent: bool = True,
 
 def intersect_scene(geom, rays: Rays, any_hit: bool = False,
                     roots: Tensor = None, with_iters: bool = False,
-                    coherent: bool = False, any_mask: Tensor = None,
-                    pool: bool = False):
+                    coherent: bool = False, any_mask: Tensor = None):
     """Production intersector over a GeometryTable's fat-row table.
 
     A table with treelet tables goes to the two-phase treelet traversal
     (``intersect_treelet_exact``: K2, K3 and the K1 fallback on CUDA, their
     plain versions on the CPU); `coherent` picks its visit budget
-    (V_COHERENT for camera rays, V_INCOHERENT otherwise), and `pool` is
-    ignored, as the JAX dispatch only pools its small-table branch. Any
-    other table goes, when it is a CUDA table of any size, to K1
-    (``intersect_wide_cuda``) or with `pool` to K4
-    (``intersect_wide_pool_cuda``), and on the CPU to their plain version
-    (``intersect_wide``).
+    (V_COHERENT for camera rays, V_INCOHERENT otherwise). Any other table
+    goes, when it is a CUDA table of any size, to K1 (``intersect_wide_cuda``),
+    and on the CPU to its plain version (``intersect_wide``). No render path
+    takes the pool kernel K4 (``intersect_wide_pool``): the JAX dispatch
+    picks it only under a switch that is off by default.
 
     with_iters=True returns (hit, iters, rows, ovf), all int64 counters:
     iters is the sum of the steps of every kernel the rays went through,
@@ -522,9 +532,9 @@ def intersect_scene(geom, rays: Rays, any_hit: bool = False,
                                        coherent=coherent,
                                        with_iters=with_iters,
                                        any_mask=any_mask)
-    res = _wide_fn(geom.wide, pool)(geom.wide, rays, any_hit=any_hit,
-                                    roots=roots, with_iters=with_iters,
-                                    any_mask=any_mask)
+    res = _wide_fn(geom.wide)(geom.wide, rays, any_hit=any_hit,
+                              roots=roots, with_iters=with_iters,
+                              any_mask=any_mask)
     if not with_iters:
         return res
     hit, steps, flags = res

@@ -133,6 +133,22 @@ def veach_mis_anchor(width: int = 48, height: int = 48):
     return sc
 
 
+def cornell_glass(width: int = 256, height: int = 256):
+    """Cornell variant with a glass sphere (caustics): the BDPT config
+    (BASELINE config 4)."""
+    sc = cornell_box(width, height, spheres=False)
+    glass = sc.add_material(host.MaterialSpec(
+        bsdf_type=schema.BSDF_DIELECTRIC, eta=1.5))
+    diffuse = sc.add_material(host.MaterialSpec(reflectance=(0.7, 0.7, 0.7)))
+    sc.create_node(shapes.sphere(radius=0.35, n_theta=24, n_phi=48), glass,
+                   tf.translate([-0.4, -0.55, 0.2]), name="glass")
+    sc.create_node(shapes.cube(), diffuse,
+                   tf.compose(tf.translate([0.45, -0.7, -0.2]),
+                              tf.rotate_deg([0, 1, 0], 20),
+                              tf.scale([0.25, 0.3, 0.25])), name="box")
+    return sc
+
+
 def _noise_texture(n: int = 256, seed: int = 7) -> np.ndarray:
     """Multi-octave value-noise RGB image (keeps the image-texture path hot
     without any external asset)."""

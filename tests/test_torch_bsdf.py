@@ -210,3 +210,97 @@ def test_roughconductor_sample_matches_evaluate(alpha):
         uniform = tbsdf.evaluate(ctx, wi, wo).f.mean(0) * (2.0 * np.pi)
         np.testing.assert_allclose(sampled.numpy(), uniform.numpy(), rtol=0.03,
                                    err_msg=f"alpha {alpha}, cos_i {cos_i}")
+
+
+# the smooth dielectric and the thin dielectric at chosen incident
+# directions: (cos theta range, sign) of wi.z per case; with eta 1.5 (and
+# eta 1.3-1.8 (and the dispersive channels' eta above it), inside-out lanes
+# with |cos| < 0.63 meet total internal reflection
+WI_CASES = {"normal": (0.999, 1.0, 1.0), "grazing": (1e-4, 0.02, 1.0),
+            "inside_out": (0.75, 1.0, -1.0), "tir": (1e-3, 0.6, -1.0)}
+DELTA_TYPES = (schema.BSDF_DIFFUSE, schema.BSDF_DIELECTRIC,
+               schema.BSDF_THINDIELECTRIC)
+
+
+def _dielectric_data(case, dispersive):
+    lo, hi, sign = WI_CASES[case]
+    r = np.random.default_rng(21 + 2 * list(WI_CASES).index(case) + dispersive)
+    cos = r.uniform(lo, hi, N).astype(np.float32)
+    phi = r.uniform(0.0, 2.0 * np.pi, N)
+    sin = np.sqrt(np.maximum(1.0 - cos.astype(np.float64) ** 2, 0.0))
+    wi = np.stack([sin * np.cos(phi), sin * np.sin(phi), sign * cos], 1).astype(np.float32)
+    if case == "normal":
+        wi[:16] = (0.0, 0.0, sign)           # exactly along the normal
+    params = np.zeros((N, schema.N_MAT_PARAMS), np.float32)
+    params[:, 4] = r.uniform(1.3, 1.8, N)
+    params[:4096 // 2, 4] = 1.5
+    params[:, 22] = 1.0                      # two-sided: ignored by transmissive types
+    if dispersive:
+        params[:, 23] = r.uniform(0.002, 0.01, N)
+    mat = np.array(DELTA_TYPES, np.int32)[r.integers(0, 3, N)]
+    c0 = r.random((N, 3)).astype(np.float32)
+    state = r.integers(0, 2 ** 32, N, dtype=np.uint64).astype(np.uint32)
+    return dict(wi=wi, wo=wi, params=params, mat=mat, c0=c0, state=state)
+
+
+@pytest.mark.parametrize("dispersive", [False, True], ids=["rgb", "dispersive"])
+@pytest.mark.parametrize("case", list(WI_CASES))
+def test_dielectric_sample(case, dispersive):
+    """The dielectric and thin-dielectric samplers (through sample_with_rng,
+    beside diffuse lanes): the RNG state after sampling and the sampled
+    types bit for bit; wo at DIR_TOL (near the critical angle refraction's
+    cos_t = sqrt(1 - eta^2 sin^2) cancels); weight, pdf and eta at TOL."""
+    d = _dielectric_data(case, dispersive)
+    ts, tstate = tbsdf.sample_with_rng(_ctx(tbsdf, d, "torch"),
+                                       torch.from_numpy(d["wi"]),
+                                       torch.from_numpy(d["state"].astype(np.int64)),
+                                       DELTA_TYPES)
+    js, jstate = jbsdf.sample_with_rng(_ctx(jbsdf, d, "jax"), jnp.asarray(d["wi"]),
+                                       jnp.asarray(d["state"]), DELTA_TYPES)
+    np.testing.assert_array_equal(tstate.numpy(), np.asarray(jstate).astype(np.int64))
+    np.testing.assert_array_equal(ts.sampled_type.numpy(), np.asarray(js.sampled_type))
+    _close(ts.wo, js.wo, DIR_TOL, err_msg="wo")
+    for name in ("weight", "pdf", "eta"):
+        _close(getattr(ts, name), getattr(js, name), TOL, err_msg=name)
+    st = ts.sampled_type.numpy()
+    diel = d["mat"] == schema.BSDF_DIELECTRIC
+    if case == "tir":
+        # total internal reflection: every dielectric lane reflects
+        assert (st[diel] == records.T_DELTA_REFLECTION).all()
+    else:
+        assert (st[diel] == records.T_DELTA_TRANSMISSION).any()
+    refr = diel & (st == records.T_DELTA_TRANSMISSION)
+    # refraction crosses the boundary
+    assert (np.sign(ts.wo.numpy()[refr, 2]) == -np.sign(d["wi"][refr, 2])).all()
+    if dispersive and case != "tir":
+        # a refracted dispersive path carries one channel (x3), the others 0
+        w = ts.weight.numpy()[refr]
+        assert ((w > 0).sum(1) <= 1).all() and (w > 0).any()
+
+
+def test_delta_types_are_zero_lobes_and_delta_only():
+    d = _dielectric_data("normal", False)
+    r = np.random.default_rng(4)
+    wo = _unit(r, N, 0.5)
+    tl = tbsdf.evaluate(_ctx(tbsdf, d, "torch"), torch.from_numpy(d["wi"]),
+                        torch.from_numpy(wo), DELTA_TYPES)
+    jl = jbsdf.evaluate(_ctx(jbsdf, d, "jax"), jnp.asarray(d["wi"]), jnp.asarray(wo),
+                        DELTA_TYPES)
+    _close(tl.f, jl.f)
+    _close(tl.pdf, jl.pdf)
+    delta = d["mat"] != schema.BSDF_DIFFUSE
+    assert float(tl.f[torch.from_numpy(delta)].abs().max()) == 0.0
+    mats = np.arange(16, dtype=np.int32)
+    d = dict(d, mat=np.resize(mats, N))
+    np.testing.assert_array_equal(tbsdf.is_delta_only(_ctx(tbsdf, d, "torch")).numpy(),
+                                  np.asarray(jbsdf.is_delta_only(_ctx(jbsdf, d, "jax"))))
+    assert tbsdf.is_delta_only(_ctx(tbsdf, d, "torch"))[:16].tolist() == [
+        t in (2, 3, 5, 15) for t in range(16)]
+    assert set(DELTA_TYPES) <= set(tbsdf.PORTED_TYPES)
+
+
+def test_dielectric_spectral_branch_raises():
+    d = _dielectric_data("normal", True)
+    ctx = _ctx(tbsdf, d, "torch")._replace(lam_um=torch.full((N,), 0.55))
+    with pytest.raises(NotImplementedError):
+        tbsdf.sample(ctx, torch.from_numpy(d["wi"]), torch.rand(N, 3), DELTA_TYPES)

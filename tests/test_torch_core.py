@@ -2,15 +2,21 @@
 
 Tolerance: rtol 1e-6, with atol 1e-6 for values near zero (cancellation in
 cross products and frame changes). Neither side is exact: XLA on the CPU may
-contract a*b+c into an FMA where PyTorch rounds twice."""
+contract a*b+c into an FMA where PyTorch rounds twice. `refract` is held
+to one ulp of its operands, the sRGB transfer functions to two ulp.
+
+The shared inputs are made read-only and each test gets its own copies, so
+no test can change what another one reads."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from cudatracerlib_tpu.core import frame as jframe, mis as jmis
+from cudatracerlib_tpu.core import fresnel as jfresnel, spectrum as jspectrum
 from cudatracerlib_tpu.core import vecmath as jvm, warp as jwarp
 from cudatracerlib_tpu_torch.core import frame as tframe, mis as tmis
+from cudatracerlib_tpu_torch.core import fresnel as tfresnel, spectrum as tspectrum
 from cudatracerlib_tpu_torch.core import vecmath as tvm, warp as twarp
 
 torch.set_num_threads(2)
@@ -23,7 +29,7 @@ def _close(t, j):
 
 
 @pytest.fixture(scope="module")
-def data():
+def shared_data():
     r = np.random.default_rng(5)
     a = r.normal(size=(N, 3)).astype(np.float32)
     b = r.normal(size=(N, 3)).astype(np.float32)
@@ -31,7 +37,15 @@ def data():
     u2 = r.random((N, 2), dtype=np.float32)
     m = np.eye(4, dtype=np.float32)
     m[:3] = r.normal(size=(3, 4)).astype(np.float32)
-    return a, b, n, u2, m
+    out = (a, b, n, u2, m)
+    for x in out:
+        x.setflags(write=False)
+    return out
+
+
+@pytest.fixture
+def data(shared_data):
+    return tuple(x.copy() for x in shared_data)
 
 
 @pytest.mark.parametrize("name", ["dot", "cross", "normalize", "length",
@@ -119,3 +133,42 @@ def test_mis(data):
         _close(getattr(tmis, name)(torch.from_numpy(pa), torch.from_numpy(d2),
                                    torch.from_numpy(c)),
                getattr(jmis, name)(jnp.asarray(pa), jnp.asarray(d2), jnp.asarray(c)))
+
+
+def test_refract(data):
+    """The refracted direction, both sides fed the same signed transmitted
+    cosine (from the port's Fresnel term) at eta 1.1-2.5 and its inverse,
+    incident from both sides: within one ulp of the operands (unit
+    vectors, eta up to 2.5, so 3 ulp of 1.0 in absolute terms)."""
+    a, b, n, _, _ = data
+    r = np.random.default_rng(13)
+    w = b / np.linalg.norm(b, axis=1, keepdims=True)
+    eta = r.uniform(1.1, 2.5, N).astype(np.float32)
+    eta[::2] = 1.0 / eta[::2]
+    cos_i = np.sum(w * n, axis=1).astype(np.float32)
+    _, cos_t = tfresnel.fresnel_dielectric_ext(torch.from_numpy(cos_i), torch.from_numpy(eta))
+    cos_t = cos_t.numpy()
+    got = tvm.refract(*map(torch.from_numpy, (w, n, eta, cos_t))).numpy()
+    want = np.asarray(jvm.refract(*map(jnp.asarray, (w, n, eta, cos_t))))
+    np.testing.assert_allclose(got, want, rtol=0, atol=3 * np.finfo(np.float32).eps)
+    # the refracted direction is a unit vector on the far side
+    ok = cos_t != 0
+    np.testing.assert_allclose(np.linalg.norm(got[ok], axis=1), 1.0, atol=1e-5)
+    assert (np.sign(np.sum(got * n, axis=1))[ok] == -np.sign(cos_i[ok])).all()
+    _close(tfresnel.fresnel_dielectric_ext(torch.from_numpy(cos_i), torch.from_numpy(eta))[0],
+           jfresnel.fresnel_dielectric_ext(jnp.asarray(cos_i), jnp.asarray(eta))[0])
+
+
+@pytest.mark.parametrize("name", ["linear_to_srgb", "srgb_to_linear"])
+def test_srgb_transfer(name):
+    """Both transfer functions on [-0.1, 4] with both branches' ends:
+    within two ulp. XLA's CPU pow and PyTorch's round the last bit
+    differently, and the affine step around it (1.055 * p - 0.055, or
+    (c + 0.055) / 1.055 before a pow of 2.4) can carry that into a second
+    ulp of the result; on the branch ends the two sides are equal."""
+    x = np.concatenate([np.linspace(-0.1, 4.0, N, dtype=np.float32),
+                        np.float32([0.0, 0.0031308, 0.04045, 1.0])])
+    got = getattr(tspectrum, name)(torch.from_numpy(x)).numpy()
+    want = np.asarray(getattr(jspectrum, name)(jnp.asarray(x)))
+    np.testing.assert_array_max_ulp(got, want, maxulp=2)
+    np.testing.assert_array_equal(got[-4:], want[-4:])

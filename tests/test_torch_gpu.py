@@ -10,7 +10,8 @@ on the card's machine, which has no JAX:
 kernels are built with -fmad=false and must agree with their plain
 versions bit for bit: hits, visit lists, counts, step counts and flags.
 K4, the pool traversal, must equal K1 on every field, for any order of
-the rays."""
+the rays. PrimTracer, LightTracer and BDPT run on the card at 16x16 and
+are held to the same render on the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -225,3 +226,58 @@ def test_table_variants_match_plain_on_gpu(dev):
     with pytest.raises(RuntimeError):
         K1(geom.wide, rays, _variant="shared")
     torch.cuda.synchronize()
+
+
+def _card_and_cpu(tracer_cls, scene_fn, size, passes, **kw):
+    """The same tracer run on the card and on the CPU: (card image, CPU
+    image, K1 launches on the card)."""
+    imgs = []
+    for d in (torch.device("cuda"), torch.device("cpu")):
+        before = traversal8.intersect_wide_cuda.launches
+        tr = tracer_cls(scene_fn(size, size).build(d), size, size, **kw)
+        imgs.append(tr.render(passes).cpu().numpy())
+        if d.type == "cuda":
+            launches = traversal8.intersect_wide_cuda.launches - before
+    return imgs[0], imgs[1], launches
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).mean() / max(np.abs(b).mean(), 1e-9))
+
+
+@pytest.mark.gpu
+def test_prim_on_gpu(dev):
+    """PrimTracer in a first-hit and a first-non-delta mode: one K1 launch
+    per pass for the first, seven for the walk through the glass; the card
+    image within 1e-5 of the CPU image."""
+    from cudatracerlib_tpu_torch.models import prim as tprim
+    for mode, launches in ((tprim.D_NORMAL_SHADE, 1), (tprim.D_ND_DEPTH, 7)):
+        card, cpu, n = _card_and_cpu(tprim.PrimTracer, tscenes.cornell_glass, 16, 1,
+                                     draw_mode=mode)
+        assert n == launches and np.isfinite(card).all()
+        assert _rel(card, cpu) < 1e-5, (mode, _rel(card, cpu))
+
+
+@pytest.mark.gpu
+def test_light_tracer_on_gpu(dev):
+    """LightTracer, 16x16, depth 4, 2 passes: 1 + 2 * 4 K1 launches per
+    pass; the card image within a mean relative error of 1e-5 of the CPU
+    image, as chip_smoke.py holds it (CARD_CPU_LIMIT: the splats' atomic
+    adds run in any order; the readings there lie near 1e-7)."""
+    from cudatracerlib_tpu_torch.models import lighttracer as tlt
+    card, cpu, n = _card_and_cpu(tlt.LightTracer, tscenes.cornell_glass, 16, 2,
+                                 max_depth=4)
+    assert n == 2 * (1 + 2 * 4) and np.isfinite(card).all() and card.mean() > 0
+    assert _rel(card, cpu) < 1e-5, _rel(card, cpu)
+
+
+@pytest.mark.gpu
+def test_bdpt_on_gpu(dev):
+    """BDPT on the glass Cornell box, 16x16, depth 3, 2 passes: 10 + 7 * 3
+    K1 launches per pass; the card image within a mean relative error of
+    1e-5 of the CPU image (as the light tracer's)."""
+    from cudatracerlib_tpu_torch.models import bdpt as tbdpt
+    card, cpu, n = _card_and_cpu(tbdpt.BDPT, tscenes.cornell_glass, 16, 2, max_depth=3)
+    assert n == 2 * (2 * tbdpt.NUM_LIGHT_V + (2 + tbdpt.NUM_LIGHT_V) * 3)
+    assert np.isfinite(card).all() and card.mean() > 0
+    assert _rel(card, cpu) < 1e-5, _rel(card, cpu)

@@ -83,18 +83,20 @@ def test_pool_against_pallas_pool_interpreted(setup, mode):
 
 
 def test_pool_plain_version_is_k1s(setup):
-    """On the CPU the pool traversal is intersect_wide, field for field, and
-    intersect_scene(pool=True) launches no kernel."""
+    """On the CPU the pool traversal is intersect_wide, field for field:
+    against intersect_scene (K1's dispatch) in the mixed mode, and against
+    intersect_wide in the closest-hit mode; neither launches a kernel."""
     s = setup
     before = (traversal8.intersect_wide_pool_cuda.launches,
               traversal8.intersect_wide_cuda.launches)
     mask = torch.from_numpy(s["mask"])
-    a = traversal8.intersect_scene(s["tsc"].geom, s["tr"], any_mask=mask,
-                                   with_iters=True, pool=True)
+    a = traversal8.intersect_wide_pool(s["tsc"].geom.wide, s["tr"], any_mask=mask,
+                                       with_iters=True)
     b = traversal8.intersect_scene(s["tsc"].geom, s["tr"], any_mask=mask,
                                    with_iters=True)
-    for x, y in zip((*a[0][:4], *a[1:]), (*b[0][:4], *b[1:])):
+    for x, y in zip((*a[0][:4], a[1].sum(dtype=torch.int64)), (*b[0][:4], b[1])):
         assert torch.equal(x, y)
+    assert int(a[2].ne(0).sum()) == 0 and b[3].tolist() == [0, 0]
     p = traversal8.intersect_wide_pool(s["tsc"].geom.wide, s["tr"], with_iters=True)
     w = traversal8.intersect_wide(s["tsc"].geom.wide, s["tr"], with_iters=True)
     for x, y in zip((*p[0][:4], p[1], p[2]), (*w[0][:4], w[1], w[2])):
