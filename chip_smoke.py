@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, check
 each against its plain PyTorch version, and run the Cornell, veach-mis and
 San Miguel path-tracing passes, the PrimTracer, BDPT and light-tracer
-passes and the microbenchmarks P1-P3.
+passes, the PPM and volumetric path-tracing passes in fog and the
+microbenchmarks P1-P3.
 
     python3 chip_smoke.py [--profile]
 
@@ -58,6 +59,15 @@ failure exits non-zero, and nothing falls back to the CPU:
    traversal by traversal, to K1's plain version; the card's BDPT and
    light-tracer images against their goldens, and all three against the
    CPU's, pass by pass;
+4g-4i. the participating-media slice (media_phases, BASELINE config 5): the
+   card's PPM image against tests/goldens/cornell_32_ppm.npz; the PPM
+   (beamgrid) and volumetric path-tracing headlines on fog_cornell 256^2,
+   depth 6, with K1's launches per pass by mode held to the code's count,
+   PPM's photons stored, ball grid, DDA steps per depth and host reads of
+   the loops' exit tests, one pass of each profiled and one recorded and
+   held to K1's plain version; where one PPM pass on the card and on the
+   CPU part (ppm_flips: photon masks and rows, grid cells, camera rays,
+   pixels); both on fog_cornell 32^2 against the CPU, pass by pass;
 5. the San Miguel stand-in at full width (1.2M triangles; host build
    seconds: native BVH, treelet partition) and 131,072 camera rays plus
    131,072 random rays from the courtyard, closest / any-hit / mixed:
@@ -109,7 +119,7 @@ launches on its own path (the global variant of K2 and the K3 designs
 take none on the main path, nor does K4), its time and its plain
 version's time (K1 shared on veach-mis, K1 global on the San Miguel
 fallback batch, K2 and K3 at V=3, K4 on veach-mis; the other shapes under
-by_scene, by_tracer (one BDPT and one light-tracer pass, summed by mode),
+by_scene, by_tracer (one pass of each tracer of 4d-4h, summed by mode),
 by_v, fallback_by_v and mixed_rays; the forced global variant and the
 probe's designs on the same rays beside K1's and K2's shared rows; the
 probe's split of the slots beside its cluster design), its device time
@@ -169,6 +179,21 @@ LP_PASSES = 4
 # functions rounding a last bit differently
 CARD_CPU_PASSES = 6
 CARD_CPU_LIMIT = 1e-5
+# the participating-media slice (BASELINE config 5): fog_cornell 256^2,
+# depth 6; PPM with W*H photons, a warm-up and PPM_PASSES timed passes
+# (bench.py's config 5), the volumetric path tracer in chunks of 65,536
+# lanes, VPT_PASSES timed passes
+MEDIA_DEPTH = 6
+PPM_PASSES = 3
+VPT_PASSES = 2
+# PPM's card image against the CPU's (fog_cornell 32^2, depth 6,
+# CARD_CPU_PASSES passes; the volumetric path tracer keeps CARD_CPU_LIMIT):
+# the readings lay at 5.6e-6 to 1.41e-5 (H100 80GB HBM3): the photons and
+# grids are identical (ppm_flips), but the card's camera rays differ from
+# the CPU's by up to 1.8e-7 and the gather kernels weigh each photon by its
+# distance to the hit, so some pixels move by more than 1e-4 of their
+# value. ~7x the largest reading
+PPM_CARD_CPU_LIMIT = 1e-4
 # device_ms's sleeping kernel: ~6 ms at the H100's 1.755 GHz, longer than
 # the host takes to queue its calls
 SLEEP_CYCLES = 10_000_000
@@ -357,7 +382,9 @@ def profile_pass(tr, scene_name, **extra):
     event count, and the traversal kernels summed over their template
     instantiations."""
     from torch.profiler import ProfilerActivity, profile as tprofile
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: the CPU ops of a pass of 10^5 launches would
+    # take minutes to sum, and only device events are counted
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tr.do_pass()
         wall = time.perf_counter() - t0
@@ -458,10 +485,11 @@ def timed_passes(tr, n):
     return secs, rays_n or None
 
 
-def card_vs_cpu(name, make, scene_fn, size, passes, dev, **extra):
+def card_vs_cpu(name, make, scene_fn, size, passes, dev, limit=CARD_CPU_LIMIT,
+                **extra):
     """The same tracer on the card and on the CPU, pass by pass: the mean
     relative error of the cumulative image after each pass, every image
-    finite and not black; fails over CARD_CPU_LIMIT. Returns the readings."""
+    finite and not black; fails over `limit`. Returns the readings."""
     trs = [make(scene_fn(size, size).build(d)) for d in (dev, "cpu")]
     rels = []
     for _ in range(passes):
@@ -472,8 +500,8 @@ def card_vs_cpu(name, make, scene_fn, size, passes, dev, **extra):
         rels.append(float(np.abs(imgs[0] - imgs[1]).mean()
                           / max(imgs[1].mean(), 1e-9)))
     emit(phase="card_vs_cpu", tracer=name, size=size, passes=passes,
-         rel_err=max(rels), rel_err_by_pass=rels, limit=CARD_CPU_LIMIT, **extra)
-    if not max(rels) < CARD_CPU_LIMIT:
+         rel_err=max(rels), rel_err_by_pass=rels, limit=limit, **extra)
+    if not max(rels) < limit:
         fail(f"the {name} card image differs from the CPU image: {rels}")
     return rels
 
@@ -606,6 +634,184 @@ def light_path_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant,
     return out
 
 
+def ppm_flips(dev, ppmmod, tracermod, traversal8, example_scenes, size=32):
+    """Where PPM's card and CPU renders part, on one pass at `size`^2:
+    the photon walk's valid masks and rows (a row off by more than 1e-3
+    took another path), the cell ids of the surface grid and of the ball
+    grid, the camera rays and their hits, and the pass's image (its mean
+    relative error and its pixels off by more than 1e-4 of their own
+    value). Emits one line."""
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        sc = example_scenes.fog_cornell(size, size).build(d)
+        tr = ppmmod.PPMTracer(sc, size, size, max_depth=MEDIA_DEPTH)
+        (rows, valid), _ = ppmmod._photon_walk(sc, tr.n_photons, 0, 0x9907,
+                                               MEDIA_DEPTH, tr.active_types,
+                                               store_medium=True)
+        r = torch.tensor(tr.radius, dtype=torch.float32, device=d)
+        sg = ppmmod._build_surface_grid(rows, valid, sc.world_lo, sc.world_hi, 2.0 * r)
+        vg = ppmmod._build_vol_grid_ball(rows, valid, r, sc.world_lo, sc.world_hi)
+        pix = torch.arange(size * size, dtype=torch.int32, device=d)
+        rays = tracermod.gen_camera_rays(sc, pix, 0, 0, size, size)[0]
+        hit = traversal8.intersect_scene(sc.geom, rays)
+        res[d.type] = [x.cpu() for x in (rows, valid, sg.cell_ids, vg.cell_ids,
+                                         rays.d, hit.t, tr.render(1))]
+    (rc, vc, sc_, bc, dc, tc, ic), (rh, vh, sh, bh, dh, th, ih) = res["cuda"], res["cpu"]
+    both = vc & vh
+    diff = (rc - rh).abs().amax(-1)
+    pix = (ic - ih).abs().amax(-1) / ih.abs().amax(-1).clamp_min(1e-6)
+    hits = (tc < 1e29) & (th < 1e29)
+    emit(phase="ppm_flips", size=size, photon_rows=int(rc.shape[0]),
+         valid_rows=int(vh.sum()), valid_differ=int((vc != vh).sum()),
+         rows_off_1e5=int((diff[both] > 1e-5).sum()),
+         rows_off_1e3=int((diff[both] > 1e-3).sum()),
+         max_row_diff=float(diff[both].max()),
+         surface_cells_differ=int((sc_ != sh).sum()),
+         ball_cells_differ=int((bc != bh).sum()),
+         camera_dir_max_diff=float((dc - dh).abs().max()),
+         hit_t_max_diff=float((tc - th)[hits].abs().max()),
+         image_rel_err=float((ic - ih).abs().mean() / ih.abs().mean()),
+         pixels_off_1e4=int((pix > 1e-4).sum()), pixels=int(pix.numel()),
+         max_pixel_rel=float(pix.max()))
+
+
+def media_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant, pathmod,
+                 ppmmod, tracermod, filmmod, example_scenes, traversal8, mb):
+    """4g. the PPM golden on the card: Cornell 32^2, depth 4, radius 0.08,
+    6 passes against tests/goldens/cornell_32_ppm.npz (mean relative error
+    < 0.02, the JAX test's limit). 4h. the config-5 headlines on
+    fog_cornell 256^2, depth 6: PPM (beamgrid, 65,536 photons) after a
+    warm-up pass, PPM_PASSES timed passes, with K1's launches per pass by
+    mode held to the code's count (2 * depth closest-hit: the photon walk
+    and the camera walk) and its counters (photons stored, ball-grid rows
+    and bytes, DDA steps per depth, host reads of the loops' exit tests,
+    live rays); the volumetric path tracer (chunks of 65,536 lanes, one per
+    pass) after a warm-up, VPT_PASSES timed passes, K1's launches per pass
+    by mode held to depth closest-hit and depth any-hit (the shadow rays
+    are traced within each bounce); one pass of each profiled, and one pass
+    of each recorded and held, traversal by traversal, to K1's plain
+    version. 4i. where one PPM pass on the card and on the CPU part
+    (ppm_flips); PPM and the volumetric path tracer on fog_cornell 32^2,
+    depth 6, CARD_CPU_PASSES passes, against the CPU (PPM_CARD_CPU_LIMIT,
+    CARD_CPU_LIMIT). Returns the K1 records of one PPM and one
+    volumetric path-tracing pass."""
+    from cudatracerlib_tpu_torch.models import medium as mediummod
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_mode=dict(K1.launches_by_mode), K4=K4.launches,
+                    plain=plain_calls())
+
+    def check_image(img, what):
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail(f"the {what} image is not finite and non-black")
+
+    def check_counts(c, passes, want, what):
+        per_pass = {m: n / passes for m, n in c["K1_by_mode"].items()}
+        if (per_pass != {m: float(n) for m, n in want.items()}
+                or c["K1_by_variant"]["shared"] != c["K1"] or c["K4"] or c["plain"]):
+            fail(f"the {what} run took the wrong kernels: {c}, expected {want} per pass")
+        return per_pass
+
+    def record(tr, label):
+        calls = record_k1(tr.do_pass, traversal8, Rays)
+        return dict(launches_per_pass=len(calls),
+                    by_mode=k1_on_calls(label, calls, K1, traversal8, mb))
+
+    out = {}
+    # 4g. the PPM golden
+    zero_counts()
+    img = ppmmod.PPMTracer(example_scenes.cornell_box(32, 32).build(dev), 32, 32,
+                           max_depth=4, initial_radius=0.08).render(6).cpu().numpy()
+    rel = golden_rel(img, "cornell_32_ppm.npz")
+    c = counts()
+    emit(phase="golden", tracer="ppm", size=32, max_depth=4, passes=6, rel_err=rel,
+         limit=0.02, launches=c)
+    check_image(img, "PPM golden")
+    if not rel < 0.02:
+        fail(f"ppm golden drift {rel}")
+    check_counts(c, 6, dict(closest=8, any_hit=0, mixed=0), "PPM golden")
+
+    # 4h. the headlines on fog_cornell 256^2
+    size = 256
+    scene = example_scenes.fog_cornell(size, size).build(dev)
+    tr = ppmmod.PPMTracer(scene, size, size, max_depth=MEDIA_DEPTH)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    stored0, rays0 = tr.photons_stored, tr.rays_traced_live
+    secs, reads, steps = [], [], []
+    for _ in range(PPM_PASSES):
+        tr.do_pass()
+        secs.append(tr.last_pass_seconds)
+        reads.append(dict(tr.last_pass_host_reads))
+        steps.append(list(tr.last_pass_dda_steps))
+    c = counts()
+    k1_by_variant["ppm"] = c["K1_by_variant"]
+    stored = [(a - b) / PPM_PASSES for a, b in zip(tr.photons_stored, stored0)]
+    live = tr.rays_traced_live - rays0
+    img = tr.develop().cpu().numpy()
+    per_pass = check_counts(c, PPM_PASSES, dict(closest=2 * MEDIA_DEPTH, any_hit=0,
+                                                mixed=0), "PPM")
+    emit(phase="headline", scene="fog_cornell", tracer="PPMTracer",
+         vol_estimator=tr.vol_est, size=size, max_depth=MEDIA_DEPTH,
+         photons=tr.n_photons, passes=PPM_PASSES,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         mphotons_per_s=tr.n_photons * PPM_PASSES / sum(secs) / 1e6,
+         spp_per_s=PPM_PASSES / sum(secs), live_rays=live,
+         mrays_per_s=live / sum(secs) / 1e6,
+         photons_stored_per_pass=dict(surface=stored[0], medium=stored[1]),
+         ball_grid=tr.last_vol_grid, dda_steps_per_depth=steps,
+         host_reads_per_pass=reads, radius=tr.radius, launches=c,
+         launches_per_pass_by_mode=per_pass, status=tr.status(),
+         mean_radiance=float(img.mean()))
+    check_image(img, "PPM fog")
+    profile_pass(tr, "fog_cornell", tracer="PPMTracer")
+    out["ppm"] = record(tr, f"ppm_fog_cornell_{size}")
+    del tr
+
+    tr = pathmod.PathTracer(scene, size, size, max_depth=MEDIA_DEPTH, chunk_size=65536)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    reads0 = mediummod.host_reads
+    secs, rays_n = timed_passes(tr, VPT_PASSES)
+    c = counts()
+    k1_by_variant["vol_pt"] = c["K1_by_variant"]
+    img = filmmod.develop(tr.film).cpu().numpy()
+    chunks = tr._n_chunks
+    per_pass = check_counts(c, VPT_PASSES, dict(
+        closest=MEDIA_DEPTH * chunks, any_hit=MEDIA_DEPTH * chunks, mixed=0),
+        "volumetric PT")
+    capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
+    emit(phase="headline", scene="fog_cornell", tracer="PathTracer", media=True,
+         size=size, max_depth=MEDIA_DEPTH, chunk_size=65536, passes=VPT_PASSES,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         live_rays=int(sum(rays_n)), mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+         spp_per_s=VPT_PASSES / sum(secs),
+         host_reads_per_pass=(mediummod.host_reads - reads0) / VPT_PASSES,
+         launches=c, launches_per_pass_by_mode=per_pass, capped=capped,
+         overflowed=overflowed, mean_radiance=float(img.mean()))
+    check_image(img, "volumetric PT fog")
+    if capped or overflowed:
+        fail(f"fog: capped {capped} / overflowed {overflowed} rays")
+    profile_pass(tr, "fog_cornell", tracer="PathTracer")
+    out["vol_pt"] = record(tr, f"vol_pt_fog_cornell_{size}")
+    del tr, scene
+
+    # 4i. the card's fog renders against the CPU's, and where PPM's part
+    ppm_flips(dev, ppmmod, tracermod, traversal8, example_scenes)
+    card_vs_cpu("PPMTracer", lambda s: ppmmod.PPMTracer(s, 32, 32, max_depth=MEDIA_DEPTH),
+                example_scenes.fog_cornell, 32, CARD_CPU_PASSES, dev,
+                limit=PPM_CARD_CPU_LIMIT, scene="fog_cornell", max_depth=MEDIA_DEPTH)
+    card_vs_cpu("PathTracer", lambda s: pathmod.PathTracer(s, 32, 32,
+                                                           max_depth=MEDIA_DEPTH),
+                example_scenes.fog_cornell, 32, CARD_CPU_PASSES, dev,
+                scene="fog_cornell", max_depth=MEDIA_DEPTH)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -615,6 +821,7 @@ def main():
     from cudatracerlib_tpu_torch.models import film as filmmod
     from cudatracerlib_tpu_torch.models import lighttracer as ltmod
     from cudatracerlib_tpu_torch.models import path as pathmod
+    from cudatracerlib_tpu_torch.models import ppm as ppmmod
     from cudatracerlib_tpu_torch.models import prim as primmod
     from cudatracerlib_tpu_torch.models import tracer as tracermod
     from cudatracerlib_tpu_torch.ops import cuda_build, traversal8, traversal_tt
@@ -899,6 +1106,11 @@ def main():
     light_path = light_path_phases(
         dev, K1, K4, zero_counts, plain_calls, k1_by_variant, primmod, bdptmod,
         ltmod, filmmod, example_scenes, traversal8, mb)
+
+    # 4g-4i. the participating-media slice: PPM and the volumetric PT
+    light_path.update(media_phases(
+        dev, K1, K4, zero_counts, plain_calls, k1_by_variant, pathmod, ppmmod,
+        tracermod, filmmod, example_scenes, traversal8, mb))
 
     # 5. San Miguel at full width: host build, then K2, K3 and K1 on its tables
     t0 = time.perf_counter()

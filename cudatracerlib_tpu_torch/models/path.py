@@ -7,8 +7,16 @@ the previous bounce's NEE shadow rays (per-lane any-hit, ``any_mask``), the
 reference's deferred shadow-ray queue. The last bounce's shadow rays are
 traced after the loop.
 
-Not ported yet (they raise): media, alpha, bump, parallax, BSSRDF,
-spectral transport, sequence samplers and regularization.
+With media (``models/medium.py``) each segment samples a medium
+interaction by delta tracking, NEE runs from surface and medium vertices
+alike, and medium vertices continue by sampling the phase function. The
+shadow rays are then not merged: as in the JAX package, each bounce traces
+them (any hit) within the bounce and estimates the transmittance of the
+unoccluded ones by ratio tracking, drawing the same uniforms in the same
+order.
+
+Not ported yet (they raise): alpha, bump, parallax, BSSRDF, spectral
+transport, sequence samplers and regularization.
 
 The ray, iteration and row counters are int64 tensors: one 512x512 pass at
 depth 6 traces millions of rays, past float32's exact integers.
@@ -28,6 +36,8 @@ from ..scene import schema
 from . import bsdf as bsdfmod
 from . import film as filmmod
 from . import lights as lightsmod
+from . import medium as mediummod
+from . import phase as phasemod
 from . import tracer
 
 Tensor = torch.Tensor
@@ -53,8 +63,8 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     live rays traced, traversal steps, 512-byte rows read, and the (2,)
     capped / stack-overflowed ray counts."""
     if with_media is None:
-        with_media = int(schema.host_meta(scene)["n_media"]) > 0
-    _unported(with_media=with_media, with_alpha=with_alpha,
+        with_media = mediummod.has_media(scene.media)
+    _unported(with_alpha=with_alpha,
               with_bump=with_bump, with_parallax=with_parallax,
               with_bssrdf=with_bssrdf, regularize=regularize,
               sampler_type=sampler_type, spectral=spectral)
@@ -79,7 +89,9 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     # table they get the larger coherent visit budget
     peel_coherent = (max_depth > 0
                      and traversal8.treelet_would_dispatch(geom, coherent=True))
-    merge = use_nee
+    # media need the occlusion within the bounce (transmittance sampling
+    # order), so they take the unmerged route
+    merge = use_nee and not with_media
     if merge:
         # empty pending-shadow queue: dead rays (tmax=0) with a valid dir
         p_contrib = torch.zeros((B, 3), **f32)
@@ -115,7 +127,17 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         nrows = nrows + rw1
         novf = novf + ov1
 
-        miss = active & ~hit.valid
+        # --- medium interaction on this segment? ---
+        if with_media:
+            t_seg = torch.where(hit.valid, hit.t * 0.999, 1e7)
+            ms, state = mediummod.sample_distance(scene.media, cur.o, cur.d,
+                                                  t_seg, state, active)
+            beta = beta * ms.weight
+            med_event = ms.valid
+        else:
+            med_event = torch.zeros(B, dtype=torch.bool, device=dev)
+
+        miss = active & ~hit.valid & ~med_event
 
         # --- escaped rays: environment ---
         env_le = lightsmod.eval_environment(scene, cur.d)
@@ -127,7 +149,7 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         L = L + torch.where(miss[:, None], beta * env_le * w_env[:, None], 0.0)
 
         si = shading.fill_dg(geom, trace_rays, hit, flip_to_ray=False)
-        hit_l = active & hit.valid
+        hit_l = active & hit.valid & ~med_event
 
         # --- emitted radiance at the hit (area lights) with MIS ---
         le = lightsmod.eval_hit_emitter(scene, si.light_id, si.ng, si.wi)
@@ -160,31 +182,66 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         frame = si.frame()
         wi_local = frame.to_local(si.wi)
 
-        # --- next-event estimation; occlusion resolves in the next bounce's
-        # merged traversal ---
+        # --- next-event estimation (surface and medium vertices jointly);
+        # without media, occlusion resolves in the next bounce's merged
+        # traversal ---
         if use_nee:
-            ed, state = lightsmod.sample_emitter_direct(scene, si.p, state)
+            nee_active = hit_l | med_event
+            nee_p = torch.where(med_event[:, None], ms.p, si.p) if with_media else si.p
+            ed, state = lightsmod.sample_emitter_direct(scene, nee_p, state)
             lob = bsdfmod.evaluate(ctx, wi_local, frame.to_local(ed.d), active_types)
+            f_nee, pdf_fwd = lob.f, lob.pdf
             shadow_o = shading.offset_ray_origin(si.p, si.ng, ed.d)
-            do_shadow = hit_l & ((lob.pdf + vm.length_sqr(lob.f)) > 0)
+            if with_media:
+                ph = phasemod.eval_phase(ms.ptype, ms.g, cur.d, ed.d)
+                ph_pdf = phasemod.pdf_phase(ms.ptype, ms.g, cur.d, ed.d)
+                f_nee = torch.where(med_event[:, None], ph[:, None], f_nee)
+                pdf_fwd = torch.where(med_event, ph_pdf, pdf_fwd)
+                shadow_o = torch.where(med_event[:, None], nee_p, shadow_o)
+            do_shadow = nee_active & ((pdf_fwd + vm.length_sqr(f_nee)) > 0)
             shadow = traversal.Rays(
                 o=shadow_o, d=ed.d, tmin=zero,
                 tmax=torch.where(do_shadow, ed.dist * 0.999, 0.0))
             nrays = nrays + do_shadow.sum()
-            w_nee = torch.where(ed.is_delta, 1.0, mis.power_heuristic(ed.pdf, lob.pdf))
-            contrib = beta * (lob.f * ed.radiance_over_pdf) * w_nee[:, None]
-            p_contrib = torch.where(do_shadow[:, None], contrib, 0.0)
-            p_rays = shadow
-            p_act = hit_l
+            w_nee = torch.where(ed.is_delta, 1.0, mis.power_heuristic(ed.pdf, pdf_fwd))
+            contrib = beta * (f_nee * ed.radiance_over_pdf) * w_nee[:, None]
+            if merge:
+                p_contrib = torch.where(do_shadow[:, None], contrib, 0.0)
+                p_rays = shadow
+                p_act = nee_active
+            else:
+                occ_hit, it2, rw2, ov2 = traversal8.intersect_scene(
+                    geom, shadow, any_hit=True, with_iters=True)
+                occluded = occ_hit.valid
+                niters = niters + it2
+                nrows = nrows + rw2
+                novf = novf + ov2
+                if with_media:
+                    Tr, state = mediummod.transmittance(
+                        scene.media, shadow_o, ed.d, ed.dist * 0.999, state,
+                        do_shadow & ~occluded)
+                    contrib = contrib * Tr
+                L = L + torch.where((nee_active & ~occluded)[:, None], contrib, 0.0)
 
         # --- continue the path: BSDF sample ---
         s, state = bsdfmod.sample_with_rng(ctx, wi_local, state, active_types)
         wo_world = frame.to_world(s.wo)
         is_delta = (s.sampled_type & records.T_DELTA) != 0
         weight = s.weight
+        next_pdf = s.pdf
         new_o = shading.offset_ray_origin(si.p, si.ng, wo_world)
+        if with_media:
+            # medium vertices continue by sampling the phase function
+            state, u_ph = rngmod.next_float2(state)
+            wo_ph, w_ph, pdf_ph = phasemod.sample_phase(ms.ptype, ms.g, cur.d, u_ph)
+            wo_world = torch.where(med_event[:, None], wo_ph, wo_world)
+            weight = torch.where(med_event[:, None], w_ph[:, None], weight)
+            next_pdf = torch.where(med_event, pdf_ph, next_pdf)
+            is_delta = torch.where(med_event, False, is_delta)
+            new_o = torch.where(med_event[:, None], ms.p, new_o)
         beta_next = beta * weight
-        alive = hit_l & (weight.abs().amax(dim=-1) > 0) & (depth + 1 < max_depth)
+        alive = ((hit_l | med_event) & (weight.abs().amax(dim=-1) > 0)
+                 & (depth + 1 < max_depth))
 
         # --- Russian roulette on throughput ---
         state, u_rr = rngmod.next_float(state)
@@ -198,7 +255,7 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         cur = traversal.Rays(o=new_o, d=wo_world, tmin=zero, tmax=zero + 1e30)
         beta = torch.where(alive[:, None], beta_next, 0.0)
         active = alive
-        prev_pdf = s.pdf
+        prev_pdf = next_pdf
         prev_delta = is_delta
 
     if merge:

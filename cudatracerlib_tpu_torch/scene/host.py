@@ -5,8 +5,10 @@ Port of the flat path of ``cudatracerlib_tpu/scene/host.py``. Scenes under
 4,096 triangles take the numpy binned-SAH builder; larger ones the native
 builder (``scene/native_bvh.py``), a dummy 2-wide BVH, and, when the fat-row
 table exceeds 2,048 rows, its treelet split (``scene/treelet.py``). Images
-get their full mip chain in one texel pool. There is no instancing and no
-media, and a parallax material's cone map raises. The numpy code is carried
+get their full mip chain in one texel pool. Homogeneous and grid media fill
+the image of the unit cube under their to_world, and the world bounds grow
+to hold them. There is no instancing, and a parallax material's cone map
+raises. The numpy code is carried
 over verbatim; tensors are made only at the ``SceneData`` boundary
 (``schema.to_tensor``), and the arrays are byte-identical to the JAX
 build's (the treelet tables in the port's row-major layout).
@@ -165,6 +167,7 @@ class DynamicScene:
         self._lights: list[dict] = []       # non-area lights
         self._env: Optional[dict] = None
         self._sensor: Optional[schema.SensorData] = None
+        self._media: list[dict] = []
 
     # -- materials ---------------------------------------------------------
     def add_material(self, spec: MaterialSpec) -> int:
@@ -212,6 +215,26 @@ class DynamicScene:
         self._env = dict(image=np.asarray(image, np.float32), scale=scale,
                          to_world=np.eye(4, dtype=np.float32) if to_world is None else
                          np.asarray(to_world, np.float32))
+
+    # -- media -------------------------------------------------------------
+    def add_homogeneous_medium(self, sigma_a, sigma_s, to_world,
+                               phase_type: int = 0, phase_g: float = 0.0,
+                               scale: float = 1.0, emission=(0, 0, 0)):
+        """Medium filling the image of the unit cube [0,1]^3 under to_world."""
+        self._media.append(dict(med_type=0, sigma_a=sigma_a, sigma_s=sigma_s,
+                                to_world=np.asarray(to_world, np.float32),
+                                phase_type=phase_type, phase_g=phase_g,
+                                scale=scale, emission=emission, density=None))
+
+    def add_grid_medium(self, density: np.ndarray, sigma_a, sigma_s, to_world,
+                        phase_type: int = 0, phase_g: float = 0.0,
+                        scale: float = 1.0, emission=(0, 0, 0)):
+        """Heterogeneous medium: density (nz, ny, nx) scales sigma_a/sigma_s."""
+        self._media.append(dict(med_type=1, sigma_a=sigma_a, sigma_s=sigma_s,
+                                to_world=np.asarray(to_world, np.float32),
+                                phase_type=phase_type, phase_g=phase_g,
+                                scale=scale, emission=emission,
+                                density=np.asarray(density, np.float32)))
 
     # -- sensor ------------------------------------------------------------
     def set_sensor(self, sensor: schema.SensorData):
@@ -305,10 +328,24 @@ class DynamicScene:
             tt_slabs=None if part is None else t(part.slabs),
             tt_vid=None if part is None else t(part.vid_map))
 
+        # scene bounds include media volumes (a medium may extend past all
+        # geometry; PPM's radius and grids and the lights' scene radius
+        # read them)
+        w_lo = np.asarray(b.world_lo, np.float32).copy()
+        w_hi = np.asarray(b.world_hi, np.float32).copy()
+        corners = np.array([[x, y, z, 1.0] for x in (0, 1) for y in (0, 1)
+                            for z in (0, 1)], np.float32)
+        for med in self._media:
+            m2w = np.asarray(med["to_world"], np.float32)
+            pts = (corners @ m2w.T)[:, :3]
+            w_lo = np.minimum(w_lo, pts.min(0))
+            w_hi = np.maximum(w_hi, pts.max(0))
+        b = b._replace(world_lo=w_lo, world_hi=w_hi)
+
         materials = self._build_materials(device)
         textures = self._build_textures(device)
         lights = self._build_lights(area_lights, v0, v1, v2, b, device)
-        media = self._build_media(device)
+        media = _build_media_table(self._media, device)
         sensor = self.sensor_data(device)
 
         mats = self._materials or [dict(mat_type=schema.BSDF_DIFFUSE,
@@ -324,7 +361,7 @@ class DynamicScene:
                                   + [schema.LIGHT_DIFFUSE] * len(area_lights)
                                   + ([schema.LIGHT_INFINITE] if self._env is not None else []),
                                   np.int32),
-            n_media=0,
+            n_media=len(self._media),
             build_seconds=dict(bvh=t_bvh, treelet=t_part),
         )
         return schema.SceneData(
@@ -543,14 +580,39 @@ class DynamicScene:
             env_to_world=t(env_to_world),
             env_world_to=t(np.linalg.inv(env_to_world)))
 
-    def _build_media(self, device) -> schema.MediumTable:
-        """The empty media table (media are not ported yet)."""
-        t = lambda a: schema.to_tensor(a, device)
-        return schema.MediumTable(
-            med_type=t(np.zeros((0,), np.int32)),
-            params=t(np.zeros((0, 24), np.float32)),
-            to_world=t(np.zeros((0, 4, 4), np.float32)),
-            world_to=t(np.zeros((0, 4, 4), np.float32)),
-            grid_offset=t(np.zeros((0, 3), np.int32)),
-            grid_dim=t(np.zeros((0, 3), np.int32)),
-            voxels=t(np.zeros((1,), np.float32)))
+
+def _build_media_table(media_list, device) -> schema.MediumTable:
+    """Pack the media rows (params layout in models/medium.py) onto
+    `device`; no media gives the empty table."""
+    V = len(media_list)
+    med_type = np.zeros(V, np.int32)
+    params = np.zeros((V, 24), np.float32)
+    to_world = np.zeros((V, 4, 4), np.float32)
+    world_to = np.zeros((V, 4, 4), np.float32)
+    grid_offset = np.full((V, 3), -1, np.int32)
+    grid_dim = np.zeros((V, 3), np.int32)
+    voxels = []
+    cursor = 0
+    for i, m in enumerate(media_list):
+        med_type[i] = m["med_type"]
+        params[i, 0:3] = m["sigma_a"]
+        params[i, 3:6] = m["sigma_s"]
+        params[i, 6] = m["phase_type"]
+        params[i, 7] = m["phase_g"]
+        params[i, 8] = m["scale"]
+        params[i, 9:12] = m["emission"]
+        to_world[i] = m["to_world"]
+        world_to[i] = np.linalg.inv(m["to_world"])
+        if m["density"] is not None:
+            d = m["density"]
+            nz, ny, nx = d.shape
+            grid_dim[i] = (nx, ny, nz)
+            grid_offset[i, 0] = cursor
+            voxels.append(d.reshape(-1))
+            cursor += d.size
+    vox = np.concatenate(voxels) if voxels else np.zeros(1, np.float32)
+    t = lambda a: schema.to_tensor(a, device)
+    return schema.MediumTable(
+        med_type=t(med_type), params=t(params), to_world=t(to_world),
+        world_to=t(world_to), grid_offset=t(grid_offset),
+        grid_dim=t(grid_dim), voxels=t(vox))

@@ -194,7 +194,9 @@ class SensorData(NamedTuple):
 
 
 class MediumTable(NamedTuple):
-    """Participating media; the port builds the empty table only."""
+    """Participating media: homogeneous volumes and density grids, each
+    filling the image of the unit cube under its to_world (layout of
+    params and grid_offset in models/medium.py)."""
     med_type: Tensor    # (V,) i32
     params: Tensor      # (V, 24) f32
     to_world: Tensor    # (V, 4, 4)

@@ -149,6 +149,42 @@ def cornell_glass(width: int = 256, height: int = 256):
     return sc
 
 
+def fog_cornell(width: int = 256, height: int = 256, sigma_s: float = 0.35,
+                sigma_a: float = 0.03):
+    """Cornell filled with homogeneous scattering fog: the PPM + volumetric
+    config (BASELINE config 5)."""
+    sc = cornell_glass(width, height)
+    # the medium fills the unit cube under to_world; map it over the whole box
+    m = tf.compose(tf.translate([-1.0, -1.0, -1.0]), tf.scale(2.0))
+    sc.add_homogeneous_medium(sigma_a=(sigma_a,) * 3, sigma_s=(sigma_s,) * 3,
+                              to_world=m)
+    return sc
+
+
+def furnace(width: int = 64, height: int = 64, albedo=0.7, radiance=1.0,
+            mat_spec: "host.MaterialSpec" = None):
+    """White furnace: a sphere inside a large emissive sphere. For an
+    albedo-a surface under uniform illumination L, the exact reflected +
+    direct radiance seen by the camera is L (energy conservation): any leak
+    shows as bias."""
+    sc = host.DynamicScene()
+    if mat_spec is None:
+        mat_spec = host.MaterialSpec(reflectance=(albedo,) * 3)
+    m = sc.add_material(mat_spec)
+    black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+    sc.create_node(shapes.sphere(radius=1.0, n_theta=32, n_phi=64), m, name="probe")
+    env = shapes.sphere(radius=50.0, n_theta=16, n_phi=32)
+    # flip faces inward
+    env = shapes.TriMesh(env.v, env.f[:, ::-1], -env.n if env.n is not None else None,
+                         env.uv)
+    sc.create_node(env, black, emission=(radiance,) * 3, name="furnace")
+    cam = sensors.make_sensor(schema.SENSOR_PERSPECTIVE,
+                              tf.look_at([0, 0, -4], [0, 0, 0]),
+                              fov_x_deg=30.0, film_w=width, film_h=height)
+    sc.set_sensor(cam)
+    return sc
+
+
 def _noise_texture(n: int = 256, seed: int = 7) -> np.ndarray:
     """Multi-octave value-noise RGB image (keeps the image-texture path hot
     without any external asset)."""

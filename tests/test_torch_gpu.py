@@ -10,8 +10,9 @@ on the card's machine, which has no JAX:
 kernels are built with -fmad=false and must agree with their plain
 versions bit for bit: hits, visit lists, counts, step counts and flags.
 K4, the pool traversal, must equal K1 on every field, for any order of
-the rays. PrimTracer, LightTracer and BDPT run on the card at 16x16 and
-are held to the same render on the CPU."""
+the rays. PrimTracer, LightTracer, BDPT, PPM and the volumetric path
+tracer run on the card at 16x16 and are held to the same render on the
+CPU; PPM's 32x32 render to its golden."""
 import numpy as np
 import pytest
 import torch
@@ -281,3 +282,40 @@ def test_bdpt_on_gpu(dev):
     assert n == 2 * (2 * tbdpt.NUM_LIGHT_V + (2 + tbdpt.NUM_LIGHT_V) * 3)
     assert np.isfinite(card).all() and card.mean() > 0
     assert _rel(card, cpu) < 1e-5, _rel(card, cpu)
+
+
+# the fog renders' card-vs-CPU limits, as chip_smoke.py's (PPM's gather
+# kernels follow the card's camera rays, within 1.8e-7 of the CPU's)
+PPM_LIMIT = 1e-4
+PT_LIMIT = 1e-5
+
+
+@pytest.mark.gpu
+def test_ppm_golden_on_gpu(dev):
+    """PPM on Cornell 32x32, depth 4, 6 passes against
+    tests/goldens/cornell_32_ppm.npz (mean relative error < 0.02); 2 * 4
+    closest-hit K1 launches per pass."""
+    import os
+    from cudatracerlib_tpu_torch.models import ppm as tppm
+    before = traversal8.intersect_wide_cuda.launches
+    tr = tppm.PPMTracer(tscenes.cornell_box(32, 32).build(dev), 32, 32, max_depth=4,
+                        initial_radius=0.08)
+    img = tr.render(6).cpu().numpy()
+    assert traversal8.intersect_wide_cuda.launches - before == 6 * 8
+    ref = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                               "cornell_32_ppm.npz"))["img"]
+    assert _rel(img, ref) < 0.02, _rel(img, ref)
+
+
+@pytest.mark.gpu
+def test_media_on_gpu(dev):
+    """PPM (beamgrid) and the volumetric path tracer on fog_cornell 16x16,
+    depth 4, 2 passes: K1 launches per pass as the code traces them (PPM 2 *
+    4 closest-hit; the path tracer 4 closest-hit and 4 any-hit); the card
+    images within PPM_LIMIT and PT_LIMIT of the CPU images."""
+    from cudatracerlib_tpu_torch.models import path as tpath
+    from cudatracerlib_tpu_torch.models import ppm as tppm
+    for cls, limit in ((tppm.PPMTracer, PPM_LIMIT), (tpath.PathTracer, PT_LIMIT)):
+        card, cpu, n = _card_and_cpu(cls, tscenes.fog_cornell, 16, 2, max_depth=4)
+        assert n == 2 * 8 and np.isfinite(card).all() and card.mean() > 0
+        assert _rel(card, cpu) < limit, (cls.__name__, _rel(card, cpu))
