@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: build its kernels, check
 each against its plain PyTorch version, and run the Cornell, veach-mis and
-San Miguel path-tracing passes, the PrimTracer, BDPT and light-tracer
-passes, the PPM and volumetric path-tracing passes in fog and the
-microbenchmarks P1-P3.
+San Miguel path-tracing passes, the PrimTracer, BDPT, light-tracer and VCM
+passes, the PPM and volumetric path-tracing passes in fog, the
+non-perspective sensors, the regenerating wavefront path tracer and the
+FastTracer on San Miguel, and the microbenchmarks P1-P3.
 
     python3 chip_smoke.py [--profile]
 
@@ -68,6 +69,18 @@ failure exits non-zero, and nothing falls back to the CPU:
    held to K1's plain version; where one PPM pass on the card and on the
    CPU part (ppm_flips: photon masks and rows, grid cells, camera rays,
    pixels); both on fog_cornell 32^2 against the CPU, pass by pass;
+4j-4l. VCM (vcm_phases): the card's image against
+   tests/goldens/cornell_32_vcm.npz; the headline on the glass Cornell box
+   256^2, depth 6, with K1's launches per pass by mode held to the code's
+   count (as BDPT's, 11 + 41), the valid photon rows and the photon grid's
+   cells, one pass profiled and one recorded and held to K1's plain
+   version; the glass box 32^2 against the CPU, pass by pass;
+4m-4n. the light tracer and the path tracer under the spherical,
+   orthographic, telecentric and thin-lens sensors against the CPU, pass
+   by pass (sensor_phases); WavefrontPT on Cornell 64^2 with 3,000 lanes
+   against the chunked path tracer on the card;
+4o. the FastTracer on Cornell 512^2 in both modes: Mrays/s, one K1 launch
+   a pass, one call of each held to K1's plain version;
 5. the San Miguel stand-in at full width (1.2M triangles; host build
    seconds: native BVH, treelet partition) and 131,072 camera rays plus
    131,072 random rays from the courtyard, closest / any-hit / mixed:
@@ -109,6 +122,17 @@ failure exits non-zero, and nothing falls back to the CPU:
    is printed, summed over each kernel's template instantiations (and in
    4c one more veach-mis pass; the BDPT and light-tracer passes of 4e are
    profiled in every run);
+7a. the config-3 headline (sm_slice_phases): WavefrontPT on the same
+   scene, 1024^2, depth 5, 131,072 lanes, a warm-up pass, then 2 timed
+   passes: loop iterations and host reads per pass, K2, K3 and K1-fallback
+   launches per pass, no capped, overflowed or clipped ray or path, and
+   the live rays of pass index 1 equal to the chunked path tracer's in
+   phase 7; one pass profiled; one traversal from a recorded pass held
+   kernel by kernel (K2, K3 on K2's slots, K1 on the fallback batch) to
+   the plain versions (treelet_on_call);
+7b. the FastTracer on San Miguel 1024^2 in both modes: Mrays/s, one K2
+   (V=6), K3 and K1 launch a pass, one call of each held to the plain
+   versions;
 8. P1-P3 (utils/microbench.py) timed at their full sizes, with the counts
    zeroed around the run; the output of every timed configuration must
    equal its plain version's on the same inputs.
@@ -119,7 +143,9 @@ launches on its own path (the global variant of K2 and the K3 designs
 take none on the main path, nor does K4), its time and its plain
 version's time (K1 shared on veach-mis, K1 global on the San Miguel
 fallback batch, K2 and K3 at V=3, K4 on veach-mis; the other shapes under
-by_scene, by_tracer (one pass of each tracer of 4d-4h, summed by mode),
+by_scene, by_tracer (K1 shared: one pass of each tracer of 4d-4o, summed by
+mode; K1 global, K2 and K3: WavefrontPT's and the FastTracer's launches
+per pass and their recorded call on San Miguel),
 by_v, fallback_by_v and mixed_rays; the forced global variant and the
 probe's designs on the same rays beside K1's and K2's shared rows; the
 probe's split of the slots beside its cluster design), its device time
@@ -194,6 +220,26 @@ VPT_PASSES = 2
 # distance to the hit, so some pixels move by more than 1e-4 of their
 # value. ~7x the largest reading
 PPM_CARD_CPU_LIMIT = 1e-4
+# VCM's card image against the CPU's (the glass Cornell box 32^2, depth 6,
+# CARD_CPU_PASSES passes): a merge counts a photon by the hard test
+# d^2 <= r^2, so where the card's camera hits (within ~1e-6 of the CPU's)
+# carry a photon across its radius, a whole photon enters or leaves a
+# pixel. The readings lay at 3.3e-6 to 1.99e-5, one pixel of 1,024 off by
+# 2.3% (H100 80GB HBM3, 700.00 W); 5x the largest reading
+VCM_CARD_CPU_LIMIT = 1e-4
+# the sensors: passes of the light tracer and the path tracer at 32^2
+# under each non-perspective sensor, card against CPU (CARD_CPU_LIMIT)
+SENSOR_PASSES = 3
+# WavefrontPT: the config-3 headline (San Miguel 1024^2, depth 5) with a
+# pool of WF_LANES lanes (bench.py's chunk), WF_PASSES timed passes; on
+# Cornell 64^2, a pool of WF_SMALL_LANES (fewer than the 4,096 paths and
+# not a divisor of them) against the chunked path tracer
+WF_LANES = 131072
+WF_PASSES = 2
+WF_SMALL_LANES = 3000
+# the FastTracer's timed passes on Cornell 512^2 and San Miguel 1024^2
+FAST_PASSES = 20
+FAST_SM_PASSES = 3
 # device_ms's sleeping kernel: ~6 ms at the H100's 1.755 GHz, longer than
 # the host takes to queue its calls
 SLEEP_CYCLES = 10_000_000
@@ -499,8 +545,13 @@ def card_vs_cpu(name, make, scene_fn, size, passes, dev, limit=CARD_CPU_LIMIT,
                 fail(f"the {name} card-vs-CPU image is not finite and non-black")
         rels.append(float(np.abs(imgs[0] - imgs[1]).mean()
                           / max(imgs[1].mean(), 1e-9)))
+    # the last image's pixels off by more than 1e-4 of their own value
+    pix = (np.abs(imgs[0] - imgs[1]).max(-1)
+           / np.maximum(np.abs(imgs[1]).max(-1), 1e-6))
     emit(phase="card_vs_cpu", tracer=name, size=size, passes=passes,
-         rel_err=max(rels), rel_err_by_pass=rels, limit=limit, **extra)
+         rel_err=max(rels), rel_err_by_pass=rels, limit=limit,
+         pixels_off_1e4=int((pix > 1e-4).sum()), max_pixel_rel=float(pix.max()),
+         **extra)
     if not max(rels) < limit:
         fail(f"the {name} card image differs from the CPU image: {rels}")
     return rels
@@ -812,18 +863,409 @@ def media_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant, pathmod,
     return out
 
 
+def sensor_scene(host, schema, sensors, shapes, tf, sensor_type, size=32, **kw):
+    """tests/test_lighttracer.py's sensor scene: a floor under a small area
+    light, seen by a sensor of `sensor_type`; a DynamicScene, built later."""
+    sc = host.DynamicScene()
+    white = sc.add_material(host.MaterialSpec(reflectance=(0.7, 0.7, 0.7)))
+    black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+    sc.create_node(shapes.rectangle(), white,
+                   tf.compose(tf.translate([0, -1, 0]), tf.rotate_deg([1, 0, 0], -90),
+                              tf.scale(3)))
+    sc.create_node(shapes.rectangle(), black,
+                   tf.compose(tf.translate([0, 1.5, 0]), tf.rotate_deg([1, 0, 0], 90),
+                              tf.scale(0.5)), emission=(8.0, 8.0, 8.0))
+    sc.set_sensor(sensors.make_sensor(sensor_type, tf.look_at([0, 0.6, -2.5], [0, -0.6, 0]),
+                                      fov_x_deg=50, film_w=size, film_h=size, **kw))
+    return sc
+
+
+def vcm_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant, vcmmod,
+               filmmod, example_scenes, traversal8, mb):
+    """4j. the VCM golden on the card: Cornell 32^2, depth 4, 4 passes
+    against tests/goldens/cornell_32_vcm.npz (mean relative error < 0.02),
+    K1's launches per pass by mode held to the code's count (NUM_LIGHT_V +
+    depth closest-hit, NUM_LIGHT_V + depth * (1 + NUM_LIGHT_V) any-hit, as
+    BDPT's). 4k. the VCM headline on the glass Cornell box 256^2, depth 6,
+    a warm-up pass, then LP_PASSES timed passes: s/pass, Mpaths/s, spp/s,
+    live rays, valid photon rows per pass, the photon grid's cells, K1's
+    launches per pass by mode (11 + 41); one pass profiled, one recorded
+    and held, traversal by traversal, to K1's plain version. 4l. VCM on the
+    glass Cornell box 32^2, depth 6, CARD_CPU_PASSES passes, against the
+    CPU (VCM_CARD_CPU_LIMIT). Returns the K1 record of one pass."""
+    from cudatracerlib_tpu_torch.ops import hashgrid
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    nv = vcmmod.NUM_LIGHT_V
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_mode=dict(K1.launches_by_mode), K4=K4.launches,
+                    plain=plain_calls())
+
+    def check(c, passes, depth, what):
+        want = dict(closest=nv + depth, any_hit=nv + depth * (1 + nv), mixed=0)
+        per_pass = {m: n / passes for m, n in c["K1_by_mode"].items()}
+        if (per_pass != {m: float(n) for m, n in want.items()}
+                or c["K1_by_variant"]["shared"] != c["K1"] or c["K4"] or c["plain"]):
+            fail(f"the {what} run took the wrong kernels: {c}, expected {want} per pass")
+        return per_pass, want
+
+    def check_image(img, what):
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail(f"the {what} image is not finite and non-black")
+
+    # 4j. the golden
+    zero_counts()
+    img = vcmmod.VCM(example_scenes.cornell_box(32, 32).build(dev), 32, 32,
+                     max_depth=4).render(4).cpu().numpy()
+    rel = golden_rel(img, "cornell_32_vcm.npz")
+    c = counts()
+    emit(phase="golden", tracer="vcm", size=32, max_depth=4, passes=4, rel_err=rel,
+         limit=0.02, launches=c)
+    check_image(img, "VCM golden")
+    if not rel < 0.02:
+        fail(f"vcm golden drift {rel}")
+    check(c, 4, 4, "VCM golden")
+
+    # 4k. the headline
+    size = 256
+    scene = example_scenes.cornell_glass(size, size).build(dev)
+    tr = vcmmod.VCM(scene, size, size, max_depth=LP_DEPTH)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    stored0 = tr.photons_stored
+    secs, rays_n = timed_passes(tr, LP_PASSES)
+    c = counts()
+    k1_by_variant["vcm"] = c["K1_by_variant"]
+    per_pass, want = check(c, LP_PASSES, LP_DEPTH, "VCM")
+    g = tr.last_grid
+    cells = g.cell_ids[g.cell_ids != hashgrid.INT32_MAX]
+    img = filmmod.develop(tr.film).cpu().numpy()
+    emit(phase="headline", scene="cornell_glass", tracer="VCM", size=size,
+         max_depth=LP_DEPTH, passes=LP_PASSES,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         mpaths_per_s=size * size * LP_PASSES / sum(secs) / 1e6,
+         spp_per_s=LP_PASSES / sum(secs), live_rays=int(sum(rays_n)),
+         mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+         photon_rows_per_pass=nv * size * size,
+         valid_photon_rows_per_pass=(tr.photons_stored - stored0) / LP_PASSES,
+         radius=tr.radius, grid_dims=[int(x) for x in g.dims.tolist()],
+         grid_cells=int(torch.prod(g.dims.long())),
+         grid_cells_occupied=int(torch.unique(cells).numel()),
+         launches=c, launches_per_pass_by_mode=per_pass,
+         expected_per_pass_by_mode=want, mean_radiance=float(img.mean()))
+    check_image(img, "VCM")
+    profile_pass(tr, "cornell_glass", tracer="VCM")
+    calls = record_k1(tr.do_pass, traversal8, Rays)
+    out = dict(launches_per_pass=len(calls),
+               by_mode=k1_on_calls(f"vcm_cornell_glass_{size}", calls, K1,
+                                   traversal8, mb))
+    del tr, scene, calls
+
+    # 4l. the card against the CPU
+    card_vs_cpu("VCM", lambda s: vcmmod.VCM(s, 32, 32, max_depth=LP_DEPTH),
+                example_scenes.cornell_glass, 32, CARD_CPU_PASSES, dev,
+                limit=VCM_CARD_CPU_LIMIT, scene="cornell_glass", max_depth=LP_DEPTH)
+    return out
+
+
+def sensor_phases(dev, K1, zero_counts, plain_calls, pathmod, ltmod, wfmod,
+                  example_scenes):
+    """4m. the light tracer and the path tracer on the sensor scene at
+    32^2, depth 3, under the spherical, orthographic, telecentric and
+    thin-lens sensors, each against the CPU pass by pass (CARD_CPU_LIMIT),
+    through K1 alone. 4n. WavefrontPT on Cornell 64^2, depth 4, 2 passes,
+    with WF_SMALL_LANES lanes (fewer than the paths, not a divisor of them)
+    against the chunked PathTracer on the card: the images within
+    tests/test_torch_wavefront.py's rtol 1e-5 / atol 1e-7, the live rays
+    equal, host reads = iterations + 1."""
+    from cudatracerlib_tpu_torch.scene import host, schema, sensors, shapes
+    from cudatracerlib_tpu_torch.utils import transforms as tf
+    kinds = (("spherical", schema.SENSOR_SPHERICAL, {}),
+             ("orthographic", schema.SENSOR_ORTHOGRAPHIC, dict(ortho_scale=(2.0, 2.0))),
+             ("telecentric", schema.SENSOR_TELECENTRIC,
+              dict(ortho_scale=(2.0, 2.0), aperture_radius=0.05, focus_distance=2.5)),
+             ("thinlens", schema.SENSOR_THINLENS,
+              dict(aperture_radius=0.05, focus_distance=2.5)))
+    for name, st, kw in kinds:
+        def scene_fn(w, h, st=st, kw=kw):
+            return sensor_scene(host, schema, sensors, shapes, tf, st, w, **kw)
+        for tname, cls in (("LightTracer", ltmod.LightTracer),
+                           ("PathTracer", pathmod.PathTracer)):
+            zero_counts()
+            card_vs_cpu(tname, lambda s: cls(s, 32, 32, max_depth=3), scene_fn, 32,
+                        SENSOR_PASSES, dev, sensor=name, max_depth=3)
+            if K1.launches <= 0 or plain_calls():
+                fail(f"the {tname} run under the {name} sensor took the wrong kernels")
+
+    # 4n. the wavefront against the chunked path tracer on the card
+    scene = example_scenes.cornell_box(64, 64).build(dev)
+    pt = pathmod.PathTracer(scene, 64, 64, max_depth=4, chunk_size=64 * 64)
+    wf = wfmod.WavefrontPT(scene, 64, 64, max_depth=4, lanes=WF_SMALL_LANES)
+    i1, i2 = pt.render(2).cpu().numpy(), wf.render(2).cpu().numpy()
+    err = float(np.abs(i2 - i1).max())
+    close = bool(np.allclose(i2, i1, rtol=1e-5, atol=1e-7))
+    emit(phase="wavefront_vs_pt", scene="cornell_box", size=64, max_depth=4,
+         lanes=WF_SMALL_LANES, passes=2, max_abs_err=err, within_rtol_1e5_atol_1e7=close,
+         identical=bool(np.array_equal(i1, i2)), live_rays_pt=pt.rays_traced_live,
+         live_rays_wf=wf.rays_traced_live, iters=wf.last_pass_iters,
+         host_reads=wf.last_pass_host_reads)
+    if not close or pt.rays_traced_live != wf.rays_traced_live:
+        fail("the wavefront PT on the card disagrees with the chunked PT")
+    if wf.last_pass_host_reads != wf.last_pass_iters + 1:
+        fail("the wavefront loop read more than its exit tests")
+
+
+def fast_cornell_phase(dev, K1, K4, zero_counts, plain_calls, k1_by_variant,
+                       fastmod, filmmod, example_scenes, traversal8, mb):
+    """4o. the FastTracer on Cornell 512^2 in both modes: a warm-up pass,
+    then FAST_PASSES timed passes, one K1 launch (shared) per pass; Mrays/s;
+    one more pass of each recorded and its K1 call held to the plain
+    version. Returns {"fast": {mode: K1 record}}."""
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    scene = example_scenes.cornell_box(512, 512).build(dev)
+    out = {}
+    k1_by_variant["fast"] = dict.fromkeys(K1.launches_by_variant, 0)
+    for mode, mname in ((fastmod.MODE_DEPTH, "depth"), (fastmod.MODE_VISIBILITY,
+                                                         "visibility")):
+        tr = fastmod.FastTracer(scene, 512, 512, mode=mode)
+        tr.do_pass()
+        torch.cuda.synchronize()
+        zero_counts()
+        secs, _ = timed_passes(tr, FAST_PASSES)
+        c = dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                 K4=K4.launches, plain=plain_calls())
+        for v, n in c["K1_by_variant"].items():
+            k1_by_variant["fast"][v] += n
+        img = filmmod.develop(tr.film).cpu().numpy()
+        emit(phase="headline", scene="cornell_box", tracer="FastTracer", mode=mname,
+             size=512, passes=FAST_PASSES, seconds_per_pass=statistics.median(secs),
+             pass_seconds=secs, mrays_per_s=512 * 512 * FAST_PASSES / sum(secs) / 1e6,
+             launches=c, mean_value=float(img.mean()))
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail(f"the FastTracer {mname} image is not finite and non-black")
+        if (c["K1"] != FAST_PASSES or c["K1_by_variant"]["shared"] != c["K1"]
+                or c["K4"] or c["plain"]):
+            fail(f"the FastTracer run took the wrong kernels: {c}")
+        calls = record_k1(tr.do_pass, traversal8, Rays)
+        out[mname] = dict(launches_per_pass=len(calls), by_mode=k1_on_calls(
+            f"fast_{mname}_cornell_512", calls, K1, traversal8, mb))
+    return {"fast": out}
+
+
+def record_scene(run, traversal8, Rays):
+    """Run `run()` with traversal8.intersect_scene wrapped so that each
+    call's rays (copied), its any-hit mask and its visit budget are
+    recorded; returns the list of (rays, kw, coherent)."""
+    calls, orig = [], traversal8.intersect_scene
+
+    def rec(geom, rays, any_hit=False, roots=None, with_iters=False,
+            coherent=False, any_mask=None):
+        kw = {}
+        if any_hit:
+            kw["any_hit"] = True
+        if any_mask is not None:
+            kw["any_mask"] = any_mask.clone()
+        calls.append((Rays(*(x.contiguous().clone() for x in rays)), kw, coherent))
+        return orig(geom, rays, any_hit=any_hit, roots=roots, with_iters=with_iters,
+                    coherent=coherent, any_mask=any_mask)
+    traversal8.intersect_scene = rec
+    try:
+        run()
+    finally:
+        traversal8.intersect_scene = orig
+    return calls
+
+
+def treelet_on_call(label, geom, call, K1, K2, K3, traversal8, traversal_tt, mb):
+    """One recorded treelet traversal (rays, kw, coherent) held kernel by
+    kernel to the plain versions with check_variants: K2 at the call's
+    visit budget, K3 on K2's sorted slots, K1 on the exact path's fallback
+    batch (tmax -1 on every ray whose visits did not overflow); each timed,
+    its device time and one plain run taken, its bound as phase 5's.
+    Returns {kernel: result} with the fallback's live rays."""
+    rays, kw, coherent = call
+    V = traversal8.V_COHERENT if coherent else traversal8.V_INCOHERENT
+    mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
+    top, slabs, wide = geom.tt_top, geom.tt_slabs, geom.wide
+    B, dev, n_tt = rays.o.shape[0], rays.o.device, slabs.shape[0]
+    info = dict(pass_of=label, rays=B, V=V)
+
+    def k2_run(variant, kw_):
+        r = K2(top, rays, V, **kw_)
+        return (*r[0], *r[1:]), r[5], r[6]
+
+    def k2_plain(kw_):
+        r = traversal_tt.top_visits(top, rays, V, **kw_)
+        return (*r[0], *r[1:]), r[5], r[6]
+    k2 = check_variants("K2", k2_run, k2_plain, {mode: kw}, (None,), timed=(mode,),
+                        plain_reps=1, bound=lambda steps: mb.bound_ms(
+                            top.numel() * 4 + B * 33 + B * (29 + 8 * V),
+                            steps * traversal8.NODE_STEP_FLOPS), **info)[mode, None]
+    h = K2(top, rays, V, **kw)
+    _, keys, order, t_prune = traversal_tt.visit_slots(
+        h[0], h[1], h[3], n_tt, traversal8.any_lanes(B, kw.get("any_hit", False),
+                                                     kw.get("any_mask"), dev))
+    tid = keys >> traversal_tt.VID_ROOT_BITS
+    needed = int(torch.unique(tid[tid < n_tt]).numel())
+
+    def k3_run(variant, kw_):
+        r = K3(slabs, rays, t_prune, keys, order, V, **kw_)
+        return (*r[0], *r[1:]), r[1], r[2]
+
+    def k3_plain(kw_):
+        r = traversal_tt.treelet_hits(slabs, rays, t_prune, keys, order, V, **kw_)
+        return (*r[0], *r[1:]), r[1], r[2]
+    k3 = check_variants("K3", k3_run, k3_plain, {mode: kw}, (None,), timed=(mode,),
+                        plain_reps=1, bound=lambda steps: mb.bound_ms(
+                            needed * slabs[0].numel() * 4 + B * 33 + B * V * 29,
+                            steps * traversal8.NODE_STEP_FLOPS),
+                        treelets_visited=needed, **info)[mode, None]
+    tk = traversal_tt.two_phase(K2, K3, top, slabs, rays, V=V, with_overflow=True, **kw)
+    fb = type(rays)(rays.o, rays.d, rays.tmin, torch.where(tk[1], tk[0].t, -1.0))
+
+    def k1_run(variant, kw_):
+        hh, st, fl = K1(wide, fb, with_iters=True, **kw_)
+        return (*hh, st, fl), st, fl
+
+    def k1_plain(kw_):
+        hh, st, fl = traversal8.intersect_wide(wide, fb, with_iters=True, **kw_)
+        return (*hh, st, fl), st, fl
+    k1 = check_variants("K1", k1_run, k1_plain, {mode: kw}, (None,), timed=(mode,),
+                        plain_reps=1, bound=lambda steps: trav_bound(
+                            wide, B, steps, mode == "mixed", mb, traversal8),
+                        fallback=True, **info)[mode, None]
+    return dict(K2=k2, K3=k3, K1=k1, fallback_rays=int(tk[1].sum()), mode=mode, V=V,
+                rays=B, treelets_visited=needed)
+
+
+def sm_slice_phases(dev, scene, pt_rays_n, K1, K2, K3, K4, zero_counts, plain_calls,
+                    wfmod, fastmod, filmmod, traversal8, traversal_tt, mb):
+    """7a. the config-3 headline: WavefrontPT on San Miguel 1024^2, depth 5,
+    WF_LANES lanes, a warm-up pass (pass index 0), then WF_PASSES timed
+    passes: s/pass, live Mrays/s, loop iterations and host reads per pass,
+    K2, K3 and K1-fallback launches per pass (one of each per iteration, K2
+    at V=3 and shared, K1 global); no capped or overflowed ray, no path
+    left out of the film (clipped), a finite non-black film, and the live
+    rays of pass index 1 equal to the chunked PathTracer's pass index 1 in
+    phase 7 (`pt_rays_n`); one pass profiled; one traversal from the middle
+    of a recorded pass held kernel by kernel to the plain versions. 7b. the
+    FastTracer on San Miguel 1024^2 in both modes (camera rays at V=6):
+    a warm-up, FAST_SM_PASSES timed passes, Mrays/s, one K2, K3 and K1
+    launch per pass; one call of each recorded and held to the plain
+    versions. Returns {tracer: dict(launches_per_pass, calls)}, the calls
+    as treelet_on_call returns them."""
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    geom, n_pix = scene.geom, 1024 * 1024
+    out = {}
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K2_by_v=dict(K2.launches_by_v),
+                    K2_by_variant=dict(K2.launches_by_variant),
+                    K3_by_v=dict(K3.launches_by_v), K4=K4.launches,
+                    plain=plain_calls())
+
+    def check(c, want_by_v, n, what):
+        ok = (c["K2_by_v"] == want_by_v and c["K3_by_v"] == want_by_v
+              and c["K1"] == n and c["K1_by_variant"]["global"] == n
+              and c["K2_by_variant"]["shared"] == n and not c["K4"] and not c["plain"])
+        if not ok:
+            fail(f"the {what} run took the wrong kernels: {c}, expected {n} "
+                 f"launches of each, {want_by_v}")
+
+    wf = wfmod.WavefrontPT(scene, 1024, 1024, max_depth=5, lanes=WF_LANES)
+    wf.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    secs, rays_n, iters, reads, clipped = [], [], [], [], []
+    for _ in range(WF_PASSES):
+        r0, w0 = wf.rays_traced_live, float(wf.film.weight.sum())
+        wf.do_pass()
+        secs.append(wf.last_pass_seconds)
+        rays_n.append(wf.rays_traced_live - r0)
+        iters.append(wf.last_pass_iters)
+        reads.append(wf.last_pass_host_reads)
+        clipped.append(n_pix - round(float(wf.film.weight.sum()) - w0))
+    c = counts()
+    capped, overflowed = (int(x) for x in wf._ovf_dev.tolist())
+    img = filmmod.develop(wf.film).cpu().numpy()
+    per_pass = dict(K2=sum(c["K2_by_v"].values()) / WF_PASSES,
+                    K3=sum(c["K3_by_v"].values()) / WF_PASSES,
+                    K1_fallback=c["K1"] / WF_PASSES)
+    emit(phase="headline", scene="san_miguel_stand_in", tracer="WavefrontPT",
+         tris=scene.num_tris, size=1024, max_depth=5, lanes=WF_LANES,
+         passes=WF_PASSES, seconds_per_pass=statistics.median(secs),
+         pass_seconds=secs, live_rays=int(sum(rays_n)), live_rays_by_pass=rays_n,
+         mrays_per_s=sum(rays_n) / sum(secs) / 1e6, iters_per_pass=iters,
+         host_reads_per_pass=reads, launches=c, launches_per_pass=per_pass,
+         capped=capped, overflowed=overflowed, clipped=clipped,
+         pt_live_rays_by_pass=pt_rays_n, live_rays_equal_pt=rays_n[0] == pt_rays_n[1],
+         steps=int(wf._iters_dev), mean_radiance=float(img.mean()))
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        fail("the wavefront San Miguel image is not finite and non-black")
+    if capped or overflowed or any(clipped):
+        fail(f"wavefront: capped {capped} / overflowed {overflowed} rays, "
+             f"clipped {clipped} paths")
+    if reads != [i + 1 for i in iters]:
+        fail(f"wavefront host reads {reads} are not iterations + 1 ({iters})")
+    check(c, {traversal8.V_COHERENT: 0, traversal8.V_INCOHERENT: sum(iters)},
+          sum(iters), "wavefront")
+    if rays_n[0] != pt_rays_n[1]:
+        fail(f"wavefront live rays {rays_n[0]} differ from the chunked PT's "
+             f"{pt_rays_n[1]} for pass index 1")
+    profile_pass(wf, "san_miguel_stand_in", tracer="WavefrontPT")
+    calls = record_scene(wf.do_pass, traversal8, Rays)
+    call = calls[len(calls) // 2]
+    del calls
+    out["wavefront"] = dict(launches_per_pass=per_pass, calls={
+        "mid_pass": treelet_on_call("wavefront_san_miguel_1024", geom, call, K1,
+                                    K2, K3, traversal8, traversal_tt, mb)})
+    del wf, call
+    out["fast"] = dict(launches_per_pass=dict(K2=1, K3=1, K1_fallback=1), calls={})
+
+    for mode, mname in ((fastmod.MODE_DEPTH, "depth"),
+                        (fastmod.MODE_VISIBILITY, "visibility")):
+        tr = fastmod.FastTracer(scene, 1024, 1024, mode=mode)
+        tr.do_pass()
+        torch.cuda.synchronize()
+        zero_counts()
+        secs, _ = timed_passes(tr, FAST_SM_PASSES)
+        c = counts()
+        img = filmmod.develop(tr.film).cpu().numpy()
+        emit(phase="headline", scene="san_miguel_stand_in", tracer="FastTracer",
+             mode=mname, size=1024, passes=FAST_SM_PASSES,
+             seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+             mrays_per_s=n_pix * FAST_SM_PASSES / sum(secs) / 1e6, launches=c,
+             mean_value=float(img.mean()))
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail(f"the FastTracer {mname} San Miguel image is not finite and non-black")
+        check(c, {traversal8.V_COHERENT: FAST_SM_PASSES, traversal8.V_INCOHERENT: 0},
+              FAST_SM_PASSES, f"FastTracer {mname}")
+        calls = record_scene(tr.do_pass, traversal8, Rays)
+        out["fast"]["calls"][mname] = treelet_on_call(
+            f"fast_{mname}_san_miguel_1024", geom, calls[0], K1, K2, K3, traversal8,
+            traversal_tt, mb)
+        del tr, calls
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     if not os.path.isdir(os.path.join(HERE, "cudatracerlib_tpu_torch")):
         fail("run from a checkout of the repository")
     from cudatracerlib_tpu_torch.models import bdpt as bdptmod
+    from cudatracerlib_tpu_torch.models import fast as fastmod
     from cudatracerlib_tpu_torch.models import film as filmmod
     from cudatracerlib_tpu_torch.models import lighttracer as ltmod
     from cudatracerlib_tpu_torch.models import path as pathmod
     from cudatracerlib_tpu_torch.models import ppm as ppmmod
     from cudatracerlib_tpu_torch.models import prim as primmod
     from cudatracerlib_tpu_torch.models import tracer as tracermod
+    from cudatracerlib_tpu_torch.models import vcm as vcmmod
+    from cudatracerlib_tpu_torch.models import wavefront as wfmod
     from cudatracerlib_tpu_torch.ops import cuda_build, traversal8, traversal_tt
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     from cudatracerlib_tpu_torch.utils import example_scenes
@@ -1111,6 +1553,17 @@ def main():
     light_path.update(media_phases(
         dev, K1, K4, zero_counts, plain_calls, k1_by_variant, pathmod, ppmmod,
         tracermod, filmmod, example_scenes, traversal8, mb))
+
+    # 4j-4l. VCM; 4m-4n. the sensors and the wavefront against the chunked
+    # PT; 4o. the FastTracer on Cornell
+    light_path["vcm"] = vcm_phases(dev, K1, K4, zero_counts, plain_calls,
+                                   k1_by_variant, vcmmod, filmmod, example_scenes,
+                                   traversal8, mb)
+    sensor_phases(dev, K1, zero_counts, plain_calls, pathmod, ltmod, wfmod,
+                  example_scenes)
+    light_path.update(fast_cornell_phase(dev, K1, K4, zero_counts, plain_calls,
+                                         k1_by_variant, fastmod, filmmod,
+                                         example_scenes, traversal8, mb))
 
     # 5. San Miguel at full width: host build, then K2, K3 and K1 on its tables
     t0 = time.perf_counter()
@@ -1403,6 +1856,12 @@ def main():
 
     if profile:
         profile_pass(tr, "san_miguel_stand_in")
+    del tr
+
+    # 7a-7b. WavefrontPT (config 3) and the FastTracer on the same scene
+    sm_slice = sm_slice_phases(dev, scene, rays_n, K1, K2, K3, K4, zero_counts,
+                               plain_calls, wfmod, fastmod, filmmod, traversal8,
+                               traversal_tt, mb)
 
     # 8. P1-P3 at full size, each held to its plain version on its inputs
     torch.cuda.synchronize()
@@ -1437,6 +1896,17 @@ def main():
         return dict(ms=r["ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound"][0])
 
+    def sm_by_tracer(kernel, per_pass_key):
+        """WavefrontPT's and the FastTracer's launches per pass of `kernel`
+        on San Miguel and their recorded calls of it (7a-7b)."""
+        return {name: dict(
+            launches_per_pass=r["launches_per_pass"][per_pass_key],
+            calls={label: dict(rays=c["rays"], V=c["V"], mode=c["mode"],
+                               max_abs_err=c[kernel]["err"],
+                               steps=c[kernel]["steps"], **brief(c[kernel]))
+                   for label, c in r["calls"].items()})
+            for name, r in sm_slice.items()}
+
     def vrow(name, src, replaces, launches_n, err, r, **extra):
         return row(name, src, replaces, launches_n, err, r["ms"], r["plain_ms"],
                    r["bound"], device_ms=r["device_ms"], **extra)
@@ -1454,7 +1924,8 @@ def main():
                     k3_res[traversal8.V_INCOHERENT]["mixed", design],
                     design=design or "kept", by_v=by_v,
                     split={f"V{V}": k3_splits[V] for V in k3_splits}
-                    if design == "cluster" else None)
+                    if design == "cluster" else None,
+                    by_tracer=sm_by_tracer("K3", "K3") if design is None else None)
 
     def k2_row(name, variant):
         by_v = {f"V{V}": dict(launches=launches["K2", V] if variant is None else 0,
@@ -1468,7 +1939,8 @@ def main():
                     variant=variant or "shared", by_v=by_v,
                     designs={d: {f"V{V}": brief(k2_res[V]["mixed", d])
                                  for V in k2_res} for d in probe.DESIGNS}
-                    if variant is None else None)
+                    if variant is None else None,
+                    by_tracer=sm_by_tracer("K2", "K2") if variant is None else None)
 
     k1_shared_n = sum(k1_by_variant[sc]["shared"] for sc in k1_by_variant)
     k1_rows = [
@@ -1494,7 +1966,8 @@ def main():
              kernel_ms["K1_fallback", traversal8.V_INCOHERENT], variant="global",
              fallback_by_v={f"V{V}": brief(kernel_ms["K1_fallback", V])
                             for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)},
-             mixed_rays=brief(k1_sm["mixed", None]))]
+             mixed_rays=brief(k1_sm["mixed", None]),
+             by_tracer=sm_by_tracer("K1", "K1_fallback"))]
     def mb_row(entry):
         return (entry["max_abs_err"], entry["ms"], entry["plain_ms"],
                 (entry["bound_ms"], entry["bound_by"]))

@@ -49,6 +49,88 @@ def _unported(**flags):
         raise NotImplementedError(f"not ported yet: {', '.join(on)}")
 
 
+def _dead_rays(B: int, dev) -> traversal.Rays:
+    """Rays that trace nothing (tmax 0) with a valid direction."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    zero = torch.zeros(B, **f32)
+    return traversal.Rays(o=torch.zeros((B, 3), **f32),
+                          d=torch.tensor([0.0, 0.0, 1.0], **f32).expand(B, 3).contiguous(),
+                          tmin=zero, tmax=zero)
+
+
+def _escaped(scene, d, prev_pdf, prev_delta, use_nee: bool):
+    """(environment radiance, MIS weight) of rays escaping along d."""
+    env_le = lightsmod.eval_environment(scene, d)
+    if not use_nee:
+        return env_le, torch.ones_like(prev_pdf)
+    pdf_env = lightsmod.pdf_env_direct(scene, d)
+    return env_le, torch.where(prev_delta, 1.0, mis.power_heuristic(prev_pdf, pdf_env))
+
+
+def _emitted(scene, si, o, prev_pdf, prev_delta, use_nee: bool):
+    """(emitted radiance, MIS weight) at the hit si of rays from o."""
+    le = lightsmod.eval_hit_emitter(scene, si.light_id, si.ng, si.wi)
+    if not use_nee:
+        return le, torch.ones_like(prev_pdf)
+    pdf_l = lightsmod.pdf_hit_emitter_direct(scene, si.light_id, o, si.p, si.ng)
+    return le, torch.where(prev_delta, 1.0, mis.power_heuristic(prev_pdf, pdf_l))
+
+
+def _shading(scene, si, hit, d, cone, active_types, with_textures):
+    """The BSDF context at the hit, with the texture footprint of the ray
+    cone (textured scenes only), its frame and the local incoming
+    direction: (ctx, frame, wi_local)."""
+    footprint = ewa = None
+    if with_textures:
+        footprint = cone * hit.t * si.uv_density
+        # EWA anisotropy: the pixel footprint stretches by 1/cos(theta) at
+        # grazing incidence along the view direction's tangent projection
+        cos_v = vm.dot(si.ns, d).abs()
+        major = footprint / cos_v.clamp(0.125, 1.0)
+        d_t = vm.dot(d, si.frame_t)
+        d_s = vm.dot(d, si.frame_s)
+        d_len = torch.sqrt((d_t * d_t + d_s * d_s).clamp_min(1e-12))
+        ewa = (torch.stack([d_t / d_len, d_s / d_len], -1), major)
+    ctx = bsdfmod.gather_ctx(scene, si.mat_id, si.uv, footprint,
+                             active_types=active_types,
+                             with_textures=with_textures, ewa=ewa, extra=si.extra)
+    frame = si.frame()
+    return ctx, frame, frame.to_local(si.wi)
+
+
+def _nee_sample(scene, ctx, frame, wi_local, p, state, active_types):
+    """Sample an emitter from p and evaluate the BSDF toward it:
+    (EmitterDirect, f, pdf, state)."""
+    ed, state = lightsmod.sample_emitter_direct(scene, p, state)
+    lob = bsdfmod.evaluate(ctx, wi_local, frame.to_local(ed.d), active_types)
+    return ed, lob.f, lob.pdf, state
+
+
+def _nee_contrib(beta, f, pdf, ed):
+    """The unoccluded NEE contribution with the power heuristic."""
+    w_nee = torch.where(ed.is_delta, 1.0, mis.power_heuristic(ed.pdf, pdf))
+    return beta * (f * ed.radiance_over_pdf) * w_nee[:, None]
+
+
+def _roulette(state, beta_next, alive, do_rr):
+    """Russian roulette on throughput: draws one uniform per lane; `do_rr`
+    is a Python bool (a bounce of the lockstep batch) or a per-lane bool
+    tensor (the wavefront's lanes at their own depths). Returns (state,
+    beta_next, alive)."""
+    state, u_rr = rngmod.next_float(state)
+    if do_rr is False:
+        return state, beta_next, alive
+    q = beta_next.amax(dim=-1).clamp(0.05, 0.95)
+    survive = u_rr < q
+    scale = survive
+    if do_rr is not True:
+        scale = survive & do_rr
+        survive = survive | ~do_rr
+    beta_next = torch.where(scale[:, None],
+                            beta_next / q.clamp_min(1e-6)[:, None], beta_next)
+    return state, beta_next, alive & survive
+
+
 def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                 max_depth: int = 8, rr_depth: int = 3, use_nee: bool = True,
                 active_types: Sequence[int] = bsdfmod.PORTED_TYPES,
@@ -93,12 +175,9 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     # order), so they take the unmerged route
     merge = use_nee and not with_media
     if merge:
-        # empty pending-shadow queue: dead rays (tmax=0) with a valid dir
+        # empty pending-shadow queue
         p_contrib = torch.zeros((B, 3), **f32)
-        p_rays = traversal.Rays(
-            o=torch.zeros((B, 3), **f32),
-            d=torch.tensor([0.0, 0.0, 1.0], **f32).expand(B, 3).contiguous(),
-            tmin=zero, tmax=zero)
+        p_rays = _dead_rays(B, dev)
         p_act = torch.zeros(B, dtype=torch.bool, device=dev)
         amask = torch.cat([torch.zeros(B, dtype=torch.bool, device=dev),
                            torch.ones(B, dtype=torch.bool, device=dev)])
@@ -140,47 +219,19 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         miss = active & ~hit.valid & ~med_event
 
         # --- escaped rays: environment ---
-        env_le = lightsmod.eval_environment(scene, cur.d)
-        if use_nee:
-            pdf_env = lightsmod.pdf_env_direct(scene, cur.d)
-            w_env = torch.where(prev_delta, 1.0, mis.power_heuristic(prev_pdf, pdf_env))
-        else:
-            w_env = torch.ones(B, **f32)
+        env_le, w_env = _escaped(scene, cur.d, prev_pdf, prev_delta, use_nee)
         L = L + torch.where(miss[:, None], beta * env_le * w_env[:, None], 0.0)
 
         si = shading.fill_dg(geom, trace_rays, hit, flip_to_ray=False)
         hit_l = active & hit.valid & ~med_event
 
         # --- emitted radiance at the hit (area lights) with MIS ---
-        le = lightsmod.eval_hit_emitter(scene, si.light_id, si.ng, si.wi)
-        if use_nee:
-            pdf_l = lightsmod.pdf_hit_emitter_direct(scene, si.light_id, cur.o,
-                                                     si.p, si.ng)
-            w_hit = torch.where(prev_delta, 1.0, mis.power_heuristic(prev_pdf, pdf_l))
-        else:
-            w_hit = torch.ones(B, **f32)
+        le, w_hit = _emitted(scene, si, cur.o, prev_pdf, prev_delta, use_nee)
         L = L + torch.where(hit_l[:, None], beta * le * w_hit[:, None], 0.0)
 
-        # --- surface shading setup: the texture footprint of the ray cone
-        # (only textured scenes read it; XLA drops it for the others) ---
-        footprint = ewa = None
-        if with_textures:
-            footprint = cone * hit.t * si.uv_density
-            # EWA anisotropy: the pixel footprint stretches by 1/cos(theta)
-            # at grazing incidence along the view direction's tangent
-            # projection
-            cos_v = vm.dot(si.ns, cur.d).abs()
-            major = footprint / cos_v.clamp(0.125, 1.0)
-            d_t = vm.dot(cur.d, si.frame_t)
-            d_s = vm.dot(cur.d, si.frame_s)
-            d_len = torch.sqrt((d_t * d_t + d_s * d_s).clamp_min(1e-12))
-            ewa = (torch.stack([d_t / d_len, d_s / d_len], -1), major)
-        ctx = bsdfmod.gather_ctx(scene, si.mat_id, si.uv, footprint,
-                                 active_types=active_types,
-                                 with_textures=with_textures,
-                                 ewa=ewa, extra=si.extra)
-        frame = si.frame()
-        wi_local = frame.to_local(si.wi)
+        # --- surface shading setup ---
+        ctx, frame, wi_local = _shading(scene, si, hit, cur.d, cone,
+                                        active_types, with_textures)
 
         # --- next-event estimation (surface and medium vertices jointly);
         # without media, occlusion resolves in the next bounce's merged
@@ -188,9 +239,8 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         if use_nee:
             nee_active = hit_l | med_event
             nee_p = torch.where(med_event[:, None], ms.p, si.p) if with_media else si.p
-            ed, state = lightsmod.sample_emitter_direct(scene, nee_p, state)
-            lob = bsdfmod.evaluate(ctx, wi_local, frame.to_local(ed.d), active_types)
-            f_nee, pdf_fwd = lob.f, lob.pdf
+            ed, f_nee, pdf_fwd, state = _nee_sample(scene, ctx, frame, wi_local,
+                                                    nee_p, state, active_types)
             shadow_o = shading.offset_ray_origin(si.p, si.ng, ed.d)
             if with_media:
                 ph = phasemod.eval_phase(ms.ptype, ms.g, cur.d, ed.d)
@@ -203,8 +253,7 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                 o=shadow_o, d=ed.d, tmin=zero,
                 tmax=torch.where(do_shadow, ed.dist * 0.999, 0.0))
             nrays = nrays + do_shadow.sum()
-            w_nee = torch.where(ed.is_delta, 1.0, mis.power_heuristic(ed.pdf, pdf_fwd))
-            contrib = beta * (f_nee * ed.radiance_over_pdf) * w_nee[:, None]
+            contrib = _nee_contrib(beta, f_nee, pdf_fwd, ed)
             if merge:
                 p_contrib = torch.where(do_shadow[:, None], contrib, 0.0)
                 p_rays = shadow
@@ -244,13 +293,8 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                  & (depth + 1 < max_depth))
 
         # --- Russian roulette on throughput ---
-        state, u_rr = rngmod.next_float(state)
-        if depth >= rr_depth:
-            q = beta_next.amax(dim=-1).clamp(0.05, 0.95)
-            survive = u_rr < q
-            beta_next = torch.where(survive[:, None],
-                                    beta_next / q.clamp_min(1e-6)[:, None], beta_next)
-            alive = alive & survive
+        state, beta_next, alive = _roulette(state, beta_next, alive,
+                                            depth >= rr_depth)
 
         cur = traversal.Rays(o=new_o, d=wo_world, tmin=zero, tmax=zero + 1e30)
         beta = torch.where(alive[:, None], beta_next, 0.0)

@@ -12,7 +12,9 @@ versions bit for bit: hits, visit lists, counts, step counts and flags.
 K4, the pool traversal, must equal K1 on every field, for any order of
 the rays. PrimTracer, LightTracer, BDPT, PPM and the volumetric path
 tracer run on the card at 16x16 and are held to the same render on the
-CPU; PPM's 32x32 render to its golden."""
+CPU; PPM's and VCM's 32x32 renders to their goldens. VCM, the light
+tracer and the path tracer under the non-perspective sensors are held to
+the CPU, WavefrontPT to the chunked path tracer on the card."""
 import numpy as np
 import pytest
 import torch
@@ -319,3 +321,98 @@ def test_media_on_gpu(dev):
         card, cpu, n = _card_and_cpu(cls, tscenes.fog_cornell, 16, 2, max_depth=4)
         assert n == 2 * 8 and np.isfinite(card).all() and card.mean() > 0
         assert _rel(card, cpu) < limit, (cls.__name__, _rel(card, cpu))
+
+
+# VCM's card-vs-CPU limit at 16x16: its merge counts a photon by a hard
+# radius test, and a camera hit that moves by ~1e-6 on the card can carry
+# one photon across it. chip_smoke.py read one pixel moved by 2.3% at
+# 32x32 (1.99e-5 of the image); at 16x16 such a pixel is ~1e-4 of the
+# image, so the limit allows ~10 such crossings
+VCM_LIMIT = 1e-3
+
+
+@pytest.mark.gpu
+def test_vcm_on_gpu(dev):
+    """VCM on Cornell 32x32, depth 4, 4 passes against
+    tests/goldens/cornell_32_vcm.npz (mean relative error < 0.02) with
+    (5 + 4) + (5 + 4 * 6) K1 launches per pass; on the glass Cornell box
+    16x16, depth 3, 2 passes, within VCM_LIMIT of the CPU image."""
+    import os
+    from cudatracerlib_tpu_torch.models import vcm as tvcm
+    before = traversal8.intersect_wide_cuda.launches
+    img = tvcm.VCM(tscenes.cornell_box(32, 32).build(dev), 32, 32,
+                   max_depth=4).render(4).cpu().numpy()
+    assert traversal8.intersect_wide_cuda.launches - before == 4 * (9 + 29)
+    ref = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                               "cornell_32_vcm.npz"))["img"]
+    assert _rel(img, ref) < 0.02, _rel(img, ref)
+    card, cpu, n = _card_and_cpu(tvcm.VCM, tscenes.cornell_glass, 16, 2, max_depth=3)
+    assert n == 2 * (2 * tvcm.NUM_LIGHT_V + (2 + tvcm.NUM_LIGHT_V) * 3)
+    assert np.isfinite(card).all() and card.mean() > 0
+    assert _rel(card, cpu) < VCM_LIMIT, _rel(card, cpu)
+
+
+@pytest.mark.gpu
+def test_wavefront_on_gpu(dev):
+    """WavefrontPT on Cornell 32x32, depth 4, 768 lanes, 2 passes, against
+    the chunked PathTracer on the card: the images within rtol 1e-5 / atol
+    1e-7, the live rays equal, one K1 launch per loop iteration and one
+    host read per iteration plus the last."""
+    from cudatracerlib_tpu_torch.models import film as tfilm
+    from cudatracerlib_tpu_torch.models import path as tpath
+    from cudatracerlib_tpu_torch.models import wavefront as twf
+    scene = tscenes.cornell_box(32, 32).build(dev)
+    pt = tpath.PathTracer(scene, 32, 32, max_depth=4, chunk_size=32 * 32)
+    i1 = pt.render(2).cpu().numpy()
+    wf = twf.WavefrontPT(scene, 32, 32, max_depth=4, lanes=768)
+    wf.do_pass()
+    before = traversal8.intersect_wide_cuda.launches
+    wf.do_pass()
+    assert traversal8.intersect_wide_cuda.launches - before == wf.last_pass_iters
+    assert wf.last_pass_host_reads == wf.last_pass_iters + 1
+    i2 = tfilm.develop(wf.film).cpu().numpy()
+    np.testing.assert_allclose(i2, i1, rtol=1e-5, atol=1e-7)
+    assert wf.rays_traced_live == pt.rays_traced_live
+    assert wf._ovf_dev.tolist() == [0, 0]
+
+
+def _sensor_scene(sensor_type, size, **kw):
+    """tests/test_lighttracer.py's sensor scene: a floor under a small area
+    light."""
+    from cudatracerlib_tpu_torch.scene import host, sensors, shapes
+    from cudatracerlib_tpu_torch.utils import transforms as tf
+    sc = host.DynamicScene()
+    white = sc.add_material(host.MaterialSpec(reflectance=(0.7, 0.7, 0.7)))
+    black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+    sc.create_node(shapes.rectangle(), white,
+                   tf.compose(tf.translate([0, -1, 0]), tf.rotate_deg([1, 0, 0], -90),
+                              tf.scale(3)))
+    sc.create_node(shapes.rectangle(), black,
+                   tf.compose(tf.translate([0, 1.5, 0]), tf.rotate_deg([1, 0, 0], 90),
+                              tf.scale(0.5)), emission=(8.0, 8.0, 8.0))
+    sc.set_sensor(sensors.make_sensor(sensor_type, tf.look_at([0, 0.6, -2.5], [0, -0.6, 0]),
+                                      fov_x_deg=50, film_w=size, film_h=size, **kw))
+    return sc
+
+
+@pytest.mark.gpu
+def test_sensors_on_gpu(dev):
+    """The light tracer and the path tracer at 16x16, depth 3, 2 passes,
+    under the spherical, orthographic, telecentric and thin-lens sensors:
+    the card images within 1e-5 of the CPU images (the light tracer's
+    limit)."""
+    from cudatracerlib_tpu_torch.models import lighttracer as tlt
+    from cudatracerlib_tpu_torch.models import path as tpath
+    from cudatracerlib_tpu_torch.scene import schema
+    for st, kw in ((schema.SENSOR_SPHERICAL, {}),
+                   (schema.SENSOR_ORTHOGRAPHIC, dict(ortho_scale=(2.0, 2.0))),
+                   (schema.SENSOR_TELECENTRIC, dict(ortho_scale=(2.0, 2.0),
+                                                    aperture_radius=0.05,
+                                                    focus_distance=2.5)),
+                   (schema.SENSOR_THINLENS, dict(aperture_radius=0.05,
+                                                 focus_distance=2.5))):
+        for cls in (tlt.LightTracer, tpath.PathTracer):
+            card, cpu, n = _card_and_cpu(
+                cls, lambda w, h: _sensor_scene(st, w, **kw), 16, 2, max_depth=3)
+            assert n > 0 and np.isfinite(card).all() and card.mean() > 0
+            assert _rel(card, cpu) < 1e-5, (st, cls.__name__, _rel(card, cpu))

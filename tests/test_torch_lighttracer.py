@@ -129,9 +129,10 @@ def test_sample_direct():
         np.minimum(np.abs(pf[:, 1]), np.abs(pf[:, 1] - 24)) < 1e-3)
     np.testing.assert_array_equal(got.valid.numpy()[~edge], np.asarray(want.valid)[~edge])
     assert 0.1 < got.valid.float().mean() < 0.9
-    with pytest.raises(NotImplementedError):
-        tsensors.sample_direct(tsc.sensor._replace(sensor_type=tschema.SENSOR_SPHERICAL),
-                               torch.from_numpy(p), None)
+    # every sensor type connects (the other four: test_torch_sensors.py)
+    sph = tsensors.sample_direct(tsc.sensor._replace(sensor_type=tschema.SENSOR_SPHERICAL),
+                                 torch.from_numpy(p), None)
+    assert bool(sph.valid.all()) and np.isfinite(sph.weight.numpy()).all()
 
 
 def test_splat():
