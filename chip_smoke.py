@@ -2,8 +2,10 @@
 each against its plain PyTorch version, and run the Cornell, veach-mis and
 San Miguel path-tracing passes, the PrimTracer, BDPT, light-tracer and VCM
 passes, the PPM and volumetric path-tracing passes in fog, the
-non-perspective sensors, the regenerating wavefront path tracer and the
-FastTracer on San Miguel, and the microbenchmarks P1-P3.
+non-perspective sensors, the regenerating wavefront path tracer, the
+FastTracer and the game tracer on San Miguel, the adaptive block sampler
+with the image pipeline and the Sobol' sampler on veach-mis, the alpha,
+bump, parallax, BSSRDF and spectral scenes, and the microbenchmarks P1-P3.
 
     python3 chip_smoke.py [--profile]
 
@@ -81,6 +83,23 @@ failure exits non-zero, and nothing falls back to the CPU:
    against the chunked path tracer on the card;
 4o. the FastTracer on Cornell 512^2 in both modes: Mrays/s, one K1 launch
    a pass, one call of each held to K1's plain version;
+4p-4q. (veach_slice_phases) the AdaptivePathTracer on veach-mis 512^2,
+   depth 5, B_VARIANCE, 1,024 blocks a pass (262,144 lanes in one
+   pt_radiance call): a warm-up pass, 4 timed passes, s/pass, live rays,
+   6 K1 launches a pass (all shared), the chosen blocks' spread; one pass
+   profiled, one recorded and each of its K1 calls held to the plain
+   version; apply_pipeline on its film (Gaussian filter, NLM with the
+   variance buffer, tonemap) timed; all four block modes at 32^2 against
+   the CPU. PathTracer with the Sobol' sampler on the same scene, 4 timed
+   passes beside 4c's independent sampler, one pass recorded and held to
+   K1's plain version; the stratified and Sobol' samplers at 32^2 against
+   the CPU, and the tent and Gaussian filters' camera rays (RNG states
+   identical, rays within 1e-6);
+4r. (feature_phases) the JAX tests' alpha (continuous and binary), bump,
+   parallax (PathTracer and WavefrontPT), marble BSSRDF, and spectral
+   (C=4: the dispersive glass slab, Cornell) scenes against the CPU pass by
+   pass; spectral Cornell against the RGB render within
+   tests/test_spectral.py's bounds;
 5. the San Miguel stand-in at full width (1.2M triangles; host build
    seconds: native BVH, treelet partition) and 131,072 camera rays plus
    131,072 random rays from the courtyard, closest / any-hit / mixed:
@@ -133,6 +152,12 @@ failure exits non-zero, and nothing falls back to the CPU:
 7b. the FastTracer on San Miguel 1024^2 in both modes: Mrays/s, one K2
    (V=6), K3 and K1 launch a pass, one call of each held to the plain
    versions;
+7c. (game_phases) the GameTracer on the same scene, 1024^2: a warm-up
+   frame, 4 timed frames, s/frame, live rays, K2 (V=6 camera, V=3
+   shadow), K3 and K1-fallback launches a frame, the cache's valid rows
+   and occupied cells, peak memory; one frame profiled; both traversals of
+   a recorded frame held kernel by kernel to the plain versions; the game
+   tracer on Cornell 32^2 against the CPU, frame by frame;
 8. P1-P3 (utils/microbench.py) timed at their full sizes, with the counts
    zeroed around the run; the output of every timed configuration must
    equal its plain version's on the same inputs.
@@ -143,9 +168,10 @@ launches on its own path (the global variant of K2 and the K3 designs
 take none on the main path, nor does K4), its time and its plain
 version's time (K1 shared on veach-mis, K1 global on the San Miguel
 fallback batch, K2 and K3 at V=3, K4 on veach-mis; the other shapes under
-by_scene, by_tracer (K1 shared: one pass of each tracer of 4d-4o, summed by
-mode; K1 global, K2 and K3: WavefrontPT's and the FastTracer's launches
-per pass and their recorded call on San Miguel),
+by_scene, by_tracer (K1 shared: one pass of each tracer of 4d-4q, summed by
+mode, the adaptive and Sobol' passes among them; K1 global, K2 and K3:
+WavefrontPT's, the FastTracer's and the GameTracer's launches per pass
+and their recorded calls on San Miguel),
 by_v, fallback_by_v and mixed_rays; the forced global variant and the
 probe's designs on the same rays beside K1's and K2's shared rows; the
 probe's split of the slots beside its cluster design), its device time
@@ -186,6 +212,9 @@ K3_CHUNKS = (1024, 4096, 16384)
 K3_MIN_STAGES = (64, 256, 1024, 1 << 30)
 SM_HALF = 131072
 VEACH_HALF = 65536
+# the film sizes of the veach-mis and San Miguel headlines
+VEACH_SIZE = 512
+SM_SIZE = 1024
 REF_VEACH = os.path.join(HERE, "tests", "goldens", "ref_veach.npz")
 CAL = 2.5   # tests/test_rmse_anchor.py's calibration of the noise floor
 # the veach anchor's mean may lie at most this share under or over the
@@ -240,6 +269,29 @@ WF_SMALL_LANES = 3000
 # the FastTracer's timed passes on Cornell 512^2 and San Miguel 1024^2
 FAST_PASSES = 20
 FAST_SM_PASSES = 3
+# the adaptive block sampler on veach-mis 512^2: blocks a pass (every block
+# of the film's 32 x 32: 262,144 lanes in one call) and timed passes; the
+# Sobol' PT's timed passes beside 4c's independent sampler
+ADAPT_BLOCKS = 1024
+ADAPT_PASSES = 4
+SOBOL_PASSES = 4
+# the adaptive tracer's card image against the CPU's (veach-mis 32^2,
+# CARD_CPU_PASSES passes, each mode): the film and the variance buffer add
+# a pixel's repeated samples with atomics in any order, and the block
+# weights read the buffer. The readings lay at 1.7e-7 to 3.5e-7 in all four
+# modes (H100 80GB HBM3, 700.00 W): a B_VARIANCE weight that is NaN on one
+# side only would move every weighted block, which did not happen; the
+# path tracer's limit
+ADAPT_CARD_CPU_LIMIT = 1e-5
+# the game tracer: timed frames on San Miguel 1024^2; frames and the limit
+# of its card image against the CPU's on Cornell 32^2. Its gather and
+# history tests are hard tests on floats: the readings lay at 1.1e-7 to
+# 1.2e-7, no sample flipped (H100 80GB HBM3, 700.00 W), but one neighbour
+# that crosses d^2 <= r^2 or the normal test moves its pixel by ~1/30 of
+# itself, ~3e-5 of the image's mean: the limit admits three such crossings
+GAME_FRAMES = 4
+GAME_CARD_CPU_FRAMES = 3
+GAME_CARD_CPU_LIMIT = 1e-4
 # device_ms's sleeping kernel: ~6 ms at the H100's 1.755 GHz, longer than
 # the host takes to queue its calls
 SLEEP_CYCLES = 10_000_000
@@ -1251,22 +1303,349 @@ def sm_slice_phases(dev, scene, pt_rays_n, K1, K2, K3, K4, zero_counts, plain_ca
     return out
 
 
+def veach_slice_phases(dev, veach, veach_4c, K1, K4, zero_counts, plain_calls,
+                       k1_by_variant, pathmod, admod, bsmod, pipemod, samplersmod,
+                       tracermod, filmmod, example_scenes, traversal8, mb):
+    """4p. the adaptive block sampler on veach-mis 512^2, depth 5, B_VARIANCE,
+    ADAPT_BLOCKS blocks a pass (262,144 lanes in one pt_radiance call): a
+    warm-up pass, then ADAPT_PASSES timed passes: s/pass, live rays, K1
+    launches per pass (merged: depth + 1, all shared), the spread of the
+    chosen blocks (distinct blocks, the most picks of one block); one pass
+    profiled and one recorded, its K1 calls held to the plain version; then
+    apply_pipeline on its film (Gaussian filter, NLM with the variance
+    buffer, Reinhard tonemap) timed; all four block-sampling modes at 32^2
+    against the CPU over CARD_CPU_PASSES passes (ADAPT_CARD_CPU_LIMIT). 4q.
+    PathTracer with the Sobol' sampler on the same scene (depth 5, chunks of
+    65,536), a warm-up pass and SOBOL_PASSES timed passes, beside 4c's
+    independent sampler (`veach_4c`); one pass recorded and held to K1's
+    plain version; the stratified and Sobol' samplers at 32^2 against the
+    CPU (CARD_CPU_LIMIT), and the tent and Gaussian filters' camera rays
+    (RNG states identical, rays within 1e-6). Returns the K1 records of
+    one adaptive and one Sobol' pass."""
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K4=K4.launches, plain=plain_calls())
+
+    def check(c, n, what):
+        if c["K1"] != n or c["K1_by_variant"]["shared"] != n or c["K4"] or c["plain"]:
+            fail(f"the {what} run took the wrong kernels: {c}, expected {n} K1")
+
+    out = {}
+    # 4p. adaptive
+    chosen = []
+    orig_choose = bsmod.choose_blocks
+
+    def rec_choose(*a, **kw):
+        chosen.append(orig_choose(*a, **kw))
+        return chosen[-1]
+    tr = admod.AdaptivePathTracer(veach, VEACH_SIZE, VEACH_SIZE, max_depth=5, mode=bsmod.B_VARIANCE,
+                                  blocks_per_pass=ADAPT_BLOCKS)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    bsmod.choose_blocks = rec_choose
+    try:
+        secs, rays_n = timed_passes(tr, ADAPT_PASSES)
+    finally:
+        bsmod.choose_blocks = orig_choose
+    c = counts()
+    k1_by_variant["adaptive"] = c["K1_by_variant"]
+    picks = [torch.bincount(b.long(), minlength=ADAPT_BLOCKS) for b in chosen]
+    img = filmmod.develop(tr.film).cpu().numpy()
+    emit(phase="headline", scene="veach_mis", tracer="AdaptivePathTracer",
+         mode="B_VARIANCE", size=VEACH_SIZE, max_depth=5, blocks_per_pass=ADAPT_BLOCKS,
+         lanes=ADAPT_BLOCKS * bsmod.BLOCK ** 2, passes=ADAPT_PASSES,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         live_rays=int(sum(rays_n)), live_rays_by_pass=rays_n,
+         mrays_per_s=sum(rays_n) / sum(secs) / 1e6, launches=c,
+         launches_per_pass=c["K1"] / ADAPT_PASSES,
+         distinct_blocks_by_pass=[int((p > 0).sum()) for p in picks],
+         max_picks_by_pass=[int(p.max()) for p in picks],
+         weighted_in_block0_by_pass=[int((b[tr.n_det:] == 0).sum()) for b in chosen],
+         mean_radiance=float(img.mean()))
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        fail("the adaptive veach-mis image is not finite and non-black")
+    check(c, ADAPT_PASSES * 6, "adaptive")
+    profile_pass(tr, "veach_mis", tracer="AdaptivePathTracer")
+    calls = record_k1(tr.do_pass, traversal8, Rays)
+    out["adaptive"] = dict(launches_per_pass=len(calls), by_mode=k1_on_calls(
+        "adaptive_veach_512", calls, K1, traversal8, mb))
+    del calls
+    # the image pipeline on the adaptive film
+    pipe = lambda: pipemod.apply_pipeline(tr.film, pipemod.F_GAUSSIAN, tonemap=True,
+                                          denoise=True, vb=tr.vb)
+    out_img = pipe().cpu().numpy()
+    emit(phase="pipeline", scene="veach_mis", size=VEACH_SIZE, filter="gaussian",
+         denoise="nlm (variance buffer)", tonemap="reinhard05",
+         ms=cuda_median_ms(pipe, reps=3), finite=bool(np.isfinite(out_img).all()),
+         mean=float(out_img.mean()))
+    if not np.isfinite(out_img).all() or not out_img.mean() > 0.0:
+        fail("the pipeline's veach-mis image is not finite and non-black")
+    del tr
+    for mode, mname in ((bsmod.B_UNIFORM, "uniform"), (bsmod.B_VARIANCE, "variance"),
+                        (bsmod.B_DIFFERENCE, "difference"), (bsmod.B_SELECT, "select")):
+        rect = (0, 0, 16, 32) if mode == bsmod.B_SELECT else None
+        card_vs_cpu("AdaptivePathTracer", lambda s: admod.AdaptivePathTracer(
+            s, 32, 32, max_depth=5, mode=mode, select_rect=rect),
+            example_scenes.veach_mis, 32, CARD_CPU_PASSES, dev,
+            limit=ADAPT_CARD_CPU_LIMIT, mode=mname, max_depth=5)
+
+    # 4q. the Sobol' sampler beside 4c's independent one
+    tr = pathmod.PathTracer(veach, VEACH_SIZE, VEACH_SIZE, max_depth=5,
+                            chunk_size=VEACH_HALF, sampler_type=samplersmod.SOBOL)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    secs, rays_n = timed_passes(tr, SOBOL_PASSES)
+    c = counts()
+    k1_by_variant["sobol"] = c["K1_by_variant"]
+    img = filmmod.develop(tr.film).cpu().numpy()
+    emit(phase="headline", scene="veach_mis", tracer="PathTracer", sampler="sobol",
+         size=VEACH_SIZE, max_depth=5, chunk_size=VEACH_HALF, passes=SOBOL_PASSES,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         live_rays=int(sum(rays_n)), live_rays_by_pass=rays_n,
+         mrays_per_s=sum(rays_n) / sum(secs) / 1e6, launches=c,
+         independent_4c=veach_4c, mean_radiance=float(img.mean()))
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        fail("the Sobol' veach-mis image is not finite and non-black")
+    check(c, SOBOL_PASSES * tr._n_chunks * 6, "Sobol'")
+    calls = record_k1(tr.do_pass, traversal8, Rays)
+    out["sobol"] = dict(launches_per_pass=len(calls), by_mode=k1_on_calls(
+        "sobol_veach_512", calls, K1, traversal8, mb))
+    del tr, calls
+    for st, sname in ((samplersmod.STRATIFIED, "stratified"), (samplersmod.SOBOL, "sobol")):
+        card_vs_cpu("PathTracer", lambda s: pathmod.PathTracer(
+            s, 32, 32, max_depth=5, sampler_type=st), example_scenes.veach_mis, 32,
+            CARD_CPU_PASSES, dev, sampler=sname, max_depth=5)
+    scenes = [example_scenes.veach_mis(32, 32).build(d) for d in (dev, "cpu")]
+    pix = torch.arange(1024, dtype=torch.int32)
+    for ft, fname in ((1, "tent"), (2, "gaussian")):
+        for st in (0, samplersmod.SOBOL):
+            r = [tracermod.gen_camera_rays(s, pix.to(s.device), 3, 2, 32, 32,
+                                           filter_type=ft, sampler_type=st)
+                 for s in scenes]
+            same_state = bool(torch.equal(r[0][3].cpu(), r[1][3]))
+            err = max(float((r[0][0].o.cpu() - r[1][0].o).abs().max()),
+                      float((r[0][0].d.cpu() - r[1][0].d).abs().max()))
+            emit(phase="card_vs_cpu", what="camera_rays", filter=fname, sampler=st,
+                 states_identical=same_state, max_abs_err=err, limit=1e-6)
+            if not same_state or not err <= 1e-6:
+                fail(f"the {fname} filter's camera rays differ on the card")
+    return out
+
+
+def feature_scene(host, schema, sensors, shapes, tf, kind, size):
+    """The JAX tests' feature scenes (a DynamicScene, built later): "alpha"
+    and "alpha_binary" (tests/test_texture_features.py's masked occluder
+    before an emissive wall; a continuous 0.25 mask, a luminance-tested
+    checkerboard), "bump" and "parallax" (its bump-mapped plane under a
+    point light), "marble" (tests/test_bssrdf.py's subsurface sphere) and
+    "glass_slab" (the dispersive slab of test_spectral_dispersion_renders_rainbow)."""
+    sc = host.DynamicScene()
+    if kind.startswith("alpha"):
+        black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+        sc.create_node(shapes.rectangle(), black,
+                       tf.compose(tf.translate([0, 0, 2]), tf.rotate_deg([0, 1, 0], 180),
+                                  tf.scale(4)), emission=(2.0, 2.0, 2.0))
+        if kind == "alpha":
+            mask, mode = host.TextureSpec(tex_type=schema.TEX_CONSTANT,
+                                          value=(0.25,) * 3), 0
+        else:
+            mask = host.TextureSpec(tex_type=schema.TEX_CHECKERBOARD, value=(0.2,) * 3,
+                                    value1=(0.8,) * 3, uv_scale=(4.0, 4.0))
+            mode = schema.ALPHA_LUMINANCE
+        occ = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0), tex_alpha_mask=mask,
+                                                alpha_mode=mode, alpha_test=0.5))
+        sc.create_node(shapes.rectangle(), occ,
+                       tf.compose(tf.translate([0, 0, 1]), tf.rotate_deg([0, 1, 0], 180),
+                                  tf.scale(4)))
+        eye, at, fov = [0, 0, -2], [0, 0, 1], 20
+    elif kind in ("bump", "parallax"):
+        yy, xx = np.meshgrid(np.linspace(0, 6 * np.pi, 32), np.linspace(0, 6 * np.pi, 32),
+                             indexing="ij")
+        height = (0.5 + 0.5 * np.sin(xx) * np.sin(yy)).astype(np.float32)
+        bump = host.TextureSpec(tex_type=schema.TEX_IMAGE,
+                                image=np.repeat(height[..., None], 3, -1))
+        m = sc.add_material(host.MaterialSpec(
+            reflectance=(0.8, 0.8, 0.8), tex_bump=bump,
+            parallax_scale=0.1 if kind == "parallax" else 0.0))
+        sc.create_node(shapes.rectangle(), m, tf.compose(tf.rotate_deg([1, 0, 0], -90),
+                                                         tf.scale(2)))
+        sc.add_point_light((1.5, 2, 0), (6, 6, 6))
+        eye, at, fov = [0, 2.5, -2.5], [0, 0, 0], 40
+    elif kind == "marble":
+        marble = sc.add_material(host.MaterialSpec(
+            bsdf_type=schema.BSDF_DIELECTRIC, eta=1.3, bssrdf_sigma_a=(0.05, 0.1, 0.15),
+            bssrdf_sigma_s=(3.0, 3.0, 3.0), bssrdf_g=0.3))
+        black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+        sc.create_node(shapes.sphere(radius=0.5, n_theta=24, n_phi=48), marble)
+        sc.create_node(shapes.rectangle(), black,
+                       tf.compose(tf.translate([0, 1.8, 0]), tf.rotate_deg([1, 0, 0], 90),
+                                  tf.scale(0.8)), emission=(12.0,) * 3)
+        eye, at, fov = [0, 0.4, -2.4], [0, 0, 0], 35
+    else:   # glass_slab
+        white = sc.add_material(host.MaterialSpec(reflectance=(0.8, 0.8, 0.8)))
+        glass = sc.add_material(host.MaterialSpec(
+            bsdf_type=schema.BSDF_DIELECTRIC, eta=1.45, dispersion_b=0.05,
+            two_sided=False))
+        sc.create_node(shapes.rectangle(), white,
+                       tf.compose(tf.translate([0, 0, 3]), tf.rotate_deg([0, 1, 0], 180),
+                                  tf.scale(6)), emission=(4.0, 4.0, 4.0))
+        sc.create_node(shapes.rectangle(), glass,
+                       tf.compose(tf.translate([0, 0, 1]), tf.rotate_deg([0, 1, 0], 160),
+                                  tf.scale(4)))
+        eye, at, fov = [0, 0, -2], [0, 0, 1], 30
+    sc.set_sensor(sensors.make_sensor(schema.SENSOR_PERSPECTIVE, tf.look_at(eye, at),
+                                      fov_x_deg=fov, film_w=size, film_h=size))
+    return sc
+
+
+def feature_phases(dev, K1, zero_counts, plain_calls, pathmod, wfmod, example_scenes):
+    """4r. the alpha (continuous and binary), bump, parallax, BSSRDF and
+    spectral paths at the JAX tests' sizes, each card against CPU pass by
+    pass (CARD_CPU_LIMIT), through K1 alone: PathTracer on every scene,
+    WavefrontPT on the alpha, bump and parallax ones; spectral C=4 on
+    Cornell 24^2 (24 passes, and against the RGB render within
+    tests/test_spectral.py's bound: channel means rtol 0.12, the mean 0.08)
+    and on the dispersive glass slab 16^2."""
+    from cudatracerlib_tpu_torch.scene import host, schema, sensors, shapes
+    from cudatracerlib_tpu_torch.utils import transforms as tf
+    runs = (("alpha", 16, 4, 4, True), ("alpha_binary", 16, 4, 4, True),
+            ("bump", 24, 2, 4, True), ("parallax", 16, 3, 4, True),
+            ("marble", 32, 12, 3, False), ("glass_slab", 16, 4, 4, False))
+    for kind, size, depth, passes, with_wf in runs:
+        def scene_fn(w, h, kind=kind):
+            return feature_scene(host, schema, sensors, shapes, tf, kind, w)
+        makes = [(pathmod.PathTracer, {})]
+        if with_wf:
+            makes.append((wfmod.WavefrontPT, dict(lanes=size * size // 2 + 7)))
+        if kind == "glass_slab":
+            makes.append((pathmod.PathTracer, dict(spectral=4)))
+        for cls, kw in makes:
+            zero_counts()
+            card_vs_cpu(cls.__name__, lambda s: cls(s, size, size, max_depth=depth, **kw),
+                        scene_fn, size, passes, dev, scene=kind, max_depth=depth, **kw)
+            if K1.launches <= 0 or plain_calls():
+                fail(f"the {cls.__name__} run on {kind} took the wrong kernels")
+    # spectral transport on Cornell: the card against the CPU, and against RGB
+    zero_counts()
+    rels = card_vs_cpu("PathTracer", lambda s: pathmod.PathTracer(
+        s, 24, 24, max_depth=4, spectral=4), example_scenes.cornell_box, 24, 4, dev,
+        scene="cornell_box", spectral=4)
+    scene = example_scenes.cornell_box(24, 24).build(dev)
+    im1 = pathmod.PathTracer(scene, 24, 24, max_depth=4).render(24).cpu().numpy()
+    im2 = pathmod.PathTracer(scene, 24, 24, max_depth=4,
+                             spectral=4).render(24).cpu().numpy()
+    m1, m2 = im1.mean((0, 1)), im2.mean((0, 1))
+    chan = float(np.abs(m2 / m1 - 1.0).max())
+    total = float(abs(im2.mean() - im1.mean()) / im1.mean())
+    emit(phase="spectral_vs_rgb", scene="cornell_box", size=24, passes=24,
+         channel_rel=chan, channel_limit=0.12, mean_rel=total, mean_limit=0.08,
+         card_vs_cpu=rels)
+    if not (np.isfinite(im2).all() and chan < 0.12 and total < 0.08):
+        fail(f"spectral Cornell against RGB: channels {chan}, mean {total}")
+
+
+def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
+                hashgrid, filmmod, example_scenes, traversal8, traversal_tt, mb):
+    """7c. GameTracer on San Miguel 1024^2 (the scene of phase 7): a warm-up
+    frame, then GAME_FRAMES timed frames: s/frame, live rays (camera rays
+    and the shadow rays traced), K2 (V=6 camera, V=3 shadow), K3 and
+    K1-fallback launches per frame, the cache's valid rows and occupied
+    cells; one frame profiled; every traversal of one recorded frame held
+    kernel by kernel to the plain versions (treelet_on_call). Then the game
+    tracer on Cornell 32^2, GAME_CARD_CPU_FRAMES frames, card against CPU
+    (GAME_CARD_CPU_LIMIT). The peak memory is the game's: the scene's
+    tables and the frames (the statistics reset before the warm-up frame).
+    Returns {"game": dict(launches_per_pass, calls)}."""
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    grids = []
+    orig_build = hashgrid.build_grid
+
+    def rec_build(*a, **kw):
+        grids.append(orig_build(*a, **kw))
+        return grids[-1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = gamemod.GameTracer(scene, SM_SIZE, SM_SIZE)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    hashgrid.build_grid = rec_build
+    try:
+        secs, rays_n = [], []
+        for _ in range(GAME_FRAMES):
+            grids.clear()
+            r0 = tr.rays_traced_live
+            tr.do_pass()
+            secs.append(tr.last_pass_seconds)
+            rays_n.append(tr.rays_traced_live - r0)
+            cid = grids[-1].cell_ids
+            valid = cid < hashgrid.INT32_MAX
+            rows = (int(valid.sum()), int(torch.unique(cid[valid]).numel()))
+    finally:
+        hashgrid.build_grid = orig_build
+    c = dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+             K2_by_v=dict(K2.launches_by_v), K2_by_variant=dict(K2.launches_by_variant),
+             K3_by_v=dict(K3.launches_by_v), K4=K4.launches, plain=plain_calls())
+    img = filmmod.develop(tr.film).cpu().numpy()
+    per_frame = dict(K2=sum(c["K2_by_v"].values()) / GAME_FRAMES,
+                     K3=sum(c["K3_by_v"].values()) / GAME_FRAMES,
+                     K1_fallback=c["K1"] / GAME_FRAMES)
+    g = grids[-1] if grids else None
+    emit(phase="headline", scene="san_miguel_stand_in", tracer="GameTracer",
+         size=SM_SIZE, frames=GAME_FRAMES, radius=tr.radius,
+         seconds_per_frame=statistics.median(secs), frame_seconds=secs,
+         live_rays=int(sum(rays_n)), live_rays_by_frame=rays_n,
+         mrays_per_s=sum(rays_n) / sum(secs) / 1e6, launches=c,
+         launches_per_frame=per_frame, grid_rows=rows[0], grid_cells_occupied=rows[1],
+         grid_dims=g.dims.tolist() if g is not None else None,
+         peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         mean_radiance=float(img.mean()))
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        fail("the game San Miguel image is not finite and non-black")
+    want = {traversal8.V_COHERENT: GAME_FRAMES, traversal8.V_INCOHERENT: GAME_FRAMES}
+    if (c["K2_by_v"] != want or c["K3_by_v"] != want or c["K1"] != 2 * GAME_FRAMES
+            or c["K1_by_variant"]["global"] != c["K1"]
+            or c["K2_by_variant"]["shared"] != 2 * GAME_FRAMES or c["K4"] or c["plain"]):
+        fail(f"the game run took the wrong kernels: {c}")
+    profile_pass(tr, "san_miguel_stand_in", tracer="GameTracer")
+    calls = record_scene(tr.do_pass, traversal8, Rays)
+    if len(calls) != 2:
+        fail(f"a game frame traced {len(calls)} times, not 2")
+    out = dict(launches_per_pass=per_frame, calls={
+        label: treelet_on_call(f"game_{label}_san_miguel_1024", scene.geom, call, K1,
+                               K2, K3, traversal8, traversal_tt, mb)
+        for label, call in zip(("camera", "shadow"), calls)})
+    del tr, calls
+    card_vs_cpu("GameTracer", lambda s: gamemod.GameTracer(s, 32, 32),
+                example_scenes.cornell_box, 32, GAME_CARD_CPU_FRAMES, dev,
+                limit=GAME_CARD_CPU_LIMIT)
+    return {"game": out}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
     if not os.path.isdir(os.path.join(HERE, "cudatracerlib_tpu_torch")):
         fail("run from a checkout of the repository")
+    from cudatracerlib_tpu_torch.models import adaptive as admod
     from cudatracerlib_tpu_torch.models import bdpt as bdptmod
+    from cudatracerlib_tpu_torch.models import blocksampler as bsmod
     from cudatracerlib_tpu_torch.models import fast as fastmod
     from cudatracerlib_tpu_torch.models import film as filmmod
+    from cudatracerlib_tpu_torch.models import game as gamemod
     from cudatracerlib_tpu_torch.models import lighttracer as ltmod
     from cudatracerlib_tpu_torch.models import path as pathmod
+    from cudatracerlib_tpu_torch.models import pipeline as pipemod
     from cudatracerlib_tpu_torch.models import ppm as ppmmod
     from cudatracerlib_tpu_torch.models import prim as primmod
+    from cudatracerlib_tpu_torch.models import samplers as samplersmod
     from cudatracerlib_tpu_torch.models import tracer as tracermod
     from cudatracerlib_tpu_torch.models import vcm as vcmmod
     from cudatracerlib_tpu_torch.models import wavefront as wfmod
-    from cudatracerlib_tpu_torch.ops import cuda_build, traversal8, traversal_tt
+    from cudatracerlib_tpu_torch.ops import cuda_build, hashgrid, traversal8, traversal_tt
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     from cudatracerlib_tpu_torch.utils import example_scenes
     from cudatracerlib_tpu_torch.utils import microbench as mb
@@ -1542,7 +1921,17 @@ def main():
         fail(f"veach-mis: capped {capped} / overflowed {overflowed} rays")
     if profile:
         profile_pass(vtr, "veach_mis", kernel="K1")
-    del vtr, veach
+    del vtr
+    veach_4c = dict(seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+                    live_rays_by_pass=rays_n, mrays_per_s=sum(rays_n) / sum(secs) / 1e6)
+
+    # 4p-4q. the adaptive block sampler with the image pipeline, and the
+    # Sobol' sampler, on the same scene
+    veach_records = veach_slice_phases(
+        dev, veach, veach_4c, K1, K4, zero_counts, plain_calls, k1_by_variant,
+        pathmod, admod, bsmod, pipemod, samplersmod, tracermod, filmmod,
+        example_scenes, traversal8, mb)
+    del veach
 
     # 4d-4f. the light-path slice: PrimTracer, BDPT and LightTracer
     light_path = light_path_phases(
@@ -1561,6 +1950,9 @@ def main():
                                    traversal8, mb)
     sensor_phases(dev, K1, zero_counts, plain_calls, pathmod, ltmod, wfmod,
                   example_scenes)
+    light_path.update(veach_records)
+    # 4r. alpha, bump, parallax, BSSRDF and spectral transport, card vs CPU
+    feature_phases(dev, K1, zero_counts, plain_calls, pathmod, wfmod, example_scenes)
     light_path.update(fast_cornell_phase(dev, K1, K4, zero_counts, plain_calls,
                                          k1_by_variant, fastmod, filmmod,
                                          example_scenes, traversal8, mb))
@@ -1862,6 +2254,10 @@ def main():
     sm_slice = sm_slice_phases(dev, scene, rays_n, K1, K2, K3, K4, zero_counts,
                                plain_calls, wfmod, fastmod, filmmod, traversal8,
                                traversal_tt, mb)
+    # 7c. the game tracer on the same scene, and on Cornell against the CPU
+    sm_slice.update(game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls,
+                                gamemod, hashgrid, filmmod, example_scenes, traversal8,
+                                traversal_tt, mb))
 
     # 8. P1-P3 at full size, each held to its plain version on its inputs
     torch.cuda.synchronize()

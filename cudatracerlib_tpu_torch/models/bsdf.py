@@ -1,14 +1,16 @@
 """The BSDF system: sample / evaluate / pdf.
 
 Port of ``cudatracerlib_tpu/models/bsdf.py`` for the diffuse, smooth
-dielectric (with the RGB dispersion roulette), thin dielectric, conductor
-and rough-conductor BSDFs. Material rows are gathered into a flat
+dielectric (with the RGB dispersion roulette, or the continuous Cauchy
+eta at the hero wavelength in spectral transport), thin dielectric,
+conductor and rough-conductor BSDFs, with the alpha test, bump mapping and
+parallax-occlusion mapping. Material rows are gathered into a flat
 ``BsdfCtx``, with their textures evaluated (ops/texture.py), and every lane
 evaluates the closed forms of the types present in the scene (a static
 tuple), selecting per-lane results with masks. The other 8 simple types,
-the nested (coating, rough coating, blend) materials and the dielectric's
-spectral (hero-wavelength) branch are not ported yet: asking for them
-raises.
+the nested (coating, rough coating, blend) materials and path
+regularization (which needs the rough dielectric) are not ported yet:
+asking for them raises.
 
 Conventions (Mitsuba): directions in the local shading frame, +z = normal,
 `wi` the fixed incident direction, `wo` the sampled/queried outgoing one,
@@ -18,7 +20,9 @@ for smooth lobes only; delta lobes (the conductor) only appear through
 
 Param layout (MaterialTable.params): [0:3] reflectance [5] mf distribution
 [6] alpha_u [7] alpha_v [8:11] conductor eta [11:14] conductor k ...
-[19:22] transmittance/diffuse, [22] two-sided flag (see the JAX module).
+[19:22] transmittance/diffuse, [22] two-sided flag, [23] Cauchy dispersion
+B, [24] parallax scale, [25:28] bssrdf sigma_a, [28:31] bssrdf sigma_s,
+[31] bssrdf g, [32:37] the alpha test (mode, threshold, key colour).
 """
 from __future__ import annotations
 
@@ -157,6 +161,176 @@ def scene_has_bump(scene: schema.SceneData) -> bool:
     return bool((schema.host_meta(scene)["mat_tex"][:, 3] >= 0).any())
 
 
+def scene_has_bssrdf(scene: schema.SceneData) -> bool:
+    b = schema.host_meta(scene).get("mat_bssrdf")
+    if b is None:
+        b = scene.materials.params[:, 25:31].sum(-1).cpu().numpy()
+    return bool((b > 0).any())
+
+
+def scene_has_parallax(scene: schema.SceneData) -> bool:
+    meta = schema.host_meta(scene)
+    pscale = meta.get("mat_parallax")
+    if pscale is None:
+        pscale = scene.materials.params[:, 24].cpu().numpy()
+    return bool(((meta["mat_tex"][:, 3] >= 0) & (pscale > 0)).any())
+
+
+def _mat_rows(scene: schema.SceneData, mat_id: Tensor):
+    """(texture ids (B, 4), params (B, N_MAT_PARAMS)) of each lane's
+    material (ids clamped into the table, as jnp.take clamps)."""
+    mats = scene.materials
+    mid = mat_id.clamp(0, mats.mat_type.shape[0] - 1).long()
+    return mats.tex[mid], mats.params[mid]
+
+
+def eval_alpha(scene: schema.SceneData, mat_id: Tensor, uv: Tensor) -> Tensor:
+    """Survival probability in [0,1] of the alpha test (1 = solid).
+
+    Mode 0 with an alpha-mask texture is the continuous opacity; the binary
+    modes come out as 0/1:
+      mode&3==1  luminance(sample) >= s survives
+      mode&3==2  alpha channel    >= s survives
+      mode&3==3  max|sample - c|  <= s survives
+      mode&4     sample the reflectance texture (slot 0), not the alpha mask
+    (the 'alpha channel' is channel 0 of the mask image)."""
+    tex_ids, p = _mat_rows(scene, mat_id)
+    mp = p[:, 32:37]
+    mode = mp[:, 0].to(torch.int32)
+    s_val = mp[:, 1]
+    c_val = mp[:, 2:5]
+    src = torch.where((mode & 4) != 0, tex_ids[:, 0], tex_ids[:, 2])
+    ones = torch.ones((mat_id.shape[0], 3), dtype=torch.float32, device=uv.device)
+    a = texmod.eval_texture(scene.textures, src, uv, ones)
+    cont = a[:, 0].clamp(0.0, 1.0)          # mode 0: continuous opacity
+    lum = a @ torch.tensor([0.212671, 0.715160, 0.072169], dtype=torch.float32,
+                           device=uv.device)
+    surv_lum = (lum >= s_val).to(torch.float32)
+    surv_alp = (a[:, 0] >= s_val).to(torch.float32)
+    surv_col = ((a - c_val).abs().amax(-1) <= s_val).to(torch.float32)
+    m3 = mode & 3
+    out = torch.where(m3 == schema.ALPHA_LUMINANCE, surv_lum,
+                      torch.where(m3 == schema.ALPHA_ALPHA, surv_alp,
+                                  torch.where(m3 == schema.ALPHA_COLOR, surv_col,
+                                              cont)))
+    return torch.where(mode == 0, cont, out)
+
+
+def apply_bump(scene: schema.SceneData, si, scale: float = 1.0):
+    """Perturb the shading frame with a height-map texture (finite-difference
+    gradients)."""
+    tex_ids, _ = _mat_rows(scene, si.mat_id)
+    bump_id = tex_ids[:, 3]
+    eps = 2e-3
+    B, dev = si.mat_id.shape[0], si.uv.device
+    zero3 = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    tex = scene.textures
+    h0 = texmod.eval_texture(tex, bump_id, si.uv, zero3)[:, 0]
+    hu = texmod.eval_texture(tex, bump_id, si.uv + torch.tensor(
+        [eps, 0.0], dtype=torch.float32, device=dev), zero3)[:, 0]
+    hv = texmod.eval_texture(tex, bump_id, si.uv + torch.tensor(
+        [0.0, eps], dtype=torch.float32, device=dev), zero3)[:, 0]
+    dhdu = (hu - h0) / eps * scale
+    dhdv = (hv - h0) / eps * scale
+    ns = vm.normalize(si.ns - si.frame_t * dhdu[:, None] - si.frame_s * dhdv[:, None])
+    has = (bump_id >= 0)[:, None]
+    ns = torch.where(has, ns, si.ns)
+    t, s2 = vm.coordinate_system(ns)
+    return si._replace(ns=ns, frame_t=torch.where(has, t, si.frame_t),
+                       frame_s=torch.where(has, s2, si.frame_s))
+
+
+def apply_parallax(scene: schema.SceneData, si, n_steps: int = 8,
+                   n_refine: int = 4):
+    """Parallax-occlusion mapping: march the height field along the
+    tangent-space view ray to the offset uv the viewer sees. Materials opt
+    in with a parallax scale in params[24]; the height is the bump texture
+    (slot 3).
+
+    With cone-step maps in the texel pool (scene/conemap.py; the host build
+    makes one for every parallax height map) the march cone-steps: each
+    iteration advances to the boundary of the conservative cone at the
+    current texel, so it never overshoots the first intersection. A table
+    without them (img_cone None, a hand-built table) takes the linear
+    search with bisection."""
+    tex_ids, p = _mat_rows(scene, si.mat_id)
+    bump_id = tex_ids[:, 3]
+    h_scale = p[:, 24]
+    active = (bump_id >= 0) & (h_scale > 0)
+    B, dev = si.mat_id.shape[0], si.uv.device
+    zero3 = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+
+    v = si.frame().to_local(si.wi)              # toward the viewer
+    vz = v[..., 2].clamp_min(0.2)
+    # uv shift per unit depth: the view ray's slope in tangent space
+    slope = torch.stack([v[..., 0], v[..., 1]], -1) / vz[..., None] * h_scale[..., None]
+    tex = scene.textures
+
+    def height(uv):
+        return texmod.eval_texture(tex, bump_id, uv, zero3)[:, 0]
+
+    if tex.img_cone is not None:
+        # ---- cone-step march ----
+        bid = bump_id.clamp(0, tex.image_id.shape[0] - 1).long()
+        timg = tex.image_id[bid].clamp(0, tex.img_cone.shape[0] - 1).long()
+        cone_off = tex.img_cone[timg]
+        w0 = tex.img_w[timg, 0]
+        h0 = tex.img_h[timg, 0]
+        tp = tex.params[bid]
+        n_texels = tex.texels.shape[0]
+
+        def cone(uv):
+            # the image fetch's uv mapping and v flip (ops/texture.py)
+            u_ = uv[:, 0] * tp[:, 6] + tp[:, 8]
+            v_ = uv[:, 1] * tp[:, 7] + tp[:, 9]
+            xi = torch.remainder(torch.floor(torch.remainder(u_, 1.0)
+                                             * w0.to(torch.float32))
+                                 .to(torch.int32), w0)
+            yi = torch.remainder(torch.floor(torch.remainder(
+                1.0 - torch.remainder(v_, 1.0), 1.0) * h0.to(torch.float32))
+                .to(torch.int32), h0)
+            idx = cone_off.clamp_min(0) + yi * w0 + xi
+            c = tex.texels[idx.clamp(0, n_texels - 1).long(), 0]
+            # no cone map: a huge ratio degenerates to secant iteration
+            return torch.where(cone_off >= 0, c, 1e3)
+
+        # ray-slope magnitude in mapped uv units (cone ratios live there)
+        smag = torch.sqrt((slope[:, 0] * tp[:, 6]) ** 2
+                          + (slope[:, 1] * tp[:, 7]) ** 2) + 1e-9
+        d = torch.zeros_like(vz)
+        for _ in range(n_steps + n_refine):
+            uv_k = si.uv - slope * d[..., None]
+            dep = 1.0 - height(uv_k)
+            c = cone(uv_k)
+            # advance to where the ray leaves the conservative cone opened
+            # at (uv_k, dep): |slope|*dd = c*(dep - (d+dd))
+            step = c * (dep - d).clamp_min(0.0) / (smag + c)
+            d = (d + step).clamp_max(1.0)
+        uv_new = si.uv - slope * d[..., None]
+        return si._replace(uv=torch.where(active[..., None], uv_new, si.uv))
+
+    # ---- linear search from the surface down + bisection refinement ----
+    d_lo = torch.zeros_like(vz)                 # last depth above the surface
+    d_hi = torch.ones_like(vz)                  # first depth below
+    found = torch.zeros_like(active)
+    for k in range(1, n_steps + 1):
+        d = torch.full_like(vz, k / n_steps)
+        h = 1.0 - height(si.uv - slope * d[..., None])
+        below = d >= h
+        d_hi = torch.where(below & ~found, d, d_hi)
+        d_lo = torch.where(~below & ~found, d, d_lo)
+        found = found | below
+    for _ in range(n_refine):
+        dm = 0.5 * (d_lo + d_hi)
+        h = 1.0 - height(si.uv - slope * dm[..., None])
+        below = dm >= h
+        d_hi = torch.where(below, dm, d_hi)
+        d_lo = torch.where(below, d_lo, dm)
+    d = 0.5 * (d_lo + d_hi)
+    uv_new = si.uv - slope * d[..., None]
+    return si._replace(uv=torch.where(active[..., None], uv_new, si.uv))
+
+
 def _mirror(w: Tensor) -> Tensor:
     """Specular reflection about +z."""
     return torch.stack([-w[..., 0], -w[..., 1], w[..., 2]], dim=-1)
@@ -212,18 +386,23 @@ _LAM2_RGB = (0.610 ** 2, 0.550 ** 2, 0.465 ** 2)   # um^2, the RGB channels
 def _dielectric_sample(ctx, wi, u):
     # dispersion: params[23] > 0 is a Cauchy B coefficient (um^2). A channel
     # is chosen by roulette on u[..., 2] and the path continues
-    # monochromatically (weight x3 on that channel)
-    if ctx.lam_um is not None:
-        raise NotImplementedError("spectral transport is not ported yet")
+    # monochromatically (weight x3 on that channel); in spectral transport
+    # (ctx.lam_um set) the lane refracts with the continuous eta at its hero
+    # wavelength instead, and the integrator collapses the companion
+    # wavelengths after the event
     disp_b = ctx.params[:, 23]
     eta_base = ctx.params[:, 4]
     dispersive = disp_b > 0.0
-    lam2 = torch.tensor(_LAM2_RGB, dtype=torch.float32, device=wi.device)
-    eta_rgb = eta_base[:, None] + disp_b[:, None] / lam2[None, :]
-    chan = (u[..., 2] * 3.0).to(torch.int32).clamp(0, 2)
-    oh = torch.arange(3, device=wi.device)[None, :] == chan[:, None]
-    eta_chan = torch.where(oh, eta_rgb, 0.0).sum(dim=1)
-    eta = torch.where(dispersive, eta_chan, eta_base)
+    if ctx.lam_um is not None:
+        eta_h = eta_base + disp_b / (ctx.lam_um * ctx.lam_um).clamp_min(1e-6)
+        eta = torch.where(dispersive, eta_h, eta_base)
+    else:
+        lam2 = torch.tensor(_LAM2_RGB, dtype=torch.float32, device=wi.device)
+        eta_rgb = eta_base[:, None] + disp_b[:, None] / lam2[None, :]
+        chan = (u[..., 2] * 3.0).to(torch.int32).clamp(0, 2)
+        oh = torch.arange(3, device=wi.device)[None, :] == chan[:, None]
+        eta_chan = torch.where(oh, eta_rgb, 0.0).sum(dim=1)
+        eta = torch.where(dispersive, eta_chan, eta_base)
     F, cos_t = fresnel.fresnel_dielectric_ext(wi[..., 2], eta)
     reflect = u[..., 0] < F
     wo_r = _mirror(wi)
@@ -235,10 +414,11 @@ def _dielectric_sample(ctx, wi, u):
     factor = torch.where(cos_t < 0, 1.0 / eta, eta)
     w_t = ctx.c1 * (factor * factor)[..., None]
     weight = torch.where(reflect[..., None], ctx.c0, w_t)
-    # dispersive lanes are monochromatic either way (F depends on the
-    # channel): isolate the sampled channel with x3 roulette compensation
-    chan_mask = torch.where(oh, 3.0, 0.0)
-    weight = torch.where(dispersive[..., None], weight * chan_mask, weight)
+    if ctx.lam_um is None:
+        # dispersive lanes are monochromatic either way (F depends on the
+        # channel): isolate the sampled channel with x3 roulette compensation
+        chan_mask = torch.where(oh, 3.0, 0.0)
+        weight = torch.where(dispersive[..., None], weight * chan_mask, weight)
     stype = torch.where(reflect, records.T_DELTA_REFLECTION,
                         records.T_DELTA_TRANSMISSION)
     eta_out = torch.where(reflect, 1.0, torch.where(cos_t < 0, eta, 1.0 / eta))

@@ -57,6 +57,23 @@ def add_samples(film: Film, pixel_x: Tensor, pixel_y: Tensor, value: Tensor,
     return film
 
 
+def add_samples_range(film: Film, start, value: Tensor, weight=None) -> Film:
+    """Add B sample values to the contiguous pixels [start, start+B) (in
+    place). As the JAX package's dynamic slice does, a negative start
+    counts from the end of the film, and start is then clamped so that the
+    range fits."""
+    B = value.shape[0]
+    if weight is None:
+        weight = torch.ones(B, dtype=torch.float32, device=value.device)
+    value = torch.where(torch.isfinite(value), value, 0.0) * weight[:, None]
+    n = film.w * film.h
+    start = int(start)
+    start = min(max(start + n if start < 0 else start, 0), n - B)
+    film.rgb.view(-1, 3)[start:start + B] += value
+    film.weight.view(-1)[start:start + B] += weight
+    return film
+
+
 def splat(film: Film, pixel_x: Tensor, pixel_y: Tensor, value: Tensor,
           mask=None) -> Film:
     """Add light-tracing splats at integer pixel coords (in place; coords

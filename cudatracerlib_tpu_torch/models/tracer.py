@@ -1,8 +1,9 @@
 """Tracer framework: progressive pass loop + camera-ray generation.
 
-Port of ``cudatracerlib_tpu/models/tracer.py`` with the box filter and the
-independent PCG sampler. A pass is a Python loop over chunks of lanes
-(lane = pixel sample); there is no jit.
+Port of ``cudatracerlib_tpu/models/tracer.py``. A pass is a Python loop
+over chunks of lanes (lane = pixel sample); there is no jit. Camera rays
+take the box, tent or Gaussian filter by filter importance sampling, and
+the independent, stratified or Sobol' sampler (models/samplers.py).
 """
 from __future__ import annotations
 
@@ -21,19 +22,22 @@ Tensor = torch.Tensor
 def gen_camera_rays(scene: schema.SceneData, pixel_idx: Tensor, sample_idx,
                     pass_idx, w: int, h: int, filter_type: int = 0,
                     sampler_type: int = 0):
-    """Per-lane camera ray generation with box-filter pixel jitter.
+    """Per-lane camera ray generation with filter-importance-sampled jitter.
 
     pixel_idx: (B,) flat pixel ids (y*w + x). Returns (rays, px, py,
-    rng_state, weight)."""
-    if filter_type != 0 or sampler_type != 0:
-        raise NotImplementedError("only the box filter and the independent "
-                                  "sampler are ported yet")
+    rng_state, weight). sampler_type: 0 = independent PCG, 1 = stratified,
+    2 = Sobol', applied to the camera dims (0-1 pixel jitter, 2-3 lens);
+    the PCG stream advances past its four draws either way."""
     state = rngmod.seed(pixel_idx, sample_idx, pass_idx)
     px = (pixel_idx % w).to(torch.int32)
     py = (pixel_idx // w).to(torch.int32)
     state, u_pix = rngmod.next_float2(state)
     state, u_lens = rngmod.next_float2(state)
-    jitter = u_pix - 0.5
+    if sampler_type != 0:
+        from . import samplers
+        u_pix = samplers.sample_2d(sampler_type, pixel_idx, sample_idx, 0)
+        u_lens = samplers.sample_2d(sampler_type, pixel_idx, sample_idx, 2)
+    jitter = _filter_jitter(filter_type, u_pix)
     p_film = torch.stack([px.to(torch.float32) + 0.5 + jitter[:, 0],
                           py.to(torch.float32) + 0.5 + jitter[:, 1]], dim=-1)
     sr = sensors.sample_ray(scene.sensor, p_film, u_lens)
@@ -41,6 +45,18 @@ def gen_camera_rays(scene: schema.SceneData, pixel_idx: Tensor, sample_idx,
     zero = torch.zeros(B, dtype=torch.float32, device=pixel_idx.device)
     rays = traversal.Rays(o=sr.o, d=sr.d, tmin=zero, tmax=zero + 1e30)
     return rays, px, py, state, sr.weight
+
+
+def _filter_jitter(filter_type: int, u: Tensor) -> Tensor:
+    """Filter importance sampling: jitter offsets in pixels, centred at 0.
+
+    0 = box (1px), 1 = tent (2px), 2 = Gaussian (sigma 0.5, clipped to 2)."""
+    from ..core import warp
+    if filter_type == 1:
+        return warp.square_to_tent(u)
+    if filter_type == 2:
+        return (warp.square_to_std_normal(u) * 0.5).clamp(-2.0, 2.0)
+    return u - 0.5
 
 
 class TracerBase:

@@ -15,9 +15,9 @@ summation order, and the same live rays.
 The JAX package's ``lax.while_loop`` is a Python loop here whose condition
 is one read back from the device per iteration (queue left, any lane
 active or draining); ``host_reads`` counts them. The bounce shares its
-math with ``path.pt_radiance`` (MIS at emitters, NEE, Russian roulette).
-Media-free scenes only, as in the JAX package; alpha, bump, parallax and
-regularization are not ported yet and raise.
+math with ``path.pt_radiance`` (MIS at emitters, NEE, Russian roulette,
+alpha masks, bump and parallax mapping). Media-free scenes only, as in the
+JAX package; regularization is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -52,8 +52,7 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
     ovf) counters advanced by the pass, and the pass's loop iterations and
     host reads."""
     global host_reads
-    pathmod._unported(with_alpha=with_alpha, with_bump=with_bump,
-                      with_parallax=with_parallax, regularize=regularize)
+    pathmod._unported(regularize=regularize)
     B = lanes
     n_paths = w * h * spp
     geom = scene.geom
@@ -113,8 +112,9 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
         miss = active & ~hit.valid
         env_le, w_env = pathmod._escaped(scene, cur.d, prev_pdf, prev_delta, use_nee)
         L = L + torch.where(miss[:, None], beta * env_le * w_env[:, None], 0.0)
-        si = shading.fill_dg(geom, cur, hit, flip_to_ray=False)
-        hit_l = active & hit.valid
+        si = pathmod._surface(scene, geom, cur, hit, with_parallax, with_bump)
+        alpha_pass, hit_l, state = pathmod._alpha_test(
+            scene, si, active & hit.valid, state, with_alpha)
         le, w_hit = pathmod._emitted(scene, si, cur.o, prev_pdf, prev_delta, use_nee)
         L = L + torch.where(hit_l[:, None], beta * le * w_hit[:, None], 0.0)
         ctx, frame, wi_local = pathmod._shading(scene, si, hit, cur.d, cone,
@@ -139,13 +139,17 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
         wo_world = frame.to_world(s.wo)
         prev_delta = (s.sampled_type & records.T_DELTA) != 0
         prev_pdf = s.pdf
-        beta_next = beta * s.weight
-        alive = (hit_l & (s.weight.abs().amax(dim=-1) > 0)
+        weight = s.weight
+        new_o = shading.offset_ray_origin(si.p, si.ng, wo_world)
+        if with_alpha:
+            wo_world, weight, prev_delta, new_o = pathmod._pass_through(
+                alpha_pass, si, cur.d, wo_world, weight, prev_delta, new_o)
+        beta_next = beta * weight
+        alive = ((hit_l | alpha_pass) & (weight.abs().amax(dim=-1) > 0)
                  & (depth + 1 < max_depth))
         state, beta_next, alive = pathmod._roulette(state, beta_next, alive,
                                                     depth >= rr_depth)
-        cur = traversal.Rays(o=shading.offset_ray_origin(si.p, si.ng, wo_world),
-                             d=wo_world, tmin=zero, tmax=zero + 1e30)
+        cur = traversal.Rays(o=new_o, d=wo_world, tmin=zero, tmax=zero + 1e30)
         beta = torch.where(alive[:, None], beta_next, 0.0)
         # a path that stops here still owes its last NEE: the lane drains
         # for one iteration (fin) before it is added to the film and reused
@@ -206,9 +210,7 @@ class WavefrontPT(tracer.TracerBase):
                          seed=seed)
         if mediummod.has_media(scene.media):
             raise ValueError("WavefrontPT is the media-free fast path; use PathTracer")
-        pathmod._unported(regularize=regularize,
-                          alpha=bsdfmod.scene_has_alpha(scene),
-                          bump=bsdfmod.scene_has_bump(scene))
+        pathmod._unported(regularize=regularize)
         self.max_depth = max_depth
         if active_types is None:
             active_types = pathmod.scene_active_types(scene)
@@ -224,6 +226,9 @@ class WavefrontPT(tracer.TracerBase):
         self._kw = dict(w=width, h=height, lanes=self.lanes, spp=spp_per_pass,
                         max_depth=max_depth, rr_depth=rr_depth, use_nee=use_nee,
                         active_types=self.active_types,
+                        with_alpha=bsdfmod.scene_has_alpha(scene),
+                        with_bump=bsdfmod.scene_has_bump(scene),
+                        with_parallax=bsdfmod.scene_has_parallax(scene),
                         with_textures=bsdfmod.scene_texture_mask(scene))
 
     def render_pass(self, scene, film, pass_idx):

@@ -5,10 +5,11 @@ Port of the flat path of ``cudatracerlib_tpu/scene/host.py``. Scenes under
 4,096 triangles take the numpy binned-SAH builder; larger ones the native
 builder (``scene/native_bvh.py``), a dummy 2-wide BVH, and, when the fat-row
 table exceeds 2,048 rows, its treelet split (``scene/treelet.py``). Images
-get their full mip chain in one texel pool. Homogeneous and grid media fill
-the image of the unit cube under their to_world, and the world bounds grow
-to hold them. There is no instancing, and a parallax material's cone map
-raises. The numpy code is carried
+get their full mip chain in one texel pool, and a parallax material's
+height map its cone-step map (``scene/conemap.py``) in the same pool.
+Homogeneous and grid media fill the image of the unit cube under their
+to_world, and the world bounds grow to hold them. There is no instancing.
+The numpy code is carried
 over verbatim; tensors are made only at the ``SceneData`` boundary
 (``schema.to_tensor``), and the arrays are byte-identical to the JAX
 build's (the treelet tables in the port's row-major layout).
@@ -24,7 +25,7 @@ import numpy as np
 from . import alias as aliasmod
 from . import bvh as bvhmod
 from . import bvh8 as bvh8mod
-from . import native_bvh, schema, shapes
+from . import conemap, native_bvh, schema, shapes
 from . import treelet as treeletmod
 from ..ops import traversal8
 
@@ -355,6 +356,9 @@ class DynamicScene:
             mat_type=np.asarray([m["mat_type"] for m in mats], np.int32),
             mat_tex=np.stack([np.asarray(m["tex"], np.int32) for m in mats]),
             mat_alpha_mode=np.asarray([m["params"][32] for m in mats], np.float32),
+            mat_parallax=np.asarray([m["params"][24] for m in mats], np.float32),
+            mat_bssrdf=np.asarray([float(m["params"][25:31].sum()) for m in mats],
+                                  np.float32),
             world_lo=np.asarray(b.world_lo, np.float32),
             world_hi=np.asarray(b.world_hi, np.float32),
             light_type=np.asarray([l["light_type"] for l in self._lights]
@@ -398,13 +402,14 @@ class DynamicScene:
             if tx.image is not None:
                 images.append(np.asarray(tx.image, np.float32))
                 image_id[i] = len(images) - 1
-        # parallax materials need a cone-step map of their height image
+        # images needing a cone-step map: height maps (bump slot 3) of
+        # parallax materials (scene/conemap.py)
+        cone_imgs = set()
         for m in self._materials:
             if float(m["params"][24]) > 0:
                 ti = int(m["tex"][3])
                 if 0 <= ti < X and image_id[ti] >= 0:
-                    raise NotImplementedError(
-                        "parallax cone maps are not ported yet")
+                    cone_imgs.add(int(image_id[ti]))
 
         def quad_pack(lv: np.ndarray) -> np.ndarray:
             """(h, w, 3) level -> (h*w, 12) rows of the 2x2 wrap-neighborhood
@@ -418,7 +423,7 @@ class DynamicScene:
             qpool = []
             cone_offs = []
             cursor = 0
-            for img in images:
+            for img_i, img in enumerate(images):
                 # full mip chain by 2x2 box downsampling (reference MIPMap)
                 levels = [img]
                 while min(levels[-1].shape[0], levels[-1].shape[1]) > 1 \
@@ -445,7 +450,16 @@ class DynamicScene:
                     h_row[li] = h_row[len(levels) - 1]
                 offs.append(o_row); ws.append(w_row); hs.append(h_row)
                 nmips.append(len(levels))
-                cone_offs.append(-1)
+                if img_i in cone_imgs:
+                    cone = conemap.build_cone_map(img.mean(-1))
+                    pool.append(np.repeat(cone.reshape(-1, 1), 3, axis=1))
+                    # cone maps are point-sampled from the flat pool; the
+                    # quad pool only pads to keep the shared offsets aligned
+                    qpool.append(np.zeros((cone.size, 12), np.float32))
+                    cone_offs.append(cursor)
+                    cursor += cone.size
+                else:
+                    cone_offs.append(-1)
             texels = np.concatenate(pool)
             texels_quad = np.concatenate(qpool)
             img_offset = np.stack(offs)

@@ -233,7 +233,8 @@ class SceneData(NamedTuple):
 
 def host_meta(scene: SceneData) -> dict:
     """Numpy mirrors of the scene's small metadata tables: mat_type, mat_tex,
-    mat_alpha_mode, world_lo, world_hi, light_type, n_media; the port's own
+    mat_alpha_mode, mat_parallax, mat_bssrdf, world_lo, world_hi,
+    light_type, n_media; the port's own
     builds add build_seconds (host seconds of the BVH build and of the
     treelet partition)."""
     return scene.host

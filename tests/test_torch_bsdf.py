@@ -300,7 +300,22 @@ def test_delta_types_are_zero_lobes_and_delta_only():
 
 
 def test_dielectric_spectral_branch_raises():
-    d = _dielectric_data("normal", True)
-    ctx = _ctx(tbsdf, d, "torch")._replace(lam_um=torch.full((N,), 0.55))
-    with pytest.raises(NotImplementedError):
-        tbsdf.sample(ctx, torch.from_numpy(d["wi"]), torch.rand(N, 3), DELTA_TYPES)
+    """The dielectric's hero-wavelength branch (spectral transport, ported
+    since it first raised here): the continuous Cauchy eta at each lane's
+    wavelength, no channel roulette; held to the JAX branch as
+    test_dielectric_sample holds the RGB one."""
+    for case in ("normal", "inside_out", "tir"):
+        d = _dielectric_data(case, True)
+        lam = np.random.default_rng(9).uniform(0.38, 0.72, N).astype(np.float32)
+        u = np.random.default_rng(10).random((N, 3)).astype(np.float32)
+        ts = tbsdf.sample(_ctx(tbsdf, d, "torch")._replace(lam_um=torch.from_numpy(lam)),
+                          torch.from_numpy(d["wi"]), torch.from_numpy(u), DELTA_TYPES)
+        js = jbsdf.sample(_ctx(jbsdf, d, "jax")._replace(lam_um=jnp.asarray(lam)),
+                          jnp.asarray(d["wi"]), jnp.asarray(u), DELTA_TYPES)
+        np.testing.assert_array_equal(ts.sampled_type.numpy(), np.asarray(js.sampled_type))
+        _close(ts.wo, js.wo, DIR_TOL, err_msg="wo")
+        for name in ("weight", "pdf", "eta"):
+            _close(getattr(ts, name), getattr(js, name), TOL, err_msg=name)
+        # no channel isolation: a dispersive dielectric lane keeps its channels
+        diel = torch.from_numpy(d["mat"] == schema.BSDF_DIELECTRIC)
+        assert ((ts.weight[diel] > 0).sum(1) == 3).all()

@@ -290,6 +290,12 @@ def test_bdpt_on_gpu(dev):
 # kernels follow the card's camera rays, within 1.8e-7 of the CPU's)
 PPM_LIMIT = 1e-4
 PT_LIMIT = 1e-5
+# the game tracer's limit: a neighbour crossing one of its hard tests moves
+# its pixel by ~1/30 of itself, 1/256 of the image at 16x16 (chip_smoke.py
+# holds 1e-4 at 32x32); the adaptive tracer's is the path tracer's, as
+# chip_smoke.py's ADAPT_CARD_CPU_LIMIT
+GAME_LIMIT = 1e-3
+ADAPT_LIMIT = 1e-5
 
 
 @pytest.mark.gpu
@@ -416,3 +422,40 @@ def test_sensors_on_gpu(dev):
                 cls, lambda w, h: _sensor_scene(st, w, **kw), 16, 2, max_depth=3)
             assert n > 0 and np.isfinite(card).all() and card.mean() > 0
             assert _rel(card, cpu) < 1e-5, (st, cls.__name__, _rel(card, cpu))
+
+
+@pytest.mark.gpu
+def test_game_on_gpu(dev):
+    """GameTracer on Cornell 16x16, 3 frames: two K1 launches a frame
+    (camera rays, shadow rays); the card image within GAME_LIMIT of the CPU
+    image."""
+    from cudatracerlib_tpu_torch.models import game as tgame
+    card, cpu, n = _card_and_cpu(tgame.GameTracer, tscenes.cornell_box, 16, 3)
+    assert n == 2 * 3 and np.isfinite(card).all() and card.mean() > 0
+    assert _rel(card, cpu) < GAME_LIMIT, _rel(card, cpu)
+
+
+@pytest.mark.gpu
+def test_adaptive_on_gpu(dev):
+    """AdaptivePathTracer on veach-mis 16x16 (one block), 4 blocks a pass
+    (the block repeats: duplicate pixels in the film and the variance
+    buffer), depth 3, 4 passes: 4 K1 launches a pass; the card image within
+    ADAPT_LIMIT of the CPU image."""
+    from cudatracerlib_tpu_torch.models import adaptive as tad
+    card, cpu, n = _card_and_cpu(tad.AdaptivePathTracer, tscenes.veach_mis, 16, 4,
+                                 max_depth=3, blocks_per_pass=4)
+    assert n == 4 * 4 and np.isfinite(card).all() and card.mean() > 0
+    assert _rel(card, cpu) < ADAPT_LIMIT, _rel(card, cpu)
+
+
+@pytest.mark.gpu
+def test_sequence_samplers_on_gpu(dev):
+    """PathTracer with the stratified and Sobol' samplers on Cornell
+    16x16, depth 4, 2 passes: the card image within 1e-5 of the CPU
+    image."""
+    from cudatracerlib_tpu_torch.models import path as tpath
+    for st in (1, 2):
+        card, cpu, n = _card_and_cpu(tpath.PathTracer, tscenes.cornell_box, 16, 2,
+                                     max_depth=4, sampler_type=st)
+        assert n == 2 * 5 and np.isfinite(card).all() and card.mean() > 0
+        assert _rel(card, cpu) < PT_LIMIT, (st, _rel(card, cpu))

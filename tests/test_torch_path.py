@@ -100,11 +100,15 @@ def test_cornell_golden():
 
 
 def test_unported_features_raise():
+    """Path regularization (it needs the rough dielectric) and the unported
+    BSDF types still raise; the sequence samplers are ported
+    (tests/test_torch_samplers.py)."""
     sc = tscenes.cornell_box(8, 8).build("cpu")
-    with pytest.raises(NotImplementedError):
-        tpath.PathTracer(sc, 8, 8, sampler_type=2)
+    with pytest.raises(NotImplementedError, match="regularize"):
+        tpath.PathTracer(sc, 8, 8, regularize=True)
     with pytest.raises(NotImplementedError):
         tpath.PathTracer(sc, 8, 8, active_types=(0, 7)).render(1)
+    assert tpath.PathTracer(sc, 8, 8, sampler_type=2).render(1).isfinite().all()
 
 
 def test_veach_mis_pass_for_pass():

@@ -134,10 +134,17 @@ def test_gather_ctx_textures_match_jax(tables):
 
 
 def test_parallax_cone_maps_raise():
+    """A parallax material's cone map, which raised before it was ported,
+    now builds into the texel pool (byte for byte against the JAX build in
+    tests/test_torch_texture_features.py)."""
     sc = tscenes.cornell_box(8, 8)
     img = np.ones((8, 8, 3), np.float32)
     sc.add_material(thost.MaterialSpec(
         parallax_scale=0.05,
         tex_bump=thost.TextureSpec(tex_type=schema.TEX_IMAGE, image=img)))
-    with pytest.raises(NotImplementedError):
-        sc.build("cpu")
+    tex = sc.build("cpu").textures
+    off = int(tex.img_cone[0])
+    assert off >= 0
+    # a flat height map rises nowhere: every cone ratio is the window clamp
+    np.testing.assert_array_equal(tex.texels[off:off + 64].numpy(),
+                                  np.full((64, 3), 7 / 8, np.float32))

@@ -10,7 +10,8 @@ JAX package's WavefrontPT at 16x16, depth 3, 256 lanes, 2 passes: the film
 within a mean relative error of 0.5% (float drift can flip a rare roulette
 draw, as in test_torch_path.py), the weights equal, the live rays within
 0.1%. The capped and overflowed counts are 0; the loop reads one exit test
-back per iteration, plus the last; a fog scene and an alpha scene raise.
+back per iteration, plus the last; a fog scene and regularization raise
+(alpha, bump and parallax scenes are ported: test_torch_texture_features).
 """
 import numpy as np
 import pytest
@@ -86,7 +87,6 @@ def test_unported_scenes_raise():
         twf.WavefrontPT(fog, 8, 8)
     sc = tscenes.cornell_box(8, 8)
     sc.add_material(thost.MaterialSpec(alpha_mode=tschema.ALPHA_LUMINANCE))
-    with pytest.raises(NotImplementedError):
-        twf.WavefrontPT(sc.build("cpu"), 8, 8)
-    with pytest.raises(NotImplementedError):
+    assert twf.WavefrontPT(sc.build("cpu"), 8, 8)._kw["with_alpha"]
+    with pytest.raises(NotImplementedError, match="regularize"):
         twf.WavefrontPT(tscenes.cornell_box(8, 8).build("cpu"), 8, 8, regularize=True)
