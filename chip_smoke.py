@@ -5,7 +5,9 @@ passes, the PPM and volumetric path-tracing passes in fog, the
 non-perspective sensors, the regenerating wavefront path tracer, the
 FastTracer and the game tracer on San Miguel, the adaptive block sampler
 with the image pipeline and the Sobol' sampler on veach-mis, the alpha,
-bump, parallax, BSSRDF and spectral scenes, and the microbenchmarks P1-P3.
+bump, parallax, BSSRDF and spectral scenes, two-level instanced scenes
+(their BLAS visits on K1, or K2, K3 and the K1 fallback, with per-lane
+roots), instance moves, refit and skinning, and the microbenchmarks P1-P3.
 
     python3 chip_smoke.py [--profile]
 
@@ -161,6 +163,38 @@ failure exits non-zero, and nothing falls back to the CPU:
 8. P1-P3 (utils/microbench.py) timed at their full sizes, with the counts
    zeroed around the run; the output of every timed configuration must
    equal its plain version's on the same inputs.
+9a. (instanced_phases) the instanced golden: PathTracer on the JAX tests'
+   instanced scene (five nodes sharing one sphere: six instances, the
+   dense route, K1 with per-lane roots) at 48^2, depth 4, 8 passes against
+   tests/goldens/instanced_48_pt.npz (< 0.02), and against the CPU pass by
+   pass (CARD_CPU_LIMIT); 30 K1 launches a pass;
+9b. bench.py's instanced scene (one 33,020-triangle sphere shared by 16
+   nodes, a floor, and for the path tracer an area light) at 512^2, built
+   instanced (a split forest: root_top set) and flattened (528,324
+   triangles), build
+   seconds and rows of each; one traversal of 131,072 camera rays through
+   each, Mrays/s; the instanced hits against the flattened ones (validity,
+   t within 1e-5 and the node each lands on identical but on grazing rays,
+   |cos| < GRAZE, at most 1e-4 of the rays); every K2 (per-lane top-local
+   roots), K3 and K1 (per-lane global roots) call of one instanced
+   traversal held to its plain version (hold_calls: identical, device
+   time, plain time, bound);
+9c. PathTracer on it, 512^2, depth 5, chunks of 131,072, 2 passes, the
+   flattened build's beside it: s/pass, live Mrays/s, launches per pass
+   (K2, K3 and K1 one each per instance per traversal, 17 x 6 traversals a
+   chunk), one instanced pass profiled, live rays within LIVE_RAYS_GAP of
+   the flattened build's, pass by pass;
+9d. the 530-instance grid at 512^2 (the TLAS route): its camera rays'
+   visit lists drop nothing; PathTracer depth 5, a warm-up and 2 timed
+   passes: 12 K1 launches (per-lane roots) per traversal, the visits its
+   other rays drop past the budget (counted), the TLAS walk's host reads,
+   its image against the flattened build's (< 0.02); every K1 call of one
+   traversal held to its plain version; one pass profiled;
+9e. one instance of 9b's scene moved in 4 frames through update_transforms,
+   each frame's 256^2 pass against a fresh build's (< 0.02), update and
+   build seconds; the Cornell box's sphere moved through the flat refit,
+   its hits (t, validity) identical to a fresh build's; skin_vertices of
+   65,536 vertices on the card against the CPU (SKIN_LIMIT).
 
 The kernel table comes next: one row for each variant of K1 and K2, for
 K3 and each of the probe's K3 designs, and for K4 and P1-P3, with its
@@ -171,7 +205,8 @@ fallback batch, K2 and K3 at V=3, K4 on veach-mis; the other shapes under
 by_scene, by_tracer (K1 shared: one pass of each tracer of 4d-4q, summed by
 mode, the adaptive and Sobol' passes among them; K1 global, K2 and K3:
 WavefrontPT's, the FastTracer's and the GameTracer's launches per pass
-and their recorded calls on San Miguel),
+and their recorded calls on San Miguel; K1 shared, K1 global, K2 and K3
+also the instanced traversals of 9b and 9d, every call summed),
 by_v, fallback_by_v and mixed_rays; the forced global variant and the
 probe's designs on the same rays beside K1's and K2's shared rows; the
 probe's split of the slots beside its cluster design), its device time
@@ -292,6 +327,38 @@ ADAPT_CARD_CPU_LIMIT = 1e-5
 GAME_FRAMES = 4
 GAME_CARD_CPU_FRAMES = 3
 GAME_CARD_CPU_LIMIT = 1e-4
+# two-level instancing (9a-9e): the instanced golden's passes (card and
+# CPU, tests/test_goldens_family.py's 8); bench.py's instanced scene at
+# INST_SIZE^2 with INST_RAYS camera rays (bench.py:436-438) and its path
+# tracer (depth INST_DEPTH, chunks of INST_RAYS, INST_PASSES timed passes,
+# the flattened build's beside it); the 530-instance grid's timed passes;
+# the frames of the moved instance and their film size
+INST_GOLDEN_PASSES = 8
+INST_SIZE = 512
+INST_RAYS = 131072
+INST_DEPTH = 5
+INST_PASSES = 2
+GRID_PASSES = 2
+UPDATE_FRAMES = 4
+UPDATE_SIZE = 256
+# an instanced hit may part from the flattened build's only where the ray
+# grazes the surface (|cos| below this between the ray and the normal):
+# each build rounds the ray in its own space (local against world)
+GRAZE = 0.05
+# the instanced path tracer's live rays against the flattened build's, per
+# pass: the same paths, parting only where a grazing ray's hit differs
+LIVE_RAYS_GAP = 1e-3
+# the grid path tracer's bounce and shadow rays drop visits past the TLAS
+# walk's budget of 12, as the JAX walk does (its camera rays drop none):
+# 58,185.5 a pass measured (H100 80GB HBM3, 700 W); a pass that drops more
+# than this fails
+GRID_DROPPED_MAX_PER_PASS = 60_000
+# lanes of one of the grid's merged traversals whose TLAS walk is rerun on
+# the CPU: visit lists, counts and dropped visits identical
+GRID_TLAS_CPU_LANES = 65536
+# skin_vertices on the card against the CPU: sums of four products of
+# values of a few units, each side rounding its own order
+SKIN_LIMIT = 1e-5
 # device_ms's sleeping kernel: ~6 ms at the H100's 1.755 GHz, longer than
 # the host takes to queue its calls
 SLEEP_CYCLES = 10_000_000
@@ -508,27 +575,11 @@ def profile_pass(tr, scene_name, **extra):
 
 
 def record_k1(run, traversal8, Rays):
-    """Run `run()` with intersect_scene's kernel choice (traversal8._wide_fn)
-    wrapped so that each K1 call's table, a copy of its rays and its mode
-    are recorded (every call still launches K1 and counts); returns the list
-    of (table, rays, kw)."""
-    calls, orig = [], traversal8._wide_fn
-
-    def wide_fn(table, pool=False):
-        fn = orig(table, pool)
-
-        def rec(table, rays, **kw):
-            calls.append((table, Rays(*(x.clone() for x in rays)),
-                          {k: v for k, v in kw.items()
-                           if k in ("any_hit", "any_mask") and v is not None}))
-            return fn(table, rays, **kw)
-        return rec
-    traversal8._wide_fn = wide_fn
-    try:
-        run()
-    finally:
-        traversal8._wide_fn = orig
-    return calls
+    """The K1 calls of `run()` as record_kernels records them: the list of
+    (table, rays, kw)."""
+    from cudatracerlib_tpu_torch.ops import traversal_tt
+    return [(args[0], args[1], kw) for kind, args, kw
+            in record_kernels(run, traversal8, traversal_tt, Rays) if kind == "K1"]
 
 
 def k1_on_calls(label, calls, K1, traversal8, mb):
@@ -1625,6 +1676,559 @@ def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
     return {"game": out}
 
 
+def inst_scene(host, schema, sensors, shapes, tf, size, n_spheres=5):
+    """tests/test_instancing.py `_scene`: a floor, an emissive light and
+    five nodes sharing one 12x24 sphere (six instances: the dense route)."""
+    sc = host.DynamicScene()
+    white = sc.add_material(host.MaterialSpec(reflectance=(0.7, 0.7, 0.7)))
+    red = sc.add_material(host.MaterialSpec(reflectance=(0.6, 0.1, 0.1)))
+    black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+    rect = shapes.rectangle()
+    sc.create_node(rect, white, tf.compose(tf.translate([0, -1, 0]),
+                                           tf.rotate_deg([1, 0, 0], -90), tf.scale(4.0)),
+                   name="floor")
+    sc.create_node(rect, black, tf.compose(tf.translate([0, 2.5, 0]),
+                                           tf.rotate_deg([1, 0, 0], 90), tf.scale(1.0)),
+                   emission=(10.0, 10.0, 10.0), name="light")
+    ball = shapes.sphere(radius=0.4, n_theta=12, n_phi=24)
+    for i in range(n_spheres):
+        sc.create_node(ball, red if i % 2 else white,
+                       tf.compose(tf.translate([-1.6 + i * 0.8, -0.6, 0.3 * (i % 3)]),
+                                  tf.scale(0.8 + 0.1 * i)), name=f"ball{i}")
+    sc.set_sensor(sensors.make_sensor(
+        schema.SENSOR_PERSPECTIVE, tf.look_at([0, 0.5, -4.5], [0, -0.3, 0]),
+        fov_x_deg=40.0, film_w=size, film_h=size))
+    return sc
+
+
+def grid_scene(host, schema, sensors, shapes, tf, size):
+    """tests/test_instancing.py:120-160: one 6x12 sphere shared by a 23x23
+    grid of nodes, a floor and a light (530 instances: the TLAS route)."""
+    sc = host.DynamicScene()
+    white = sc.add_material(host.MaterialSpec(reflectance=(0.7, 0.7, 0.7)))
+    black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+    rect = shapes.rectangle()
+    sc.create_node(rect, white, tf.compose(tf.translate([0, -1, 0]),
+                                           tf.rotate_deg([1, 0, 0], -90), tf.scale(40.0)),
+                   name="floor")
+    sc.create_node(rect, black, tf.compose(tf.translate([0, 6, 0]),
+                                           tf.rotate_deg([1, 0, 0], 90), tf.scale(2.0)),
+                   emission=(30.0, 30.0, 30.0), name="light")
+    ball = shapes.sphere(radius=0.3, n_theta=6, n_phi=12)
+    for gx in range(23):
+        for gz in range(23):
+            sc.create_node(ball, white, tf.translate([(gx - 11) * 0.9, -0.7,
+                                                      (gz - 11) * 0.9]),
+                           name=f"b{gx}_{gz}")
+    sc.set_sensor(sensors.make_sensor(
+        schema.SENSOR_PERSPECTIVE, tf.look_at([0, 3.0, -14.0], [0, -0.5, 0]),
+        fov_x_deg=50.0, film_w=size, film_h=size))
+    return sc
+
+
+def bench_inst_scene(host, schema, sensors, shapes, tf, size):
+    """bench.py:413-433, the instanced A/B scene: one 33,020-triangle sphere
+    shared by a 4x4 grid of nodes, over a floor; flattened, 528,324
+    triangles. bench.py times only its traversal and gives it no emitter;
+    for the path tracer it gets one area light (a 6x6 rectangle 5 units up,
+    facing down), which stays in the flattened part with the floor."""
+    sc = host.DynamicScene()
+    white = sc.add_material(host.MaterialSpec(reflectance=(0.7, 0.7, 0.7)))
+    red = sc.add_material(host.MaterialSpec(reflectance=(0.6, 0.1, 0.1)))
+    floor = sc.add_material(host.MaterialSpec(reflectance=(0.4, 0.4, 0.4)))
+    sc.create_node(shapes.rectangle(), floor,
+                   tf.compose(tf.translate([0, -1, 0]),
+                              tf.rotate_deg([1, 0, 0], -90), tf.scale(30.0)))
+    sc.create_node(shapes.rectangle(), floor,
+                   tf.compose(tf.translate([0, 5, 0]), tf.rotate_deg([1, 0, 0], 90),
+                              tf.scale(3.0)), emission=(8.0, 8.0, 8.0), name="light")
+    ball = shapes.sphere(radius=0.6, n_theta=128, n_phi=130)
+    for i in range(4):
+        for j in range(4):
+            sc.create_node(ball, red if (i + j) % 2 else white,
+                           tf.translate([-3.0 + 2.0 * i, -0.4, -3.0 + 2.0 * j]),
+                           name=f"ball{i}_{j}")
+    sc.set_sensor(sensors.make_sensor(
+        schema.SENSOR_PERSPECTIVE, tf.look_at([0, 4.0, -9.0], [0, -0.5, 0]),
+        fov_x_deg=50.0, film_w=size, film_h=size))
+    return sc
+
+
+def record_kernels(run, traversal8, traversal_tt, Rays, window=None):
+    """Run `run()` with both traversals' kernel choices
+    (traversal8._wide_fn, traversal_tt._kernels) wrapped, so that each K1,
+    K2 and K3 call's inputs are recorded, copied (every call still
+    launches and counts); with `window` (start, stop) only the calls of
+    those indices in call order. Returns [(kernel, args, kw)]."""
+    calls = []
+    n = [0]
+    orig_wide, orig_kernels = traversal8._wide_fn, traversal_tt._kernels
+
+    def record(kind, args):
+        n[0] += 1
+        if window is None or window[0] <= n[0] - 1 < window[1]:
+            calls.append((kind, *args()))
+
+    def keep(kw):
+        return {k: v.clone() if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()
+                if k in ("any_hit", "any_mask", "roots") and v is not None
+                and v is not False}
+
+    def copy_rays(rays):
+        return Rays(*(x.clone() for x in rays))
+
+    def wide_fn(table, pool=False):
+        fn = orig_wide(table, pool)
+
+        def rec(table, rays, **kw):
+            record("K1", lambda: ((table, copy_rays(rays)), keep(kw)))
+            return fn(table, rays, **kw)
+        return rec
+
+    def kernels(top):
+        p1, p2 = orig_kernels(top)
+
+        def r1(top, rays, V, **kw):
+            record("K2", lambda: ((top, copy_rays(rays), V), keep(kw)))
+            return p1(top, rays, V, **kw)
+
+        def r2(slabs, rays, t_prune, keys, order, V, **kw):
+            record("K3", lambda: ((slabs, copy_rays(rays), t_prune.clone(), keys.clone(),
+                                   order.clone(), V), keep(kw)))
+            return p2(slabs, rays, t_prune, keys, order, V, **kw)
+        return r1, r2
+    traversal8._wide_fn, traversal_tt._kernels = wide_fn, kernels
+    try:
+        run()
+    finally:
+        traversal8._wide_fn, traversal_tt._kernels = orig_wide, orig_kernels
+    return calls
+
+
+def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
+    """Each recorded call (record_kernels) run again on its kernel and on
+    its plain version: every field identical (hits, visit lists, counts,
+    steps, flags). Per kernel, summed over its calls: launches, rays, live
+    rays (tmax > tmin), steps, the kernel's time (CUDA-synchronised median
+    of 3 runs, launch included) and device time (CUDA events behind a
+    sleeping kernel, median of 3), the plain version's time (one
+    synchronised run) and the bound (the tables once, the rays with their
+    roots in, the outputs out; steps times a node step's operations).
+    Emits one line per kernel; returns {kernel: dict}."""
+    out = {}
+    for kind, args, kw in calls:
+        mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
+        rays = args[1]
+        B = rays.o.shape[0]
+        extra = B * 4 if "roots" in kw else 0
+        if kind == "K1":
+            table = args[0]
+            run = lambda: K1(table, rays, with_iters=True, **kw)
+            plain = lambda: traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+            flat = lambda r: (*r[0], r[1], r[2])
+            steps_of = lambda r: r[1]
+            n_bytes = lambda: table.numel() * 4 + B * (32 + int(mode == "mixed")) + B * 21
+            variant = traversal8.launch_variant(table)
+        elif kind == "K2":
+            top, _, V = args
+            run = lambda: K2(top, rays, V, **kw)
+            plain = lambda: traversal_tt.top_visits(top, rays, V, **kw)
+            flat = lambda r: (*r[0], *r[1:])
+            steps_of = lambda r: r[5]
+            n_bytes = lambda: top.numel() * 4 + B * 33 + B * (29 + 8 * V)
+            variant = traversal8.launch_variant(top)
+        else:
+            slabs, _, t_prune, keys, order, V = args
+            run = lambda: K3(slabs, rays, t_prune, keys, order, V, **kw)
+            plain = lambda: traversal_tt.treelet_hits(slabs, rays, t_prune, keys, order,
+                                                      V, **kw)
+            flat = lambda r: (*r[0], *r[1:])
+            steps_of = lambda r: r[1]
+            tid = keys >> traversal_tt.VID_ROOT_BITS
+            needed = int(torch.unique(tid[tid < slabs.shape[0]]).numel())
+            n_bytes = lambda: needed * slabs[0].numel() * 4 + B * 33 + B * V * 29
+            variant = "global"
+        got = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ok, err = same(flat(got), flat(ref))
+        if not ok:
+            fail(f"{kind} disagrees with its plain version on {label} ({mode}, {kw.keys()})")
+        steps = int(steps_of(got).sum())
+        bound = mb.bound_ms(n_bytes() + extra, steps * traversal8.NODE_STEP_FLOPS)
+        r = out.setdefault(kind, dict(launches=0, rays=0, live_rays=0, with_roots=0,
+                                      by_mode={}, variants={}, err=0.0, steps=0,
+                                      ms=0.0, device_ms=0.0, plain_ms=0.0,
+                                      bound_ms=0.0))
+        r["launches"] += 1
+        r["rays"] += B
+        r["live_rays"] += int((rays.tmax > rays.tmin).sum()) if kind != "K3" else 0
+        r["with_roots"] += int("roots" in kw)
+        r["by_mode"][mode] = r["by_mode"].get(mode, 0) + 1
+        r["variants"][variant] = r["variants"].get(variant, 0) + 1
+        r["err"] = max(r["err"], err)
+        r["steps"] += steps
+        r["ms"] += cuda_median_ms(run, reps=3)
+        r["device_ms"] += device_ms(run, reps=3)
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += bound[0]
+    for kind, r in out.items():
+        emit(phase="kernel_on_call", kernel=kind, call_of=label, identical=True,
+             max_abs_err=r["err"], **{k: v for k, v in r.items() if k != "err"})
+    return out
+
+
+def instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmod,
+                     tracermod, filmmod, example_scenes, traversal8, traversal_tt, mb):
+    """9a-9e, two-level instancing (the main path of this slice: the path
+    tracer on instanced scenes, each BLAS visit on K1, or K2, K3 and the K1
+    fallback, with per-lane roots). Returns the kernel-table entries
+    {kernel: {tracer: dict}}."""
+    from cudatracerlib_tpu_torch.ops import instanced
+    from cudatracerlib_tpu_torch.ops import shading
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    from cudatracerlib_tpu_torch.scene import animation, host, schema, sensors, shapes
+    from cudatracerlib_tpu_torch.utils import transforms as tf
+    mods = (host, schema, sensors, shapes, tf)
+    out = {}
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_mode=dict(K1.launches_by_mode),
+                    K1_by_variant=dict(K1.launches_by_variant),
+                    K2_by_v=dict(K2.launches_by_v),
+                    K2_by_variant=dict(K2.launches_by_variant),
+                    K3_by_v=dict(K3.launches_by_v), K4=K4.launches, plain=plain_calls())
+
+    def finite(img, what):
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail(f"the {what} image is not finite and non-black")
+
+    # 9a. the instanced golden on the card, and the card against the CPU
+    # pass by pass
+    trs = [pathmod.PathTracer(inst_scene(*mods, 48).build(d), 48, 48, max_depth=4)
+           for d in (dev, "cpu")]
+    zero_counts()
+    rels = []
+    for _ in range(INST_GOLDEN_PASSES):
+        imgs = [tr.render(1).cpu().numpy() for tr in trs]
+        for img in imgs:
+            finite(img, "instanced golden")
+        rels.append(float(np.abs(imgs[0] - imgs[1]).mean() / max(imgs[1].mean(), 1e-9)))
+    c = counts()
+    g_rel = golden_rel(imgs[0], "instanced_48_pt.npz")
+    emit(phase="inst_golden", size=48, max_depth=4, passes=INST_GOLDEN_PASSES,
+         golden_rel_err=g_rel, golden_limit=0.02, card_vs_cpu_rel_err=max(rels),
+         rel_err_by_pass=rels, card_cpu_limit=CARD_CPU_LIMIT, launches=c)
+    if not g_rel < 0.02:
+        fail(f"the instanced golden drifted on the card: {g_rel}")
+    if not max(rels) < CARD_CPU_LIMIT:
+        fail(f"the instanced card image differs from the CPU image: {rels}")
+    # 6 instances x (4 merged traversals + 1 shadow flush) a pass, K1 alone
+    if c["K1"] != INST_GOLDEN_PASSES * 5 * 6 or c["K2_by_v"][3] or c["plain"] or c["K4"]:
+        fail(f"the instanced golden took the wrong kernels: {c}")
+    del trs
+
+    # 9b. bench.py's instanced scene at 512^2: builds, and one traversal of
+    # 131,072 camera rays through both
+    size = INST_SIZE
+    sc = bench_inst_scene(*mods, size)
+    builds = {}
+    for mode in ("auto", "off"):
+        t0 = time.perf_counter()
+        builds[mode] = sc.build(dev, instancing=mode)
+        torch.cuda.synchronize()
+        s_ = builds[mode]
+        emit(phase="inst_build", scene="bench_instanced", instancing=mode,
+             seconds=time.perf_counter() - t0, tris=s_.num_tris,
+             wide_rows=s_.geom.wide.shape[0],
+             top_rows=None if s_.geom.tt_top is None else s_.geom.tt_top.shape[0],
+             treelets=None if s_.geom.tt_slabs is None else s_.geom.tt_slabs.shape[0],
+             instances=None if s_.geom.inst is None else s_.geom.inst.root.shape[0],
+             root_top_set=s_.geom.inst is not None and s_.geom.inst.root_top is not None,
+             bvh_seconds=s_.host["build_seconds"]["bvh"],
+             treelet_seconds=s_.host["build_seconds"]["treelet"])
+    inst, flat = builds["auto"], builds["off"]
+    if inst.geom.inst is None or inst.geom.inst.root_top is None or inst.geom.tt_top is None:
+        fail("bench.py's instanced scene did not build a split two-level forest")
+    B = INST_RAYS
+    pix = torch.arange(B, dtype=torch.int32, device=dev) % (size * size)
+    rays = tracermod.gen_camera_rays(inst, pix, 0, 0, size, size)[0]
+    rays = Rays(*(x.contiguous() for x in rays))
+    hits = {}
+    for mode, s_ in builds.items():
+        hits[mode] = traversal8.intersect_scene(s_.geom, rays)
+        ms = cuda_median_ms(lambda: traversal8.intersect_scene(s_.geom, rays))
+        emit(phase="inst_traversal", scene="bench_instanced", instancing=mode, rays=B,
+             ms=ms, mrays_per_s=B / ms / 1e3, hits=int(hits[mode].valid.sum()),
+             nvidia_smi=card)
+    hi, hf = hits["auto"], hits["off"]
+    # the comparison rules: validity and t identical but on grazing rays
+    # (|cos| < GRAZE between the ray and the hit's normal), where each build
+    # rounds its own space; the node each hit lands on identical
+    si = shading.fill_dg(inst.geom, rays, hi, flip_to_ray=False)
+    sf = shading.fill_dg(flat.geom, rays, hf, flip_to_ray=False)
+    cos = torch.where(hf.valid, (sf.ng * rays.d).sum(-1), (si.ng * rays.d).sum(-1)).abs()
+    graze = cos < GRAZE
+    both = hi.valid & hf.valid
+    flips = hi.valid != hf.valid
+    t_off = both & ((hi.t - hf.t).abs() > 1e-5 * hf.t.abs() + 1e-6)
+    node_i = torch.where(inst.geom.inst.node_id[hi.inst.clamp_min(0).long()] >= 0,
+                         inst.geom.inst.node_id[hi.inst.clamp_min(0).long()],
+                         inst.geom.shade[hi.tri.clamp_min(0).long(), 25].view(torch.int32))
+    node_f = flat.geom.shade[hf.tri.clamp_min(0).long(), 25].view(torch.int32)
+    node_off = both & (node_i != node_f)
+    bad = (flips | t_off | node_off) & ~graze
+    emit(phase="inst_vs_flat", scene="bench_instanced", rays=B,
+         hits=int(hf.valid.sum()), validity_flips=int(flips.sum()),
+         t_off=int(t_off.sum()), node_off=int(node_off.sum()),
+         grazing=int(graze.sum()), off_not_grazing=int(bad.sum()),
+         max_t_rel=float(((hi.t - hf.t).abs() / hf.t.abs())[both].max()))
+    if int(bad.sum()) or int((flips | t_off | node_off).sum()) > B * 1e-4:
+        fail("instanced hits differ from the flattened ones beyond grazing rays")
+    # every K2, K3 and K1 call of one instanced traversal against its plain
+    # version
+    calls = record_kernels(lambda: traversal8.intersect_scene(inst.geom, rays),
+                           traversal8, traversal_tt, Rays)
+    I = inst.geom.inst.root.shape[0]
+    kinds = [c_[0] for c_ in calls]
+    if kinds.count("K1") != I or kinds.count("K2") != I or kinds.count("K3") != I:
+        fail(f"one instanced traversal made {len(calls)} calls, not 3 x {I}")
+    out["bench_traversal"] = hold_calls("bench_instanced_512", calls, K1, K2, K3,
+                                        traversal8, traversal_tt, mb)
+    del calls
+
+    # 9c. PathTracer on it, 512^2, depth 5, chunks of 131,072: the
+    # instanced build against the flattened one in one call
+    live = {}
+    for mode in ("auto", "off"):
+        tr = pathmod.PathTracer(builds[mode], size, size, max_depth=INST_DEPTH,
+                                chunk_size=INST_RAYS)
+        torch.cuda.synchronize()
+        zero_counts()
+        r0 = instanced.host_reads
+        secs, rays_n = timed_passes(tr, INST_PASSES)
+        c = counts()
+        img = filmmod.develop(tr.film).cpu().numpy()
+        finite(img, f"bench instanced ({mode})")
+        capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
+        live[mode] = rays_n
+        n_calls = tr._n_chunks * (INST_DEPTH + 1)
+        per_pass = {k: (v / INST_PASSES if isinstance(v, int) else
+                        {kk: vv / INST_PASSES for kk, vv in v.items()})
+                    for k, v in c.items()}
+        emit(phase="headline", scene="bench_instanced", tracer="PathTracer",
+             instancing=mode, size=size, max_depth=INST_DEPTH, chunk_size=INST_RAYS,
+             passes=INST_PASSES, seconds_per_pass=statistics.median(secs),
+             pass_seconds=secs, live_rays_by_pass=rays_n,
+             mrays_per_s=sum(rays_n) / sum(secs) / 1e6, launches_per_pass=per_pass,
+             traversals_per_pass=n_calls, tlas_host_reads=instanced.host_reads - r0,
+             capped=capped, overflowed=overflowed, mean_radiance=float(img.mean()),
+             nvidia_smi=card)
+        if capped or overflowed:
+            fail(f"bench instanced ({mode}): capped {capped} / overflowed {overflowed}")
+        if mode == "auto":
+            want = INST_PASSES * n_calls * I
+            if (c["K2_by_v"][traversal8.V_INCOHERENT] != want
+                    or c["K3_by_v"][traversal8.V_INCOHERENT] != want
+                    or c["K2_by_v"][traversal8.V_COHERENT] or c["K1"] != want
+                    or c["K1_by_mode"]["any_hit"] != INST_PASSES * tr._n_chunks * I
+                    or c["plain"] or c["K4"]):
+                fail(f"the instanced pass took the wrong kernels: {c}, "
+                     f"{want} launches of each expected")
+            out["bench_pt"] = dict(launches_per_pass=per_pass,
+                                   seconds_per_pass=statistics.median(secs))
+            profile_pass(tr, "bench_instanced", tracer="PathTracer", instancing=mode)
+            # the K2, K3 and K1 calls of the pass's second traversal (the
+            # depth-1 bounce rays merged with depth 0's shadow rays, 2 x
+            # INST_RAYS lanes in mixed mode) held to their plain versions
+            calls = record_kernels(tr.do_pass, traversal8, traversal_tt, Rays,
+                                   window=(3 * I, 6 * I))
+            modes = {traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
+                     for _, _, kw in calls}
+            if len(calls) != 3 * I or modes != {"mixed"}:
+                fail(f"the held bench PT traversal made {len(calls)} calls in {modes}")
+            out["bench_pt_traversal"] = hold_calls("bench_instanced_pt_512", calls, K1, K2,
+                                                   K3, traversal8, traversal_tt, mb)
+            del calls
+        del tr
+    gap = [abs(a - b) / b for a, b in zip(live["auto"], live["off"])]
+    emit(phase="inst_live_rays", scene="bench_instanced", instanced=live["auto"],
+         flattened=live["off"], rel_gap=gap, limit=LIVE_RAYS_GAP)
+    if not max(gap) < LIVE_RAYS_GAP:
+        fail(f"instanced live rays differ from the flattened build's: {gap}")
+    del hits, hi, hf, si, sf, rays
+
+    # 9d. the 530-instance grid at 512^2 (the TLAS route): the camera rays'
+    # visit lists drop nothing (tests/test_instancing.py:156-158); then
+    # PathTracer, depth 5, a warm-up and 2 timed passes: the visits its
+    # bounce and shadow rays drop past the budget of 12 (counted, as the
+    # JAX package counts them) and the TLAS walk's host reads; its image
+    # against the flattened build's after the same passes; every K1 call
+    # (per-lane roots) of one traversal held to the plain version
+    grid_sc = grid_scene(*mods, size)
+    grid = grid_sc.build(dev)
+    if grid.geom.inst is None or grid.geom.inst.tlas is None:
+        fail("the grid scene did not build a TLAS")
+    gpix = torch.arange(size * size, dtype=torch.int32, device=dev)
+    grays = tracermod.gen_camera_rays(grid, gpix, 0, 0, size, size)[0]
+    _, gcounts, cam_dropped = instanced.tlas_visits(grid.geom.inst.tlas,
+                                                    grid.geom.inst.tlas_order, grays)
+    emit(phase="grid_camera_visits", size=size, rays=size * size,
+         dropped=int(cam_dropped), max_visits=int(gcounts.max()),
+         mean_visits=float(gcounts.float().mean()))
+    if int(cam_dropped):
+        fail(f"the grid's camera rays dropped {int(cam_dropped)} TLAS visits")
+    del grays
+    tr = pathmod.PathTracer(grid, size, size, max_depth=INST_DEPTH, chunk_size=INST_RAYS)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    instanced.dropped_visits = 0
+    r0 = instanced.host_reads
+    secs, rays_n = timed_passes(tr, GRID_PASSES)
+    c = counts()
+    reads = instanced.host_reads - r0
+    dropped = int(instanced.dropped_visits)
+    img = filmmod.develop(tr.film).cpu().numpy()
+    finite(img, "grid instanced")
+    n_calls = tr._n_chunks * (INST_DEPTH + 1)
+    emit(phase="headline", scene="grid_530_instances", tracer="PathTracer", size=size,
+         max_depth=INST_DEPTH, chunk_size=INST_RAYS, passes=GRID_PASSES,
+         instances=grid.geom.inst.root.shape[0], tlas_rows=grid.geom.inst.tlas.shape[0],
+         wide_rows=grid.geom.wide.shape[0], seconds_per_pass=statistics.median(secs),
+         pass_seconds=secs, live_rays_by_pass=rays_n,
+         mrays_per_s=sum(rays_n) / sum(secs) / 1e6, dropped_visits=dropped,
+         dropped_visits_limit=GRID_DROPPED_MAX_PER_PASS * GRID_PASSES,
+         tlas_host_reads_per_pass=reads / GRID_PASSES, traversals_per_pass=n_calls,
+         launches_per_pass={k: (v / GRID_PASSES if isinstance(v, int) else
+                                {kk: vv / GRID_PASSES for kk, vv in v.items()})
+                            for k, v in c.items()},
+         mean_radiance=float(img.mean()), nvidia_smi=card)
+    if dropped > GRID_DROPPED_MAX_PER_PASS * GRID_PASSES:
+        fail(f"the grid passes dropped {dropped} TLAS visits, more than "
+             f"{GRID_DROPPED_MAX_PER_PASS} a pass")
+    want = GRID_PASSES * n_calls * instanced.TLAS_VISITS
+    if c["K1"] != want or c["K2_by_v"][3] or c["plain"] or c["K4"]:
+        fail(f"the grid pass's launches {c} ({want} K1 expected)")
+    grid_flat = grid_sc.build(dev, instancing="off")
+    ftr = pathmod.PathTracer(grid_flat, size, size, max_depth=INST_DEPTH,
+                             chunk_size=INST_RAYS)
+    fimg = ftr.render(1 + GRID_PASSES).cpu().numpy()
+    grel = float(np.abs(img - fimg).mean() / max(fimg.mean(), 1e-9))
+    emit(phase="grid_vs_flat", size=size, passes=1 + GRID_PASSES, rel_err=grel,
+         limit=0.02, dropped_visits=dropped, flat_tris=grid_flat.num_tris,
+         flat_wide_rows=grid_flat.geom.wide.shape[0])
+    if not grel < 0.02:
+        fail(f"the grid's instanced image differs from the flattened one: {grel}")
+    del ftr, grid_flat
+    profile_pass(tr, "grid_530_instances", tracer="PathTracer")
+    # the TLAS walk of one merged traversal (the second of a pass), its
+    # middle GRID_TLAS_CPU_LANES lanes (bounce and shadow rays) rerun on
+    # the CPU: the same visit lists, counts and dropped visits
+    walks, orig_walk = [], instanced.tlas_visits
+
+    def walk(table, order, rays, **kw):
+        walks.append((table, order, Rays(*(x.clone() for x in rays)), kw))
+        return orig_walk(table, order, rays, **kw)
+    instanced.tlas_visits = walk
+    try:
+        calls = record_kernels(tr.do_pass, traversal8, traversal_tt, Rays)
+    finally:
+        instanced.tlas_visits = orig_walk
+    table, order, wrays, kw = walks[1]
+    half = wrays.o.shape[0] // 2
+    sl = slice(half - GRID_TLAS_CPU_LANES // 2, half + GRID_TLAS_CPU_LANES // 2)
+    part = Rays(*(x[sl].contiguous() for x in wrays))
+    on_card = instanced.tlas_visits(table, order, part, **kw)
+    on_cpu = instanced.tlas_visits(table.cpu(), order.cpu(), Rays(*(x.cpu() for x in part)),
+                                   **kw)
+    same_walk = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+    emit(phase="grid_tlas_card_vs_cpu", lanes=GRID_TLAS_CPU_LANES, identical=same_walk,
+         dropped=[int(on_card[2]), int(on_cpu[2])], max_visits=kw.get("max_visits"))
+    if not same_walk:
+        fail("the grid's TLAS walk on the card differs from the CPU's")
+    del walks, wrays, part
+    per_call = instanced.TLAS_VISITS
+    mid = len(calls) // per_call // 2 * per_call
+    out["grid_traversal"] = hold_calls("grid_530_instances_512", calls[mid:mid + per_call],
+                                       K1, K2, K3, traversal8, traversal_tt, mb)
+    out["grid_pt"] = dict(launches_per_pass=c["K1"] / GRID_PASSES,
+                          seconds_per_pass=statistics.median(secs),
+                          tlas_host_reads_per_pass=reads / GRID_PASSES)
+    del tr, calls, grid
+
+    # 9e. updates: one instance of the bench scene moved through
+    # update_transforms in UPDATE_FRAMES frames, each frame's pass against
+    # a fresh build's at the same transforms
+    scene_u = inst
+    nid = 2 + 5    # ball1_1 (after the floor and the light)
+    rels, upd_s, build_s = [], [], []
+    for f in range(UPDATE_FRAMES):
+        m = tf.translate([-1.0 + 0.4 * f, -0.4 + 0.3 * f, -1.0 - 0.2 * f])
+        t0 = time.perf_counter()
+        scene_u = sc.update_transforms(scene_u, {nid: m})
+        torch.cuda.synchronize()
+        upd_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        fresh = sc.build(dev)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        imgs = [pathmod.PathTracer(s_, UPDATE_SIZE, UPDATE_SIZE, max_depth=4)
+                .render(1).cpu().numpy() for s_ in (scene_u, fresh)]
+        for img in imgs:
+            finite(img, "moved instance")
+        rels.append(float(np.abs(imgs[0] - imgs[1]).mean() / max(imgs[1].mean(), 1e-9)))
+    emit(phase="inst_update", scene="bench_instanced", frames=UPDATE_FRAMES,
+         size=UPDATE_SIZE, rel_err_by_frame=rels, limit=0.02,
+         update_seconds=upd_s, build_seconds=build_s)
+    if not max(rels) < 0.02:
+        fail(f"a moved instance's pass differs from a fresh build's: {rels}")
+    del scene_u, fresh, inst, flat, builds
+    # the flat branch: the Cornell box's sphere moved and the table refit
+    cb = example_scenes.cornell_box(256, 256)
+    sid = next(i for i, n in enumerate(cb._nodes) if n.name == "sphere")
+    s0 = cb.build(dev)
+    t0 = time.perf_counter()
+    moved = cb.update_transforms(s0, {sid: tf.translate([-0.4, 0.2, 0.3])})
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    fresh = cb.build(dev)
+    pix = torch.arange(256 * 256, dtype=torch.int32, device=dev)
+    crays = Rays(*(x.contiguous() for x in
+                   tracermod.gen_camera_rays(fresh, pix, 0, 0, 256, 256)[0]))
+    hr = traversal8.intersect_scene(moved.geom, crays)
+    hf = traversal8.intersect_scene(fresh.geom, crays)
+    h0 = traversal8.intersect_scene(s0.geom, crays)
+    tri_off = int((hr.valid & (hr.tri != hf.tri)).sum())
+    emit(phase="refit", scene="cornell_box", size=256, refit_seconds=refit_s,
+         hits=int(hr.valid.sum()), t_identical=bool(torch.equal(hr.t, hf.t)),
+         tri_differs=tri_off, moved_pixels=int((h0.tri != hf.tri).sum()))
+    if not (torch.equal(hr.valid, hf.valid) and torch.equal(hr.t, hf.t)):
+        fail("the refit Cornell box's hits differ from a fresh build's")
+    # skinning on the card against the CPU
+    rng = np.random.default_rng(31)
+    V, J = 65536, 64
+    pos = rng.normal(size=(V, 3)).astype(np.float32)
+    ids = rng.integers(0, J, (V, 4)).astype(np.int32)
+    wts = rng.random((V, 4)).astype(np.float32)
+    wts /= wts.sum(1, keepdims=True)
+    mats = np.tile(np.eye(4, dtype=np.float32), (J, 1, 1))
+    mats[:, :3, :] += 0.3 * rng.normal(size=(J, 3, 4)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (pos, ids, wts, mats)]
+    got = animation.skin_vertices(*(a.to(dev) for a in args))
+    ref = animation.skin_vertices(*args)
+    err = float((got.cpu() - ref).abs().max())
+    emit(phase="skin", vertices=V, joints=J, max_abs_err=err, limit=SKIN_LIMIT,
+         ms=cuda_median_ms(lambda: animation.skin_vertices(*(a.to(dev) for a in args))))
+    if not err < SKIN_LIMIT:
+        fail(f"skin_vertices on the card differs from the CPU: {err}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2273,6 +2877,13 @@ def main():
     if mb.max_abs_err(res) != 0:
         fail("a microbenchmark kernel disagrees with its plain version")
 
+    # 9a-9e. two-level instancing: the golden, bench.py's instanced scene
+    # (K2 with per-lane roots, K3, the K1 fallback), the 530-instance grid
+    # (K1 with per-lane roots), updates and skinning
+    inst_res = instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls,
+                                pathmod, tracermod, filmmod, example_scenes,
+                                traversal8, traversal_tt, mb)
+
     # the kernel table: one row for each variant of K1 and K2, timed at the
     # main path's shapes: K1 shared on veach-mis (Cornell under by_scene),
     # K1 global on the San Miguel fallback batch at V=3 (the whole
@@ -2373,11 +2984,24 @@ def main():
     p2 = next(e for e in res["P2"] if e["rows"] == mb.ROW_TABLE_ROWS
               and e["layout"] == "thread")
     p3 = next(e for e in res["P3"] if e["items"] == mb.ROW_QUEUE_ITEMS)
+    # the instanced slice's shapes (9b, 9c, 9d): every call of one
+    # traversal, summed, beside the launches of a pass of its path tracer
+    def inst_entry(traversal, kind, pt):
+        return dict(inst_res[traversal][kind], pass_launches=inst_res[pt]["launches_per_pass"],
+                    seconds_per_pass=inst_res[pt]["seconds_per_pass"])
+    k1_rows[0]["by_tracer"]["instanced_grid"] = inst_entry("grid_traversal", "K1", "grid_pt")
+    k2_shared = k2_row("top_visits_shared_kernel", None)
+    k3_kept = k3_row("treelet_hits_kernel", "traversal_tt.cu", None)
+    for kind, kernel_row in (("K1", k1_rows[1]), ("K2", k2_shared), ("K3", k3_kept)):
+        kernel_row["by_tracer"]["instanced_bench"] = inst_entry("bench_traversal", kind,
+                                                                "bench_pt")
+        kernel_row["by_tracer"]["instanced_bench_pt"] = inst_entry("bench_pt_traversal",
+                                                                   kind, "bench_pt")
     emit(kernels=[
         *k1_rows,
-        k2_row("top_visits_shared_kernel", None),
+        k2_shared,
         k2_row("top_visits_kernel", "global"),
-        k3_row("treelet_hits_kernel", "traversal_tt.cu", None),
+        k3_kept,
         *(k3_row(f"probe_treelet_kernel<{d}>", "schedule_probe.cu", d)
           for d in probe.K3_DESIGNS),
         row("traverse_pool_kernel", "traversal_pool.cu",

@@ -127,8 +127,9 @@ int launch_design(Kernel kernel, SharedOptIn& opt, int design, int n_rows,
 template <int V>
 int launch_probe_top(int design, const float4* top, int n_top,
                      const float* o, const float* d, const float* tmin,
-                     const float* tmax, const uint8_t* any_mask, int n_rays,
-                     int any_hit, int stack_depth, int max_iters,
+                     const float* tmax, const int* roots,
+                     const uint8_t* any_mask, int n_rays, int any_hit,
+                     int stack_depth, int max_iters,
                      float* t_out, int* tri_out, float* u_out, float* v_out,
                      int* steps_out, uint8_t* flags_out, int* vid_out,
                      float* vent_out, int* vcnt_out, float* mdrop_out,
@@ -138,9 +139,9 @@ int launch_probe_top(int design, const float4* top, int n_top,
                                   : probe_top_visits_kernel<V, kSmemStack>;
   return launch_design(kernel, opt[design], design, n_top, stack_depth,
                        n_rays, next_ray, stream, top, n_top, o, d, tmin, tmax,
-                       any_mask, n_rays, any_hit, stack_depth, max_iters,
-                       t_out, tri_out, u_out, v_out, steps_out, flags_out,
-                       vid_out, vent_out, vcnt_out, mdrop_out);
+                       roots, any_mask, n_rays, any_hit, stack_depth,
+                       max_iters, t_out, tri_out, u_out, v_out, steps_out,
+                       flags_out, vid_out, vent_out, vcnt_out, mdrop_out);
 }
 
 // ---- K3's designs ----------------------------------------------------------
@@ -423,18 +424,19 @@ extern "C" int ctl_probe_traverse8(
 // ctl_top_visits's arguments, with `design` in place of the variant.
 extern "C" int ctl_probe_top_visits(
     const float* top, int n_top, const float* o, const float* d,
-    const float* tmin, const float* tmax, const uint8_t* any_mask,
-    int n_rays, int any_hit, int V, int stack_depth, int max_iters,
-    float* t_out, int* tri_out, float* u_out, float* v_out, int* steps_out,
-    uint8_t* flags_out, int* vid_out, float* vent_out, int* vcnt_out,
-    float* mdrop_out, int* next_ray, int design, void* stream) {
+    const float* tmin, const float* tmax, const int* roots,
+    const uint8_t* any_mask, int n_rays, int any_hit, int V, int stack_depth,
+    int max_iters, float* t_out, int* tri_out, float* u_out, float* v_out,
+    int* steps_out, uint8_t* flags_out, int* vid_out, float* vent_out,
+    int* vcnt_out, float* mdrop_out, int* next_ray, int design,
+    void* stream) {
   if ((V != 3 && V != 6) || (design != kStride && design != kSmemStack)) {
     return -1;
   }
   if (n_rays <= 0) return (int)cudaGetLastError();
   auto launch = V == 3 ? launch_probe_top<3> : launch_probe_top<6>;
   return launch(design, reinterpret_cast<const float4*>(top), n_top, o, d,
-                tmin, tmax, any_mask, n_rays, any_hit, stack_depth,
+                tmin, tmax, roots, any_mask, n_rays, any_hit, stack_depth,
                 max_iters, t_out, tri_out, u_out, v_out, steps_out, flags_out,
                 vid_out, vent_out, vcnt_out, mdrop_out, next_ray,
                 (cudaStream_t)stream);

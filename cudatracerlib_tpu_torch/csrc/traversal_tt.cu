@@ -13,7 +13,10 @@
 // maxima) only if it is closer, and the smallest entry t among the dropped
 // visits is tracked, so the caller knows which rays may have lost a hit.
 // V is a template parameter, instantiated for the two budgets the path uses:
-// 3 (bounce and shadow rays) and 6 (camera rays).
+// 3 (bounce and shadow rays) and 6 (camera rays). A ray starts at top row 0,
+// or, given per-lane roots, at its own top-local row: an instanced scene's
+// split forest holds one BLAS per shared mesh, and each instance visit
+// starts at its BLAS root's top row (as K1 takes global roots).
 //
 // K3, one thread per visit slot: the caller sorts the B*V visit slots by
 // packed key, so neighbouring threads traverse the same slab from the same
@@ -118,8 +121,9 @@ template <int V, class Rows, class Stack>
 __device__ __forceinline__ void top_ray(
     const float4* __restrict__ top, int n_top, const float* __restrict__ o,
     const float* __restrict__ d, const float* __restrict__ tmin,
-    const float* __restrict__ tmax, const uint8_t* __restrict__ any_mask,
-    int any_hit, int stack_depth, int max_iters, float* __restrict__ t_out,
+    const float* __restrict__ tmax, const int* __restrict__ roots,
+    const uint8_t* __restrict__ any_mask, int any_hit, int stack_depth,
+    int max_iters, float* __restrict__ t_out,
     int* __restrict__ tri_out, float* __restrict__ u_out,
     float* __restrict__ v_out, int* __restrict__ steps_out,
     uint8_t* __restrict__ flags_out, int* __restrict__ vid_out,
@@ -131,8 +135,9 @@ __device__ __forceinline__ void top_ray(
   int steps = 0;
   uint8_t flags = 0;
   NearestVisits<V> nv;
-  traverse<Rows>(top, n_top, n_top, r, 0xFF, anyh, stack_depth, max_iters, b,
-                 steps, flags, nv, stack);
+  traverse<Rows>(top, n_top, n_top, r,
+                 ((roots != nullptr ? roots[i] : 0) << 8) | 0xFF, anyh,
+                 stack_depth, max_iters, b, steps, flags, nv, stack);
   t_out[i] = b.t;
   tri_out[i] = b.tri;
   u_out[i] = b.u;
@@ -151,15 +156,17 @@ __device__ __forceinline__ void top_ray(
 #define CTL_K2_PARAMS                                                        \
   const float4 *__restrict__ top, int n_top, const float *__restrict__ o,    \
       const float *__restrict__ d, const float *__restrict__ tmin,           \
-      const float *__restrict__ tmax, const uint8_t *__restrict__ any_mask,  \
-      int n_rays, int any_hit, int stack_depth, int max_iters,               \
+      const float *__restrict__ tmax, const int *__restrict__ roots,         \
+      const uint8_t *__restrict__ any_mask, int n_rays, int any_hit,         \
+      int stack_depth, int max_iters,                                        \
       float *__restrict__ t_out, int *__restrict__ tri_out,                  \
       float *__restrict__ u_out, float *__restrict__ v_out,                  \
       int *__restrict__ steps_out, uint8_t *__restrict__ flags_out,          \
       int *__restrict__ vid_out, float *__restrict__ vent_out,               \
       int *__restrict__ vcnt_out, float *__restrict__ mdrop_out
 #define CTL_K2_ARGS(TABLE)                                                   \
-  TABLE, n_top, o, d, tmin, tmax, any_mask, any_hit, stack_depth, max_iters, \
+  TABLE, n_top, o, d, tmin, tmax, roots, any_mask, any_hit, stack_depth,    \
+      max_iters,                                                             \
       t_out, tri_out, u_out, v_out, steps_out, flags_out, vid_out, vent_out, \
       vcnt_out, mdrop_out
 
@@ -254,36 +261,40 @@ treelet_hits_kernel(CTL_K3_PARAMS) {
 template <int V>
 int launch_top(int variant, const float* top, int n_top, const float* o,
                const float* d, const float* tmin, const float* tmax,
-               const uint8_t* any_mask, int n_rays, int any_hit,
-               int stack_depth, int max_iters, float* t_out, int* tri_out,
-               float* u_out, float* v_out, int* steps_out, uint8_t* flags_out,
-               int* vid_out, float* vent_out, int* vcnt_out, float* mdrop_out,
-               int* next_ray, cudaStream_t stream) {
+               const int* roots, const uint8_t* any_mask, int n_rays,
+               int any_hit, int stack_depth, int max_iters, float* t_out,
+               int* tri_out, float* u_out, float* v_out, int* steps_out,
+               uint8_t* flags_out, int* vid_out, float* vent_out,
+               int* vcnt_out, float* mdrop_out, int* next_ray,
+               cudaStream_t stream) {
   const float4* t4 = reinterpret_cast<const float4*>(top);
   if (variant == 0) {
     const int blocks = (n_rays + kThreads - 1) / kThreads;
     top_visits_kernel<V><<<blocks, kThreads, 0, stream>>>(
-        t4, n_top, o, d, tmin, tmax, any_mask, n_rays, any_hit, stack_depth,
-        max_iters, t_out, tri_out, u_out, v_out, steps_out, flags_out, vid_out,
-        vent_out, vcnt_out, mdrop_out);
+        t4, n_top, o, d, tmin, tmax, roots, any_mask, n_rays, any_hit,
+        stack_depth, max_iters, t_out, tri_out, u_out, v_out, steps_out,
+        flags_out, vid_out, vent_out, vcnt_out, mdrop_out);
     return (int)cudaGetLastError();
   }
   static SharedOptIn opt;
   return launch_shared(top_visits_shared_kernel<V>, opt, kPersistThreads,
                        (size_t)n_top * 512, n_rays, next_ray, stream, t4,
-                       n_top, o, d, tmin, tmax, any_mask, n_rays, any_hit,
-                       stack_depth, max_iters, t_out, tri_out, u_out, v_out,
-                       steps_out, flags_out, vid_out, vent_out, vcnt_out,
-                       mdrop_out);
+                       n_top, o, d, tmin, tmax, roots, any_mask, n_rays,
+                       any_hit, stack_depth, max_iters, t_out, tri_out, u_out,
+                       v_out, steps_out, flags_out, vid_out, vent_out,
+                       vcnt_out, mdrop_out);
 }
 
 }  // namespace
 
-// variant (0 global, 1 shared) and next_ray as ctl_traverse8's. Returns a
-// CUDA error code, or -1 for a V other than 3 and 6 or another variant.
+// roots (nullable: every ray starts at top row 0) holds each ray's
+// top-local start row, as ctl_traverse8's roots; variant (0 global, 1
+// shared) and next_ray as ctl_traverse8's. Returns a CUDA error code, or -1
+// for a V other than 3 and 6 or another variant.
 extern "C" int ctl_top_visits(const float* top, int n_top, const float* o,
                               const float* d, const float* tmin,
-                              const float* tmax, const uint8_t* any_mask,
+                              const float* tmax, const int* roots,
+                              const uint8_t* any_mask,
                               int n_rays, int any_hit, int V, int stack_depth,
                               int max_iters, float* t_out, int* tri_out,
                               float* u_out, float* v_out, int* steps_out,
@@ -294,10 +305,10 @@ extern "C" int ctl_top_visits(const float* top, int n_top, const float* o,
   if ((V != 3 && V != 6) || variant < 0 || variant > 1) return -1;
   if (n_rays <= 0) return (int)cudaGetLastError();
   auto launch = V == 3 ? launch_top<3> : launch_top<6>;
-  return launch(variant, top, n_top, o, d, tmin, tmax, any_mask, n_rays,
-                any_hit, stack_depth, max_iters, t_out, tri_out, u_out, v_out,
-                steps_out, flags_out, vid_out, vent_out, vcnt_out, mdrop_out,
-                next_ray, (cudaStream_t)stream);
+  return launch(variant, top, n_top, o, d, tmin, tmax, roots, any_mask,
+                n_rays, any_hit, stack_depth, max_iters, t_out, tri_out,
+                u_out, v_out, steps_out, flags_out, vid_out, vent_out,
+                vcnt_out, mdrop_out, next_ray, (cudaStream_t)stream);
 }
 
 extern "C" int ctl_treelet_hits(const float* slabs, int n_treelets, int rows,

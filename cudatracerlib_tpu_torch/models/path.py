@@ -270,7 +270,8 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
             h2, it1, rw1, ov1 = traversal8.intersect_scene(
                 geom, comb, with_iters=True, coherent=coherent, any_mask=amask)
             hit = traversal.Hit(t=h2.t[:B], tri=h2.tri[:B],
-                                u=h2.u[:B], v=h2.v[:B])
+                                u=h2.u[:B], v=h2.v[:B],
+                                inst=None if h2.inst is None else h2.inst[:B])
             occluded_prev = h2.tri[B:] >= 0
             L = L + torch.where((p_act & ~occluded_prev)[:, None], p_contrib, 0.0)
         else:

@@ -101,7 +101,8 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
         comb = traversal.Rays(*(torch.cat([a, b]) for a, b in zip(trace_rays, p_rays)))
         h2, it1, rw1, ov1 = traversal8.intersect_scene(
             geom, comb, with_iters=True, any_mask=amask)
-        hit = traversal.Hit(t=h2.t[:B], tri=h2.tri[:B], u=h2.u[:B], v=h2.v[:B])
+        hit = traversal.Hit(t=h2.t[:B], tri=h2.tri[:B], u=h2.u[:B], v=h2.v[:B],
+                            inst=None if h2.inst is None else h2.inst[:B])
         occluded_prev = h2.tri[B:] >= 0
         iters_ctr, rows_ctr, ovf_ctr = iters_ctr + it1, rows_ctr + rw1, ovf_ctr + ov1
 

@@ -1,8 +1,14 @@
 """Surface interaction construction from ray hits.
 
-Port of ``cudatracerlib_tpu/ops/shading.py`` for flat (non-instanced)
-scenes: one shade-row gather per hit, then interpolated normals, UVs and a
-tangent frame.
+Port of ``cudatracerlib_tpu/ops/shading.py``: one shade-row gather per
+hit, then interpolated normals, UVs and a tangent frame. In a two-level
+scene the rows are in the instance's local space: normals go to world
+space by the inverse transpose of local-to-world (w2l's rotation,
+transposed), dpdu by local-to-world, the uv density by the instance's
+inv_scale, and the instance's material and light override the triangle's
+(the sentinels -1 and -2 of the flat part keep the triangle's own). The
+matrix products are separate multiplies and adds, so the card and the CPU
+round them alike.
 """
 from __future__ import annotations
 
@@ -43,8 +49,6 @@ class SurfaceInteraction(NamedTuple):
 def fill_dg(geom: schema.GeometryTable, rays: traversal.Rays,
             hit: traversal.Hit, flip_to_ray: bool = True) -> SurfaceInteraction:
     """One fat-row gather per hit (schema.pack_shade_rows layout)."""
-    if geom.inst is not None:
-        raise NotImplementedError("instanced scenes are not ported yet")
     # clamp before the gather: an out-of-range index stops a CUDA device
     tid = hit.tri.clamp(0, geom.shade.shape[0] - 1).long()
     u, v = hit.u, hit.v
@@ -61,6 +65,24 @@ def fill_dg(geom: schema.GeometryTable, rays: traversal.Rays,
     degenerate = row[:, 22] > 0.5
     mat_id = row[:, 23].view(torch.int32)
     light_id = row[:, 24].view(torch.int32)
+
+    if geom.inst is not None and hit.inst is not None:
+        it = geom.inst
+        ik = hit.inst.clamp_min(0).long()
+        w2l = it.w2l[ik]                                 # (B, 3, 4)
+        # w2l_rot^T @ n: row j of the result is sum_i w2l[i, j] * n[i]
+        rot_t = lambda n: (w2l[:, 0, :3] * n[:, 0:1] + w2l[:, 1, :3] * n[:, 1:2]
+                           + w2l[:, 2, :3] * n[:, 2:3])
+        ns = vm.normalize(rot_t(ns))
+        ng = vm.normalize(rot_t(ng))
+        l2w = it.l2w[ik]
+        dpdu = (l2w[:, :, 0] * dpdu[:, 0:1] + l2w[:, :, 1] * dpdu[:, 1:2]
+                + l2w[:, :, 2] * dpdu[:, 2:3])
+        uv_density = uv_density * it.inv_scale[ik]
+        imat = it.mat_id[ik]
+        mat_id = torch.where(imat >= 0, imat, mat_id)
+        ilight = it.light_id[ik]
+        light_id = torch.where(ilight != -2, ilight, light_id)
 
     if flip_to_ray:
         flip = vm.dot(ng, rays.d) > 0.0

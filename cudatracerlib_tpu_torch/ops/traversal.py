@@ -25,7 +25,7 @@ class Hit(NamedTuple):
     tri: Tensor     # (B,) int32 triangle id, -1 if miss
     u: Tensor       # (B,) barycentric
     v: Tensor       # (B,)
-    inst: None = None  # instance id of two-level scenes (not ported)
+    inst: "Tensor | None" = None  # (B,) i32 instance id of two-level scenes
 
     @property
     def valid(self) -> Tensor:

@@ -19,10 +19,12 @@ one traversal, with the same per-ray semantics, step counts and flags:
   plain versions of K2 and K3). It serves CPU tensors, and the tests and
   ``chip_smoke.py`` hold the kernels against it.
 
-``intersect_scene`` sends a table with treelet tables to the two-phase
-treelet traversal (``ops/traversal_tt.py``) with K1 as its exactness
-fallback, and any other table by its device to K1 or to the plain version.
-K4 is called only through ``intersect_wide_pool``.
+``intersect_scene`` sends an instanced scene to the two-level traversal
+(``ops/instanced.py``), whose BLAS visits come back here with per-lane
+roots; a table with treelet tables to the two-phase treelet traversal
+(``ops/traversal_tt.py``) with K1 as its exactness fallback; and any other
+table by its device to K1 or to the plain version. K4 is called only
+through ``intersect_wide_pool``.
 
 Per ray: a stack entry is (row << 8) | unvisited-child mask; the stack is a
 ring of ``stack_depth`` entries that drops its oldest entry when a push
@@ -509,7 +511,10 @@ def intersect_scene(geom, rays: Rays, any_hit: bool = False,
                     coherent: bool = False, any_mask: Tensor = None):
     """Production intersector over a GeometryTable's fat-row table.
 
-    A table with treelet tables goes to the two-phase treelet traversal
+    An instanced scene (``geom.inst``) goes to the two-level traversal
+    (``ops/instanced.intersect_instanced``): its hit carries local triangle
+    ids and the instance id in ``hit.inst``. A flat table with treelet
+    tables goes to the two-phase treelet traversal
     (``intersect_treelet_exact``: K2, K3 and the K1 fallback on CUDA, their
     plain versions on the CPU); `coherent` picks its visit budget
     (V_COHERENT for camera rays, V_INCOHERENT otherwise). Any other table
@@ -523,10 +528,13 @@ def intersect_scene(geom, rays: Rays, any_hit: bool = False,
     rows the 512-byte rows they read (one per step, so equal to iters), and
     ovf a (2,) tensor holding the number of capped rays and visits and of
     rays and visits whose stack overflowed."""
-    if geom.inst is not None:
-        raise NotImplementedError("instanced scenes are not ported yet")
     # the kernels take contiguous rays; camera rays share one expanded origin
     rays = Rays(*(x.contiguous() for x in rays))
+    if geom.inst is not None:
+        from . import instanced
+        return instanced.intersect_instanced(geom, rays, any_hit=any_hit,
+                                             with_iters=with_iters,
+                                             any_mask=any_mask)
     if treelet_would_dispatch(geom, coherent=coherent, roots=roots):
         return intersect_treelet_exact(geom, rays, any_hit=any_hit,
                                        coherent=coherent,
@@ -557,8 +565,15 @@ def _flag_counts(flags: Tensor) -> Tensor:
 
 def intersect_treelet_exact(geom, rays: Rays, any_hit: bool = False,
                             coherent: bool = False, with_iters: bool = False,
+                            roots: Tensor = None, roots_top: Tensor = None,
                             any_mask: Tensor = None):
     """Treelet two-phase traversal plus its exactness fallback.
+
+    Shared by the flat dispatch above and the instanced BLAS visits
+    (``ops/instanced.py``): with per-lane `roots_top` (top-local start
+    rows, ``InstanceTable.root_top``) each ray traverses its own BLAS of
+    the split forest in phase 1, and `roots` gives the matching global rows
+    of ``geom.wide``, where the fallback starts. Both or neither.
 
     Rays whose visit list overflowed the V budget in a way that may hide a
     closer hit (``intersect_treelet``'s overflow mask) are re-traversed on
@@ -569,15 +584,18 @@ def intersect_treelet_exact(geom, rays: Rays, any_hit: bool = False,
     so the JAX package's compaction ladder is not needed. A fallback hit is
     closer than the treelet t by construction and wins outright."""
     from . import traversal_tt
+    if (roots is None) != (roots_top is None):
+        raise ValueError("roots and roots_top go together")
     res = traversal_tt.intersect_treelet(
         geom.tt_top, geom.tt_slabs, rays, any_hit=any_hit,
         V=V_COHERENT if coherent else V_INCOHERENT,
-        with_overflow=True, with_iters=with_iters, any_mask=any_mask)
+        with_overflow=True, with_iters=with_iters, any_mask=any_mask,
+        roots=roots_top)
     hit, ovf = res[0], res[1]
     fb_rays = Rays(o=rays.o, d=rays.d, tmin=rays.tmin,
                    tmax=torch.where(ovf, hit.t, -1.0))
     fb, fb_steps, fb_flags = _wide_fn(geom.wide)(
-        geom.wide, fb_rays, any_hit=any_hit, with_iters=True,
+        geom.wide, fb_rays, any_hit=any_hit, with_iters=True, roots=roots,
         any_mask=any_mask)
     win = fb.valid & ovf
     hit = Hit(t=torch.where(win, fb.t, hit.t),

@@ -55,9 +55,12 @@ _INF = float("inf")
 
 def top_visits(top: Tensor, rays: Rays, V: int = DEFAULT_V,
                any_hit: bool = False, any_mask: Tensor = None,
-               stack_depth: int = STACK_DEPTH, max_iters: int = MAX_ITERS):
+               stack_depth: int = STACK_DEPTH, max_iters: int = MAX_ITERS,
+               roots: Tensor = None):
     """Plain version of K2: phase 1 over the (R_top, 128) top table.
 
+    roots: optional (B,) int32 top-local start row of each ray (an
+    instanced scene's BLAS root in a split forest); row 0 without.
     Returns (hit, vids (B, V) i32 packed visit keys, -1 unused; vent (B, V)
     entry ts, 0 unused; vcnt (B,) i32 visits met; mdrop (B,) smallest
     dropped entry t, inf if none; steps (B,) i32; flags (B,) uint8)."""
@@ -65,7 +68,10 @@ def top_visits(top: Tensor, rays: Rays, V: int = DEFAULT_V,
     if top.is_cuda:
         top_visits.cuda_calls += 1
     B, dev = rays.o.shape[0], top.device
-    cur = torch.full((B,), 0xFF, dtype=torch.int32, device=dev)
+    if roots is None:
+        cur = torch.full((B,), 0xFF, dtype=torch.int32, device=dev)
+    else:
+        cur = (roots.to(torch.int32) << 8) | 0xFF
     hit, steps, flags, (vids, vent, vcnt, mdrop) = _lockstep(
         top, rays, cur, rays.tmax, any_lanes(B, any_hit, any_mask, dev),
         stack_depth, max_iters, n_real=top.shape[0], V=V)
@@ -82,10 +88,11 @@ def _lib():
 def top_visits_cuda(top: Tensor, rays: Rays, V: int = DEFAULT_V,
                     any_hit: bool = False, any_mask: Tensor = None,
                     stack_depth: int = STACK_DEPTH,
-                    max_iters: int = MAX_ITERS, _variant: str = None):
+                    max_iters: int = MAX_ITERS, roots: Tensor = None,
+                    _variant: str = None):
     """Launch K2 (``csrc/traversal_tt.cu``) on the current stream: the same
     signature, results, step counts and flags as ``top_visits``. Takes
-    CUDA tensors only and raises on anything else, on a V outside
+    CUDA tensors only (roots: (B,) int32) and raises on anything else, on a V outside
     ``KERNEL_V`` and when the card refuses the launch. The variant comes
     from the top table's size, as K1's (``traversal8.launch_variant``;
     `_variant` forces one). Each launch adds one to
@@ -95,7 +102,7 @@ def top_visits_cuda(top: Tensor, rays: Rays, V: int = DEFAULT_V,
     variant = launch_variant(top, _variant)
     res = launch_top(_lib().ctl_top_visits, VARIANTS[variant],
                      queue_counter(variant, top.device), top, rays, V,
-                     any_hit, any_mask, stack_depth, max_iters)
+                     any_hit, any_mask, stack_depth, max_iters, roots)
     top_visits_cuda.launches += 1
     top_visits_cuda.launches_by_v[V] += 1
     top_visits_cuda.launches_by_variant[variant] += 1
@@ -104,7 +111,7 @@ def top_visits_cuda(top: Tensor, rays: Rays, V: int = DEFAULT_V,
 
 def launch_top(fn, code: int, counter: Tensor, top: Tensor, rays: Rays,
                V: int, any_hit: bool, any_mask: Tensor, stack_depth: int,
-               max_iters: int):
+               max_iters: int, roots: Tensor = None):
     """Check K2's arguments, allocate its outputs and call `fn`, a C entry
     with ``ctl_top_visits``'s arguments, with `code` (the variant) and
     `counter` (the queue counter, or None); raises on an error. Returns
@@ -115,6 +122,8 @@ def launch_top(fn, code: int, counter: Tensor, top: Tensor, rays: Rays,
     _check_table(top, "top")
     dev = top.device
     B = _check_rays(rays, dev)
+    if roots is not None:
+        _require(roots, "roots", torch.int32, (B,), dev)
     mask_u8 = _mask_u8(any_mask, B, dev)
     f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
     t, u, v = (torch.empty(B, **f32) for _ in range(3))
@@ -124,11 +133,11 @@ def launch_top(fn, code: int, counter: Tensor, top: Tensor, rays: Rays,
     vent = torch.empty((B, V), **f32)
     mdrop = torch.empty(B, **f32)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+    fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                    vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
     fn.restype = ci
     err = fn(_ptr(top), top.shape[0], _ptr(rays.o), _ptr(rays.d),
-             _ptr(rays.tmin), _ptr(rays.tmax), _ptr(mask_u8), B,
+             _ptr(rays.tmin), _ptr(rays.tmax), _ptr(roots), _ptr(mask_u8), B,
              int(bool(any_hit)), V, stack_depth, max_iters, _ptr(t), _ptr(tri),
              _ptr(u), _ptr(v), _ptr(steps), _ptr(flags), _ptr(vids),
              _ptr(vent), _ptr(vcnt), _ptr(mdrop), _ptr(counter), code,
@@ -268,10 +277,11 @@ def _kernels(top: Tensor):
 def intersect_treelet(top: Tensor, slabs: Tensor, rays: Rays,
                       any_hit: bool = False, V: int = DEFAULT_V,
                       with_iters: bool = False, with_overflow: bool = False,
-                      any_mask: Tensor = None):
+                      any_mask: Tensor = None, roots: Tensor = None):
     """Two-phase treelet traversal of (top (R_top, 128), slabs (n_treelets,
     rows, 128)): the kernels on CUDA tables, their plain versions on CPU
-    tables.
+    tables. roots: optional (B,) int32 top-local start rows (phase 1; K3's
+    visit keys carry their local roots already).
 
     Returns the hit; with with_overflow also a (B,) bool of the rays whose
     hit may be incomplete (the caller re-traverses them); with with_iters
@@ -280,20 +290,20 @@ def intersect_treelet(top: Tensor, slabs: Tensor, rays: Rays,
     and rays."""
     return two_phase(*_kernels(top), top, slabs, rays, any_hit=any_hit, V=V,
                      with_iters=with_iters, with_overflow=with_overflow,
-                     any_mask=any_mask)
+                     any_mask=any_mask, roots=roots)
 
 
 def two_phase(phase1, phase2, top: Tensor, slabs: Tensor, rays: Rays,
               any_hit: bool = False, V: int = DEFAULT_V,
               with_iters: bool = False, with_overflow: bool = False,
-              any_mask: Tensor = None):
+              any_mask: Tensor = None, roots: Tensor = None):
     """``intersect_treelet`` with the two phases given: (top_visits,
     treelet_hits) or their kernels. ``chip_smoke.py`` runs the plain pair on
     CUDA tensors to hold the kernels' path against it."""
     _check_args(any_hit, STACK_DEPTH, any_mask)
     B, dev = rays.o.shape[0], top.device
     hit1, vids, _, vcnt, mdrop, steps1, flags1 = phase1(
-        top, rays, V, any_hit=any_hit, any_mask=any_mask)
+        top, rays, V, any_hit=any_hit, any_mask=any_mask, roots=roots)
     valid, keys, order, t_prune = visit_slots(
         hit1, vids, vcnt, slabs.shape[0], any_lanes(B, any_hit, any_mask, dev))
     hits, steps2, flags2 = phase2(slabs, rays, t_prune, keys, order, V,

@@ -12,6 +12,8 @@ Verbatim port of ``cudatracerlib_tpu/scene/bvh8.py`` (host-side numpy):
 Child links: link >= 0 -> internal node8 row, -1 -> empty slot,
 link <= -2 -> leaf row -2 - link. One 512-byte row holds everything one
 traversal step needs; ``csrc/traversal8.cu`` reads it as float4 loads.
+``build_tlas8`` builds the same node rows over instance boxes (the TLAS of
+``ops/instanced.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ class BVH8(NamedTuple):
     leaves: np.ndarray   # (L, 128) f32
     world_lo: np.ndarray
     world_hi: np.ndarray
+
+
+def build_bvh8(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> BVH8:
+    b2 = bvh2mod.build_bvh(v0, v1, v2, max_leaf=LEAF_TRIS)
+    return collapse_bvh2(b2, v0, v1, v2)
 
 
 def collapse_bvh2(b2: bvh2mod.BVH, v0, v1, v2) -> BVH8:
@@ -113,3 +120,68 @@ def collapse_bvh2(b2: bvh2mod.BVH, v0, v1, v2) -> BVH8:
     return BVH8(nodes=np.stack(node_rows).astype(np.float32),
                 leaves=np.stack(leaf_rows).astype(np.float32),
                 world_lo=b2.world_lo, world_hi=b2.world_hi)
+
+
+def build_tlas8(lo: np.ndarray, hi: np.ndarray, max_leaf: int = 2):
+    """8-wide fat-row BVH over instance AABBs (the TLAS, reference
+    ``Engine/SceneBVH.h:18`` rebuilt 8-wide).
+
+    Node rows share the traversal layout (8 child AABBs + links) but leaf
+    links keep the BINARY builder's leaf code -2-(first*16+count) into the
+    returned instance `order` — the traversal expands them into per-lane
+    instance visits (ops/instanced.tlas_visits) instead of testing
+    triangles. Returns (table (R, 128), order (I,))."""
+    b2 = bvh2mod.build_bvh(lo, hi, hi, max_leaf=max_leaf)
+    nodes2 = b2.nodes
+    links2 = np.stack([nodes2[:, 12].view(np.int32),
+                       nodes2[:, 13].view(np.int32)], 1)
+    lo2 = np.stack([nodes2[:, 0:3], nodes2[:, 6:9]], 1)
+    hi2 = np.stack([nodes2[:, 3:6], nodes2[:, 9:12]], 1)
+    rows: list = []
+
+    def area(l, h):
+        d = np.maximum(h - l, 0.0)
+        return 2.0 * (d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+    def emit(children) -> int:
+        children = list(children)
+        while len(children) < WIDTH:
+            best, best_a = -1, -1.0
+            for i, (code, l, h) in enumerate(children):
+                if code >= 0:
+                    a = area(l, h)
+                    if a > best_a:
+                        best, best_a = i, a
+            if best < 0:
+                break
+            code, l, h = children.pop(best)
+            for s in range(2):
+                ln = links2[code, s]
+                if ln == bvh2mod.INVALID:
+                    continue
+                children.append((ln, lo2[code, s], hi2[code, s]))
+        idx = len(rows)
+        rows.append(np.zeros(128, np.float32))
+        row = rows[idx]
+        links8 = np.full(WIDTH, -1, np.int32)
+        for i, (code, l, h) in enumerate(children):
+            row[0 + i] = l[0]; row[8 + i] = l[1]; row[16 + i] = l[2]
+            row[24 + i] = h[0]; row[32 + i] = h[1]; row[40 + i] = h[2]
+            if code >= 0:
+                links8[i] = emit([
+                    (links2[code, s], lo2[code, s], hi2[code, s])
+                    for s in range(2) if links2[code, s] != bvh2mod.INVALID])
+            else:
+                links8[i] = code            # keep the binary leaf code
+        row[48:56] = links8.view(np.float32)
+        return idx
+
+    import sys
+    old = sys.getrecursionlimit()
+    sys.setrecursionlimit(100000)
+    try:
+        emit([(links2[0, s], lo2[0, s], hi2[0, s])
+              for s in range(2) if links2[0, s] != bvh2mod.INVALID])
+    finally:
+        sys.setrecursionlimit(old)
+    return np.stack(rows).astype(np.float32), b2.tri_order

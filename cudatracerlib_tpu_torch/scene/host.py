@@ -1,18 +1,22 @@
 """Host-side scene management: build the device tables from meshes,
 materials, lights and an environment map.
 
-Port of the flat path of ``cudatracerlib_tpu/scene/host.py``. Scenes under
-4,096 triangles take the numpy binned-SAH builder; larger ones the native
-builder (``scene/native_bvh.py``), a dummy 2-wide BVH, and, when the fat-row
-table exceeds 2,048 rows, its treelet split (``scene/treelet.py``). Images
-get their full mip chain in one texel pool, and a parallax material's
-height map its cone-step map (``scene/conemap.py``) in the same pool.
-Homogeneous and grid media fill the image of the unit cube under their
-to_world, and the world bounds grow to hold them. There is no instancing.
-The numpy code is carried
-over verbatim; tensors are made only at the ``SceneData`` boundary
-(``schema.to_tensor``), and the arrays are byte-identical to the JAX
-build's (the treelet tables in the port's row-major layout).
+Port of ``cudatracerlib_tpu/scene/host.py``. Scenes under 4,096 triangles
+take the numpy binned-SAH builder; larger ones the native builder
+(``scene/native_bvh.py``), a dummy 2-wide BVH, and, when the fat-row table
+exceeds 2,048 rows, its treelet split (``scene/treelet.py``). A mesh shared
+by several nodes makes a two-level scene (``build(instancing="auto")``):
+each shared mesh is stored once in local space, with an ``InstanceTable``
+of per-node transforms and, from 32 instances on, an 8-wide TLAS over
+their boxes. ``update_transforms`` moves nodes without a rebuild: an
+instance's row is rewritten, or a flat table is refit. Images get their
+full mip chain in one texel pool, and a parallax material's height map its
+cone-step map (``scene/conemap.py``) in the same pool. Homogeneous and grid
+media fill the image of the unit cube under their to_world, and the world
+bounds grow to hold them. The numpy code is carried over verbatim; tensors
+are made only at the ``SceneData`` boundary (``schema.to_tensor``), and the
+arrays are byte-identical to the JAX build's (the treelet tables in the
+port's row-major layout).
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from . import treelet as treeletmod
 from ..ops import traversal8
 
 MAX_FLAT_TRIS = 4096  # from here on the native builder, as in the JAX build
+_CORNERS01 = np.array([[x, y, z] for x in (0, 1) for y in (0, 1)
+                       for z in (0, 1)], np.float32)
 MAX_MIPS = 12
 LUM_W = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
@@ -251,45 +257,42 @@ class DynamicScene:
                                params=sensor.params.to(device))
 
     # -- build -------------------------------------------------------------
-    def build(self, device="cuda") -> schema.SceneData:
-        """Flatten every node into one world-space triangle soup, build its
-        BVH8 and pack the device tables onto `device`: the card unless the
-        caller asks for the CPU (``build("cpu")``). Raises without a card,
-        before any host work; nothing falls back to the CPU."""
+    TLAS_MIN_INSTANCES = 32
+
+    def build(self, device="cuda", *, instancing: str = "auto") -> schema.SceneData:
+        """Pack the device tables onto `device`: the card unless the caller
+        asks for the CPU (``build("cpu")``). Raises without a card, before
+        any host work; nothing falls back to the CPU.
+
+        instancing: "auto" builds a two-level TLAS/BLAS scene when a mesh is
+        shared by >= 2 non-emissive nodes and the sharing saves >= 1,024
+        triangles (each shared mesh stored once, in local space;
+        ``_build_instanced``); "off" always flattens every node into one
+        world-space triangle soup with one BVH8."""
         device = schema.resolve_device(device)
-        nodes = self._nodes
+        if instancing not in ("auto", "off"):
+            raise ValueError(f"instancing must be 'auto' or 'off', not {instancing!r}")
+        nodes = [n for n in self._nodes if n is not None]
         if not nodes:
             raise ValueError("scene has no geometry")
         if self._sensor is None:
             raise ValueError("scene has no sensor")
 
-        v0s, v1s, v2s = [], [], []
-        n0s, n1s, n2s, uv0s, uv1s, uv2s = [], [], [], [], [], []
-        mat_ids, light_ids, node_ids = [], [], []
-        area_lights = []  # (tri_first, tri_count, radiance)
+        if instancing == "auto":
+            by_mesh: dict = {}
+            for idx, node in enumerate(nodes):
+                if node.emission is None:
+                    by_mesh.setdefault(id(node.mesh), []).append(idx)
+            # instance only when the sharing saves real memory: tiny shared
+            # meshes (unit rectangles reused for walls) flatten instead
+            groups = {k: v for k, v in by_mesh.items()
+                      if len(v) >= 2 and (len(v) - 1)
+                      * nodes[v[0]].mesh.f.shape[0] >= 1024}
+            if groups:
+                return self._build_instanced(nodes, groups, device)
 
-        tri_cursor = 0
-        n_other_lights = len(self._lights)
-        for node_idx, node in enumerate(nodes):
-            m = node.mesh.transformed(node.to_world)
-            f = m.f
-            v0s.append(m.v[f[:, 0]]); v1s.append(m.v[f[:, 1]]); v2s.append(m.v[f[:, 2]])
-            n0s.append(m.n[f[:, 0]]); n1s.append(m.n[f[:, 1]]); n2s.append(m.n[f[:, 2]])
-            uv = m.uv if m.uv is not None else np.zeros((m.v.shape[0], 2), np.float32)
-            uv0s.append(uv[f[:, 0]]); uv1s.append(uv[f[:, 1]]); uv2s.append(uv[f[:, 2]])
-            nf = f.shape[0]
-            mat_ids.append(np.full(nf, node.material, np.int32))
-            node_ids.append(np.full(nf, node_idx, np.int32))
-            if node.emission is not None:
-                light_row = n_other_lights + len(area_lights)
-                light_ids.append(np.full(nf, light_row, np.int32))
-                area_lights.append(dict(first=tri_cursor, count=nf,
-                                        radiance=np.asarray(node.emission, np.float32)))
-            else:
-                light_ids.append(np.full(nf, -1, np.int32))
-            tri_cursor += nf
-
-        v0 = np.concatenate(v0s); v1 = np.concatenate(v1s); v2 = np.concatenate(v2s)
+        (v0, v1, v2, n0a, n1a, n2a, uv0a, uv1a, uv2a, mat_a, light_a, node_a,
+         area_lights) = self._world_soup(nodes, range(len(nodes)))
         T = v0.shape[0]
         t_bvh = time.perf_counter()
         if T >= MAX_FLAT_TRIS:
@@ -306,14 +309,6 @@ class DynamicScene:
         t_bvh = time.perf_counter() - t_bvh
         ng = np.cross(v1 - v0, v2 - v0)
         ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
-
-        n0a, n1a, n2a = (np.concatenate(n0s), np.concatenate(n1s),
-                         np.concatenate(n2s))
-        uv0a, uv1a, uv2a = (np.concatenate(uv0s), np.concatenate(uv1s),
-                            np.concatenate(uv2s))
-        mat_a = np.concatenate(mat_ids)
-        light_a = np.concatenate(light_ids)
-        node_a = np.concatenate(node_ids)
         shade = schema.pack_shade_rows(n0a, n1a, n2a, uv0a, uv1a, uv2a, ng,
                                        v0, v1, v2, mat_a, light_a, node_a)
         t = lambda a: schema.to_tensor(a, device)
@@ -332,8 +327,57 @@ class DynamicScene:
         # scene bounds include media volumes (a medium may extend past all
         # geometry; PPM's radius and grids and the lights' scene radius
         # read them)
-        w_lo = np.asarray(b.world_lo, np.float32).copy()
-        w_hi = np.asarray(b.world_hi, np.float32).copy()
+        w_lo, w_hi = self._grow_by_media(b.world_lo, b.world_hi)
+        b = b._replace(world_lo=w_lo, world_hi=w_hi)
+        host = self._host_meta(area_lights, w_lo, w_hi, t_bvh, t_part)
+        return schema.SceneData(
+            geom=geom, materials=self._build_materials(device),
+            textures=self._build_textures(device),
+            lights=self._build_lights(area_lights, v0, v1, v2, b, device),
+            sensor=self.sensor_data(device),
+            media=_build_media_table(self._media, device),
+            world_lo=t(b.world_lo), world_hi=t(b.world_hi), host=host)
+
+    def _world_soup(self, nodes, ids):
+        """The world-space triangle soup of nodes[ids], in that order:
+        (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat_id, light_id, node_id,
+        area_lights); an emissive node's triangles become one area light
+        (its light row follows the non-area lights)."""
+        v0s, v1s, v2s, n0s, n1s, n2s = [], [], [], [], [], []
+        uv0s, uv1s, uv2s, mats, lights_, nids = [], [], [], [], [], []
+        area_lights = []  # dict(first, count, radiance)
+        tri_cursor = 0
+        n_other = len(self._lights)
+        for node_idx in ids:
+            node = nodes[node_idx]
+            m = node.mesh.transformed(node.to_world)
+            f = m.f
+            v0s.append(m.v[f[:, 0]]); v1s.append(m.v[f[:, 1]]); v2s.append(m.v[f[:, 2]])
+            n0s.append(m.n[f[:, 0]]); n1s.append(m.n[f[:, 1]]); n2s.append(m.n[f[:, 2]])
+            uv = m.uv if m.uv is not None else np.zeros((m.v.shape[0], 2), np.float32)
+            uv0s.append(uv[f[:, 0]]); uv1s.append(uv[f[:, 1]]); uv2s.append(uv[f[:, 2]])
+            nf = f.shape[0]
+            mats.append(np.full(nf, node.material, np.int32))
+            nids.append(np.full(nf, node_idx, np.int32))
+            if node.emission is not None:
+                lights_.append(np.full(nf, n_other + len(area_lights), np.int32))
+                area_lights.append(dict(first=tri_cursor, count=nf,
+                                        radiance=np.asarray(node.emission, np.float32)))
+            else:
+                lights_.append(np.full(nf, -1, np.int32))
+            tri_cursor += nf
+        cat = lambda xs, d: (np.concatenate(xs) if xs else
+                             np.zeros((0, d), np.float32) if d else
+                             np.zeros(0, np.int32))
+        return (cat(v0s, 3), cat(v1s, 3), cat(v2s, 3), cat(n0s, 3),
+                cat(n1s, 3), cat(n2s, 3), cat(uv0s, 2), cat(uv1s, 2),
+                cat(uv2s, 2), cat(mats, 0), cat(lights_, 0), cat(nids, 0),
+                area_lights)
+
+    def _grow_by_media(self, lo, hi):
+        """World bounds (lo, hi) grown by every medium's box, float32."""
+        w_lo = np.asarray(lo, np.float32).copy()
+        w_hi = np.asarray(hi, np.float32).copy()
         corners = np.array([[x, y, z, 1.0] for x in (0, 1) for y in (0, 1)
                             for z in (0, 1)], np.float32)
         for med in self._media:
@@ -341,26 +385,21 @@ class DynamicScene:
             pts = (corners @ m2w.T)[:, :3]
             w_lo = np.minimum(w_lo, pts.min(0))
             w_hi = np.maximum(w_hi, pts.max(0))
-        b = b._replace(world_lo=w_lo, world_hi=w_hi)
+        return w_lo, w_hi
 
-        materials = self._build_materials(device)
-        textures = self._build_textures(device)
-        lights = self._build_lights(area_lights, v0, v1, v2, b, device)
-        media = _build_media_table(self._media, device)
-        sensor = self.sensor_data(device)
-
+    def _host_meta(self, area_lights, w_lo, w_hi, t_bvh, t_part) -> dict:
         mats = self._materials or [dict(mat_type=schema.BSDF_DIFFUSE,
                                         tex=np.full(schema.N_MAT_TEX, -1, np.int32),
                                         params=np.zeros(schema.N_MAT_PARAMS, np.float32))]
-        host = dict(
+        return dict(
             mat_type=np.asarray([m["mat_type"] for m in mats], np.int32),
             mat_tex=np.stack([np.asarray(m["tex"], np.int32) for m in mats]),
             mat_alpha_mode=np.asarray([m["params"][32] for m in mats], np.float32),
             mat_parallax=np.asarray([m["params"][24] for m in mats], np.float32),
             mat_bssrdf=np.asarray([float(m["params"][25:31].sum()) for m in mats],
                                   np.float32),
-            world_lo=np.asarray(b.world_lo, np.float32),
-            world_hi=np.asarray(b.world_hi, np.float32),
+            world_lo=np.asarray(w_lo, np.float32),
+            world_hi=np.asarray(w_hi, np.float32),
             light_type=np.asarray([l["light_type"] for l in self._lights]
                                   + [schema.LIGHT_DIFFUSE] * len(area_lights)
                                   + ([schema.LIGHT_INFINITE] if self._env is not None else []),
@@ -368,10 +407,264 @@ class DynamicScene:
             n_media=len(self._media),
             build_seconds=dict(bvh=t_bvh, treelet=t_part),
         )
+
+    @staticmethod
+    def _add_tlas(h: dict) -> None:
+        """Attach (or refresh) the 8-wide TLAS over the instance boxes of the
+        host instance table `h` (ops/instanced.tlas_visits reads it). Fewer
+        than TLAS_MIN_INSTANCES instances keep the dense slab scan
+        (tlas=None)."""
+        I = h["root"].shape[0]
+        if I < DynamicScene.TLAS_MIN_INSTANCES:
+            h["tlas"] = None
+            h["tlas_order"] = None
+            return
+        table, order = bvh8mod.build_tlas8(np.asarray(h["lo"], np.float32),
+                                           np.asarray(h["hi"], np.float32))
+        h["tlas"] = table
+        h["tlas_order"] = np.asarray(order, np.int32)
+
+    @staticmethod
+    def _instance_table(h: dict, device) -> schema.InstanceTable:
+        return schema.InstanceTable(**{
+            k: None if v is None else schema.to_tensor(v, device)
+            for k, v in h.items()})
+
+    def _build_instanced(self, nodes, groups, device) -> schema.SceneData:
+        """Two-level TLAS/BLAS build: each mesh shared by several nodes is
+        kept once in LOCAL space (one BLAS each); the per-node transforms
+        live in an InstanceTable. Emissive nodes stay flattened (area-light
+        sampling needs world triangles); the flattened remainder is the
+        first part and instance 0, with an identity transform and the
+        sentinels material -1 and light -2 (the triangles' own). Parts in
+        order: the flat part, then the groups in insertion order; each gets
+        its own BVH8, its links and triangle ids shifted to its place in
+        the concatenated table. A table of more than 2,048 rows is split
+        into treelets from every part root, and each instance carries its
+        root's top-local row (root_top)."""
+        inst_node_ids = set(i for v in groups.values() for i in v)
+        flat_ids = [i for i in range(len(nodes)) if i not in inst_node_ids]
+
+        def local_part(mesh):
+            f = mesh.f
+            m = mesh if mesh.n is not None else shapes.compute_vertex_normals(mesh)
+            uv = m.uv if m.uv is not None else np.zeros((m.v.shape[0], 2), np.float32)
+            T = f.shape[0]
+            return (m.v[f[:, 0]], m.v[f[:, 1]], m.v[f[:, 2]],
+                    m.n[f[:, 0]], m.n[f[:, 1]], m.n[f[:, 2]],
+                    uv[f[:, 0]], uv[f[:, 1]], uv[f[:, 2]],
+                    np.zeros(T, np.int32), np.full(T, -1, np.int32),
+                    np.full(T, -1, np.int32))
+
+        parts = []
+        flat = self._world_soup(nodes, flat_ids)
+        fv0, fv1, fv2, area_lights = flat[0], flat[1], flat[2], flat[12]
+        if fv0.shape[0] > 0:
+            parts.append(dict(arrs=flat[:12], flat=True))
+        group_items = list(groups.items())
+        for _, idxs in group_items:
+            parts.append(dict(arrs=local_part(nodes[idxs[0]].mesh), flat=False))
+
+        # per-part BVH, link and triangle-id fix-up, concatenation
+        t_bvh = time.perf_counter()
+        row_off = 0
+        tri_off = 0
+        wides, shades = [], []
+        for part in parts:
+            v0, v1, v2, n0, n1, n2, u0, u1, u2, ma, li, ni = part["arrs"]
+            T = v0.shape[0]
+            if T >= MAX_FLAT_TRIS:
+                b8 = native_bvh.build_bvh8(v0, v1, v2)
+            else:
+                b8 = bvh8mod.build_bvh8(v0, v1, v2)
+            n8 = b8.nodes.shape[0]
+            wide_p = traversal8.pack_unified(b8.nodes, b8.leaves).copy()
+            lk = wide_p[:n8, 48:56].copy().view(np.int32)
+            internal = lk >= 0
+            leaf = lk <= -2
+            lk[internal] += row_off
+            lk[leaf] = -2 - ((-2 - lk[leaf]) + row_off)
+            wide_p[:n8, 48:56] = lk.view(np.float32)
+            ids = wide_p[n8:, 108:120].copy().view(np.int32)
+            ids[ids >= 0] += tri_off
+            wide_p[n8:, 108:120] = ids.view(np.float32)
+            ng = np.cross(v1 - v0, v2 - v0)
+            ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+            shades.append(schema.pack_shade_rows(n0, n1, n2, u0, u1, u2, ng,
+                                                 v0, v1, v2, ma, li, ni))
+            part["root"] = row_off
+            part["lo"] = b8.world_lo
+            part["hi"] = b8.world_hi
+            row_off += wide_p.shape[0]
+            tri_off += T
+            wides.append(wide_p)
+        wide_all = np.concatenate(wides)
+        t_bvh = time.perf_counter() - t_bvh
+
+        # the forest's treelet split from every part root; each instance
+        # maps to its BLAS root's top-local row
+        part_roots = tuple(int(p["root"]) for p in parts)
+        t_part = time.perf_counter()
+        tpart = treeletmod.partition(wide_all, roots=part_roots)
+        t_part = time.perf_counter() - t_part
+        root_top_of = (None if tpart is None else
+                       {r: int(rt) for r, rt in zip(part_roots, tpart.root_top)})
+        t = lambda a: schema.to_tensor(a, device)
+        geom = schema.GeometryTable(
+            tris=None, nodes=t(np.zeros((1, 16), np.float32)),
+            tri_order=t(np.arange(tri_off, dtype=np.int32)), wide=t(wide_all),
+            n0=None, n1=None, n2=None, uv0=None, uv1=None, uv2=None,
+            ng=None, mat_id=None, light_id=None, node_id=None,
+            shade=t(np.concatenate(shades)),
+            tt_top=None if tpart is None else t(tpart.top),
+            tt_slabs=None if tpart is None else t(tpart.slabs),
+            tt_vid=None if tpart is None else t(tpart.vid_map))
+
+        # instance table: identity row for the flat part, then each node of
+        # each shared mesh
+        w2l_rows, l2w_rows, roots, imat, ilig, inode = [], [], [], [], [], []
+        los, his, inv_scales, local_aabbs = [], [], [], []
+        self._inst_of_node = {}
+        part_i = 0
+        if parts and parts[0]["flat"]:
+            eye = np.eye(4, dtype=np.float32)
+            w2l_rows.append(eye[:3]); l2w_rows.append(eye[:3])
+            roots.append(parts[0]["root"])
+            imat.append(-1); ilig.append(-2); inode.append(-1)
+            los.append(parts[0]["lo"]); his.append(parts[0]["hi"])
+            inv_scales.append(1.0)
+            local_aabbs.append((parts[0]["lo"], parts[0]["hi"]))
+            part_i = 1
+        for _, idxs in group_items:
+            part = parts[part_i]; part_i += 1
+            lo, hi = part["lo"], part["hi"]
+            corners = lo + _CORNERS01 * (hi - lo)
+            for node_idx in idxs:
+                node = nodes[node_idx]
+                l2w = np.asarray(node.to_world, np.float32)
+                w2l = np.linalg.inv(l2w).astype(np.float32)
+                pts = corners @ l2w[:3, :3].T + l2w[:3, 3]
+                w2l_rows.append(w2l[:3]); l2w_rows.append(l2w[:3])
+                roots.append(part["root"])
+                imat.append(node.material); ilig.append(-1); inode.append(node_idx)
+                los.append(pts.min(0)); his.append(pts.max(0))
+                det = abs(float(np.linalg.det(l2w[:3, :3])))
+                inv_scales.append(max(det, 1e-20) ** (-1.0 / 3.0))
+                local_aabbs.append((lo, hi))
+                self._inst_of_node[node_idx] = len(roots) - 1
+        self._inst_host = dict(
+            w2l=np.stack(w2l_rows).astype(np.float32),
+            l2w=np.stack(l2w_rows).astype(np.float32),
+            root=np.asarray(roots, np.int32),
+            mat_id=np.asarray(imat, np.int32),
+            light_id=np.asarray(ilig, np.int32),
+            node_id=np.asarray(inode, np.int32),
+            lo=np.stack(los).astype(np.float32),
+            hi=np.stack(his).astype(np.float32),
+            inv_scale=np.asarray(inv_scales, np.float32),
+            root_top=(np.asarray([root_top_of[r] for r in roots], np.int32)
+                      if root_top_of is not None else None))
+        self._add_tlas(self._inst_host)
+        self._inst_local_aabbs = local_aabbs
+        geom = geom._replace(inst=self._instance_table(self._inst_host, device))
+
+        w_lo, w_hi = self._grow_by_media(np.stack(los).min(0), np.stack(his).max(0))
+        b_like = bvhmod.BVH(nodes=np.zeros((1, 16), np.float32),
+                            tri_order=np.arange(max(fv0.shape[0], 1), dtype=np.int32),
+                            world_lo=w_lo, world_hi=w_hi)
         return schema.SceneData(
-            geom=geom, materials=materials, textures=textures, lights=lights,
-            sensor=sensor, media=media,
-            world_lo=t(b.world_lo), world_hi=t(b.world_hi), host=host)
+            geom=geom, materials=self._build_materials(device),
+            textures=self._build_textures(device),
+            lights=self._build_lights(area_lights, fv0, fv1, fv2, b_like, device),
+            sensor=self.sensor_data(device),
+            media=_build_media_table(self._media, device),
+            world_lo=t(w_lo), world_hi=t(w_hi),
+            host=self._host_meta(area_lights, w_lo, w_hi, t_bvh, t_part))
+
+    # -- updates -----------------------------------------------------------
+    def set_node_transform(self, node_id: int, to_world: np.ndarray):
+        self._nodes[node_id].to_world = np.asarray(to_world, np.float32)
+
+    def remove_node(self, node_id: int):
+        self._nodes[node_id] = None  # tombstone; compacted at build
+
+    def update_transforms(self, scene_data: schema.SceneData,
+                          node_transforms: dict) -> schema.SceneData:
+        """Incremental update: move nodes without a full rebuild (the
+        reference's SceneBVH invalidate and refit). Returns a new SceneData
+        on `scene_data`'s device.
+
+        - Two-level scene, every moved node an instance: O(moved nodes).
+          Only their InstanceTable rows are rewritten (transforms, world
+          boxes, inv_scale) and the TLAS is rebuilt over the boxes.
+        - Flat scene: the world triangles of every node are recomputed, the
+          fat-row table refit bottom-up with its topology kept
+          (``animation.refit_wide``), the shade rows repacked, the treelet
+          slabs of a split table and the area lights' rows refreshed. A
+          large motion loses BVH quality; a periodic build() restores it.
+        - Two-level scene with a moved node in its flattened part: a full
+          build() (the refit assumes the flattened layout)."""
+        from . import animation as animmod
+        for nid, m in node_transforms.items():
+            self.set_node_transform(nid, m)
+        device = scene_data.device
+        inst_map = getattr(self, "_inst_of_node", None)
+        if scene_data.geom.inst is not None:
+            if inst_map is None or any(nid not in inst_map for nid in node_transforms):
+                return self.build(device)
+            # copy: on the CPU the old scene's tensors share these arrays
+            h = {k: None if v is None else v.copy() for k, v in self._inst_host.items()}
+            for nid in node_transforms:
+                row = inst_map[nid]
+                l2w = np.asarray(self._nodes[nid].to_world, np.float32)
+                w2l = np.linalg.inv(l2w).astype(np.float32)
+                h["l2w"][row] = l2w[:3]
+                h["w2l"][row] = w2l[:3]
+                lo, hi = self._inst_local_aabbs[row]
+                pts = (lo + _CORNERS01 * (hi - lo)) @ l2w[:3, :3].T + l2w[:3, 3]
+                h["lo"][row] = pts.min(0)
+                h["hi"][row] = pts.max(0)
+                det = abs(float(np.linalg.det(l2w[:3, :3])))
+                h["inv_scale"][row] = max(det, 1e-20) ** (-1.0 / 3.0)
+            self._add_tlas(h)
+            self._inst_host = h
+            w_lo, w_hi = self._grow_by_media(h["lo"].min(0), h["hi"].max(0))
+            meta = dict(scene_data.host, world_lo=w_lo, world_hi=w_hi)
+            t = lambda a: schema.to_tensor(a, device)
+            return scene_data._replace(
+                geom=scene_data.geom._replace(inst=self._instance_table(h, device)),
+                world_lo=t(w_lo), world_hi=t(w_hi), host=meta)
+
+        nodes = [n for n in self._nodes if n is not None]
+        (v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat_a, light_a, node_a,
+         _) = self._world_soup(nodes, range(len(nodes)))
+        wide_np = scene_data.geom.wide.cpu().numpy()
+        # leaf rows carry their triangle count in column 120, node rows 0;
+        # node rows come first
+        leafy = wide_np[:, 120] > 0
+        n_node_rows = int(np.argmax(leafy)) if leafy.any() else wide_np.shape[0]
+        new_wide = animmod.refit_wide(wide_np, n_node_rows, v0, v1, v2)
+        ng = np.cross(v1 - v0, v2 - v0)
+        ng = ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True), 1e-20)
+        shade = schema.pack_shade_rows(n0, n1, n2, uv0, uv1, uv2, ng, v0, v1, v2,
+                                       mat_a, light_a, node_a)
+        t = lambda a: schema.to_tensor(a, device)
+        geom = scene_data.geom._replace(wide=t(new_wide), shade=t(shade))
+        # a split table's treelet slabs are packed copies of its rows: the
+        # refit must refresh them, or the two-phase traversal would read
+        # stale boxes
+        if scene_data.geom.tt_slabs is not None:
+            part = treeletmod.partition(new_wide)
+            geom = geom._replace(tt_top=t(part.top), tt_slabs=t(part.slabs),
+                                 tt_vid=t(part.vid_map))
+        # animated emitter triangles: refresh the area lights' rows
+        lights = scene_data.lights._replace(al_rows=t(_pack_al_rows(
+            v0, v1, v2, scene_data.lights.al_tris.cpu().numpy())))
+        lo = np.minimum(np.minimum(v0, v1), v2).min(0).astype(np.float32)
+        hi = np.maximum(np.maximum(v0, v1), v2).max(0).astype(np.float32)
+        meta = dict(scene_data.host, world_lo=lo, world_hi=hi)
+        return scene_data._replace(geom=geom, lights=lights, world_lo=t(lo),
+                                   world_hi=t(hi), host=meta)
 
     def _build_materials(self, device) -> schema.MaterialTable:
         mats = self._materials if self._materials else [dict(

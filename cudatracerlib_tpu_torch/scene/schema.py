@@ -74,14 +74,40 @@ N_LIGHT_PARAMS = 24
 N_TEX_PARAMS = 12
 
 
+class InstanceTable(NamedTuple):
+    """Two-level (TLAS/BLAS) instancing: per-instance transforms over shared
+    local-space BLAS subtrees of the unified fat-row table
+    (ops/instanced.py). Each visited instance re-traverses the shared table
+    from its own root row; ``tlas`` (present from
+    ``host.DynamicScene.TLAS_MIN_INSTANCES`` instances on) is an 8-wide BVH
+    over the instance boxes whose leaf links keep the binary builder's
+    -2-(first*16+count) codes over ``tlas_order``."""
+    w2l: Tensor        # (I, 3, 4) world->local affine
+    l2w: Tensor        # (I, 3, 4) local->world affine
+    root: Tensor       # (I,) i32 BLAS root row in GeometryTable.wide
+    mat_id: Tensor     # (I,) i32 material override (-1: the tri's own)
+    light_id: Tensor   # (I,) i32 area-light row (-2: the tri's own)
+    node_id: Tensor    # (I,) i32 scene-graph node (-1: the flat part)
+    lo: Tensor         # (I, 3) world-space instance AABB
+    hi: Tensor         # (I, 3)
+    inv_scale: Tensor  # (I,) |det l2w_rot|^(-1/3): uv-density correction
+    tlas: "Tensor | None" = None        # (R_tlas, 128) f32 TLAS node rows
+    tlas_order: "Tensor | None" = None  # (I,) i32 leaf-contiguous instance ids
+    # per-instance TOP-LOCAL root row in the treelet top table, when the
+    # shared table is split (treelet.TreeletTable.root_top of its part)
+    root_top: "Tensor | None" = None
+
+
 class GeometryTable(NamedTuple):
-    """Triangle soup + BVH, world space. The flat build leaves the per-tri
-    columns (``tris``, ``n0`` ... ``node_id``) as None: every reader uses the
-    packed ``shade`` rows and the ``wide`` fat-row table. Tables of more than
-    2,048 rows also carry their treelet split (scene/treelet.py), row-major:
-    ``tt_top`` (R_top, 128), ``tt_slabs`` (n_treelets, rows, 128) and
-    ``tt_vid`` (n_vids, 2); smaller tables leave the three as None.
-    ``inst`` is always None in the port (no two-level instancing yet)."""
+    """Triangle soup + BVH. The builds leave the per-tri columns (``tris``,
+    ``n0`` ... ``node_id``) as None: every reader uses the packed ``shade``
+    rows and the ``wide`` fat-row table. Tables of more than 2,048 rows also
+    carry their treelet split (scene/treelet.py), row-major: ``tt_top``
+    (R_top, 128), ``tt_slabs`` (n_treelets, rows, 128) and ``tt_vid``
+    (n_vids, 2); smaller tables leave the three as None. Without instancing
+    everything is world space and ``inst`` is None; with it, the triangle
+    pool and ``wide`` hold each shared mesh once in LOCAL space, and
+    ``inst`` maps rays and hits between the spaces."""
     tris: "Tensor | None"   # (T, 12) f32 [v0, e1, e2, pad]
     nodes: Tensor           # (N, 16) f32 packed 2-wide BVH nodes
     tri_order: Tensor       # (T,) i32
@@ -100,7 +126,7 @@ class GeometryTable(NamedTuple):
     tt_top: "Tensor | None" = None    # (R_top, 128) f32 treelet top table
     tt_slabs: "Tensor | None" = None  # (n_treelets, rows, 128) f32 slabs
     tt_vid: "Tensor | None" = None    # (n_vids, 2) i32 (treelet, root) map
-    inst: None = None
+    inst: "InstanceTable | None" = None
 
 
 SHADE_WIDTH = 32
@@ -269,8 +295,8 @@ def to_tensor(a, device) -> Tensor:
 def scene_from_numpy(arrays: dict, host_meta: dict, device="cuda") -> SceneData:
     """Build the port's SceneData from a JAX SceneData flattened to numpy.
 
-    `arrays` maps dotted leaf names ("geom.wide", "lights.al_rows",
-    "sensor.sensor_type", "world_lo", ...) to numpy arrays; leaves the JAX
+    `arrays` maps dotted leaf names ("geom.wide", "geom.inst.root",
+    "lights.al_rows", "sensor.sensor_type", "world_lo", ...) to numpy arrays; leaves the JAX
     scene holds as None are simply absent. Bitcast int32 payloads travel as
     the float32 bits they are stored in; nothing converts their values.
     The treelet tables arrive in the JAX device layout (transposed, padded)
@@ -293,8 +319,11 @@ def scene_from_numpy(arrays: dict, host_meta: dict, device="cuda") -> SceneData:
 
     sensor = table(SensorData, "sensor")._replace(
         sensor_type=int(arrays["sensor.sensor_type"]))
+    geom = table(GeometryTable, "geom")
+    if "geom.inst.root" in arrays:
+        geom = geom._replace(inst=table(InstanceTable, "geom.inst"))
     return SceneData(
-        geom=table(GeometryTable, "geom"),
+        geom=geom,
         materials=table(MaterialTable, "materials"),
         textures=table(TextureTable, "textures"),
         lights=table(LightTable, "lights"),

@@ -172,3 +172,110 @@ def test_srgb_transfer(name):
     want = np.asarray(getattr(jspectrum, name)(jnp.asarray(x)))
     np.testing.assert_array_max_ulp(got, want, maxulp=2)
     np.testing.assert_array_equal(got[-4:], want[-4:])
+
+
+# ---- the rest of core/: aabb, compression, dispersion, spline, quadrature --
+
+from cudatracerlib_tpu.core import aabb as jaabb, compression as jcomp  # noqa: E402
+from cudatracerlib_tpu.core import dispersion as jdisp, quadrature as jquad  # noqa: E402
+from cudatracerlib_tpu.core import spline as jspline  # noqa: E402
+from cudatracerlib_tpu_torch.core import aabb as taabb, compression as tcomp  # noqa: E402
+from cudatracerlib_tpu_torch.core import dispersion as tdisp, quadrature as tquad  # noqa: E402
+from cudatracerlib_tpu_torch.core import spline as tspline  # noqa: E402
+
+
+def test_aabb(data):
+    a, b, n, _, _ = data
+    lo_np, hi_np = np.minimum(a, b), np.maximum(a, b)
+    t = taabb.AABB(torch.from_numpy(lo_np), torch.from_numpy(hi_np))
+    j = jaabb.AABB(jnp.asarray(lo_np), jnp.asarray(hi_np))
+    p = n * 0.5
+    tp, jp = torch.from_numpy(p), jnp.asarray(p)
+    for name in ("center", "extents", "surface_area", "radius"):
+        _close(getattr(t, name)(), getattr(j, name)())
+    np.testing.assert_array_equal(t.contains(tp).numpy(), np.asarray(j.contains(jp)))
+    for tb, jb in ((t.union(t.extend(tp)), j.union(j.extend(jp))),
+                   (taabb.AABB.empty((4,)), jaabb.AABB.empty((4,)))):
+        _close(tb.lo, jb.lo)
+        _close(tb.hi, jb.hi)
+    inv_d = 1.0 / np.where(np.abs(b) < 1e-6, 1e-6, b).astype(np.float32)
+    th, tn = taabb.ray_aabb(t.lo, t.hi, tp, torch.from_numpy(inv_d), 0.0, 1e9)
+    jh, jn = jaabb.ray_aabb(j.lo, j.hi, jp, jnp.asarray(inv_d), 0.0, 1e9)
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    _close(tn, jn)
+    assert bool(th.any()) and not bool(th.all())
+
+
+def test_compression(data):
+    _, _, n, u2, _ = data
+    q = tcomp.normal_to_uint16(torch.from_numpy(n))
+    jq = jcomp.normal_to_uint16(jnp.asarray(n))
+    assert q.dtype == torch.uint16
+    # a quantisation step decides each code: agree on all but rounding ties
+    assert (q.to(torch.int32).numpy() != np.asarray(jq).astype(np.int32)).sum() <= 4
+    dec = tcomp.uint16_to_normal(q)
+    _close(dec, jcomp.uint16_to_normal(jnp.asarray(q.to(torch.int32).numpy()).astype(jnp.uint16)))
+    assert float((dec * torch.from_numpy(n)).sum(-1).min()) > 0.99
+    h = tcomp.f32_to_half(torch.from_numpy(u2))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(jcomp.f32_to_half(jnp.asarray(u2))))
+    np.testing.assert_array_equal(tcomp.half_to_f32(h).numpy(),
+                                  np.asarray(jcomp.half_to_f32(jnp.asarray(h.numpy()))))
+    np.testing.assert_array_equal(tcomp.uv_to_half2(torch.from_numpy(u2)).numpy(),
+                                  np.asarray(jcomp.uv_to_half2(jnp.asarray(u2))))
+
+
+def test_dispersion():
+    r = np.random.default_rng(8)
+    M = 64
+    params = np.stack([r.uniform(1.3, 1.7, M), r.uniform(0.001, 0.02, M),
+                       r.uniform(0.0, 1.0, M), r.uniform(0.001, 0.01, M),
+                       r.uniform(0.01, 0.05, M), r.uniform(50, 150, M)], -1).astype(np.float32)
+    dt = (np.arange(M) % 3).astype(np.int32)
+    lam = r.uniform(0.38, 0.78, M).astype(np.float32)
+    tp, jp = torch.from_numpy(params), jnp.asarray(params)
+    _close(tdisp.eval_ior(torch.from_numpy(dt), tp, torch.from_numpy(lam)),
+           jdisp.eval_ior(jnp.asarray(dt), jp, jnp.asarray(lam)))
+    iors = tdisp.rgb_iors(torch.from_numpy(dt), tp)
+    _close(iors, jdisp.rgb_iors(jnp.asarray(dt), jp))
+    # shorter wavelengths bend more (Cauchy rows: B > 0)
+    assert bool((iors[dt == 0, 2] > iors[dt == 0, 0]).all())
+
+
+def test_spline():
+    r = np.random.default_rng(9)
+    vals = r.normal(size=33).astype(np.float32)
+    table = r.normal(size=(17, 23)).astype(np.float32)
+    x = r.uniform(-0.1, 1.1, 500).astype(np.float32)
+    y = r.uniform(-0.1, 1.1, 500).astype(np.float32)
+    _close(tspline.eval_1d(torch.from_numpy(vals), torch.from_numpy(x)),
+           jspline.eval_1d(jnp.asarray(vals), jnp.asarray(x)))
+    _close(tspline.eval_2d(torch.from_numpy(table), torch.from_numpy(x), torch.from_numpy(y)),
+           jspline.eval_2d(jnp.asarray(table), jnp.asarray(x), jnp.asarray(y)))
+    # the knots interpolate exactly
+    knots = torch.arange(33, dtype=torch.float32) / 32
+    torch.testing.assert_close(tspline.eval_1d(torch.from_numpy(vals), knots),
+                               torch.from_numpy(vals), rtol=1e-6, atol=1e-6)
+    # a scalar pair through the 1-D branch of eval_2d
+    _close(tspline.eval_2d(torch.from_numpy(table), torch.tensor(0.37), torch.tensor(0.61)),
+           jspline.eval_2d(jnp.asarray(table), jnp.float32(0.37), jnp.float32(0.61)))
+
+
+@pytest.mark.parametrize("n", [4, 16])
+def test_quadrature(n):
+    x, w = tquad.gauss_legendre(n)
+    jx, jw = jquad.gauss_legendre(n)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    a = np.linspace(-1.0, 0.5, 7).astype(np.float32)
+    b = a + np.linspace(0.1, 2.0, 7).astype(np.float32)
+    for f_t, f_j in ((lambda t: t ** 3 - 2 * t, lambda t: t ** 3 - 2 * t),
+                     (torch.cos, jnp.cos)):
+        _close(tquad.integrate(f_t, torch.from_numpy(a), torch.from_numpy(b), n=n),
+               jquad.integrate(f_j, jnp.asarray(a), jnp.asarray(b), n=n))
+        _close(tquad.integrate_lobatto7(f_t, torch.from_numpy(a), torch.from_numpy(b)),
+               jquad.integrate_lobatto7(f_j, jnp.asarray(a), jnp.asarray(b)))
+    # exact on a cubic
+    exact = (b ** 4 - a ** 4) / 4 - (b ** 2 - a ** 2)
+    got = tquad.integrate(lambda t: t ** 3 - 2 * t, torch.from_numpy(a),
+                          torch.from_numpy(b), n=n)
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-5, atol=1e-5)

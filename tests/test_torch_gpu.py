@@ -459,3 +459,126 @@ def test_sequence_samplers_on_gpu(dev):
                                      max_depth=4, sampler_type=st)
         assert n == 2 * 5 and np.isfinite(card).all() and card.mean() > 0
         assert _rel(card, cpu) < PT_LIMIT, (st, _rel(card, cpu))
+
+
+def _inst_scene(size, n_spheres=5):
+    """tests/test_instancing.py `_scene` (five nodes sharing one sphere: a
+    two-level scene of six instances) through the port."""
+    from cudatracerlib_tpu_torch.scene import host, schema, sensors, shapes
+    from cudatracerlib_tpu_torch.utils import transforms as tf
+    sc = host.DynamicScene()
+    white = sc.add_material(host.MaterialSpec(reflectance=(0.7, 0.7, 0.7)))
+    red = sc.add_material(host.MaterialSpec(reflectance=(0.6, 0.1, 0.1)))
+    black = sc.add_material(host.MaterialSpec(reflectance=(0, 0, 0)))
+    rect = shapes.rectangle()
+    sc.create_node(rect, white, tf.compose(tf.translate([0, -1, 0]),
+                                           tf.rotate_deg([1, 0, 0], -90), tf.scale(4.0)))
+    sc.create_node(rect, black, tf.compose(tf.translate([0, 2.5, 0]),
+                                           tf.rotate_deg([1, 0, 0], 90)),
+                   emission=(10.0, 10.0, 10.0))
+    ball = shapes.sphere(radius=0.4, n_theta=12, n_phi=24)
+    for i in range(n_spheres):
+        sc.create_node(ball, red if i % 2 else white,
+                       tf.compose(tf.translate([-1.6 + i * 0.8, -0.6, 0.3 * (i % 3)]),
+                                  tf.scale(0.8 + 0.1 * i)))
+    sc.set_sensor(sensors.make_sensor(
+        schema.SENSOR_PERSPECTIVE, tf.look_at([0, 0.5, -4.5], [0, -0.3, 0]),
+        fov_x_deg=40.0, film_w=size, film_h=size))
+    return sc
+
+
+def _forest(scene, dev):
+    """The instanced scene's BLAS forest split under forced small limits
+    (max_top_rows=16, treelet_rows=128), with each instance's top-local
+    root: the treelet BLAS route on a small scene."""
+    from cudatracerlib_tpu_torch.scene import treelet
+    geom = scene.geom
+    roots = geom.inst.root.cpu().numpy()
+    uroots = tuple(int(r) for r in np.unique(roots))
+    part = treelet.partition(geom.wide.cpu().numpy(), treelet_rows=128,
+                             max_top_rows=16, roots=uroots)
+    r2t = {r: int(t) for r, t in zip(uroots, part.root_top)}
+    root_top = torch.tensor([r2t[int(r)] for r in roots], dtype=torch.int32, device=dev)
+    return geom._replace(tt_top=torch.from_numpy(part.top).to(dev),
+                         tt_slabs=torch.from_numpy(part.slabs).to(dev),
+                         tt_vid=torch.from_numpy(part.vid_map).to(dev),
+                         inst=geom.inst._replace(root_top=root_top)), part
+
+
+@pytest.mark.gpu
+def test_instanced_golden_on_gpu(dev):
+    """The instanced golden (tests/goldens/instanced_48_pt.npz, < 0.02) from
+    the card, and the instanced path tracer at 16x16 within PT_LIMIT of the
+    CPU: K1 with per-lane roots, six launches (one per instance) per
+    traversal."""
+    import os
+    from cudatracerlib_tpu_torch.models import path as tpath
+    inst = _inst_scene(48).build(dev)
+    assert inst.geom.inst is not None and inst.geom.inst.tlas is None
+    img = tpath.PathTracer(inst, 48, 48, max_depth=4).render(8).cpu().numpy()
+    ref = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                               "instanced_48_pt.npz"))["img"]
+    assert _rel(img, ref) < 0.02, _rel(img, ref)
+    card, cpu, n = _card_and_cpu(tpath.PathTracer, lambda w, h: _inst_scene(w), 16, 2,
+                                 max_depth=4)
+    # 4 merged traversals and one shadow flush a pass, 6 instances each
+    assert n == 2 * 5 * 6 and np.isfinite(card).all() and card.mean() > 0
+    assert _rel(card, cpu) < PT_LIMIT, _rel(card, cpu)
+
+
+@pytest.mark.gpu
+def test_wavefront_instanced_on_gpu(dev):
+    """WavefrontPT on the instanced scene at 16x16, depth 4, 192 lanes, 2
+    passes: within PT_LIMIT of the CPU, and against the chunked PathTracer
+    on the card within rtol 1e-5 / atol 1e-7 with the live rays equal."""
+    from cudatracerlib_tpu_torch.models import path as tpath
+    from cudatracerlib_tpu_torch.models import wavefront as twf
+    card, cpu, n = _card_and_cpu(twf.WavefrontPT, lambda w, h: _inst_scene(w), 16, 2,
+                                 max_depth=4, lanes=192)
+    assert n > 0 and np.isfinite(card).all() and card.mean() > 0
+    assert _rel(card, cpu) < PT_LIMIT, _rel(card, cpu)
+    scene = _inst_scene(16).build(dev)
+    pt = tpath.PathTracer(scene, 16, 16, max_depth=4, chunk_size=16 * 16)
+    wf = twf.WavefrontPT(scene, 16, 16, max_depth=4, lanes=192)
+    np.testing.assert_allclose(wf.render(2).cpu().numpy(), pt.render(2).cpu().numpy(),
+                               rtol=1e-5, atol=1e-7)
+    assert wf.rays_traced_live == pt.rays_traced_live
+
+
+@pytest.mark.gpu
+def test_k2_roots_match_plain_on_gpu(dev):
+    """K2 with per-lane top-local roots, both variants, against its plain
+    version bit for bit, on the instanced scene's forced-split forest;
+    roots of zeros equal the rootless launch; the treelet BLAS route on the
+    card (K2 with roots, K3, the K1 fallback with global roots) equals the
+    same route on the CPU."""
+    from cudatracerlib_tpu_torch.ops import instanced
+    sc = _inst_scene(32).build(dev)
+    geom_tt, part = _forest(sc, dev)
+    top = geom_tt.tt_top
+    pix = torch.arange(1024, dtype=torch.int32, device=dev)
+    rays = Rays(*(x.contiguous() for x in ttracer.gen_camera_rays(sc, pix, 0, 0, 32, 32)[0]))
+    B = 1024
+    roots = torch.from_numpy(np.where(np.arange(B) % 3 == 0, part.root_top[0],
+                                      part.root_top[-1]).astype(np.int32)).to(dev)
+    amask = torch.from_numpy(np.random.default_rng(3).random(B) < 0.5).to(dev)
+    K2 = traversal_tt.top_visits_cuda
+    for kw in ({}, dict(any_hit=True), dict(any_mask=amask)):
+        for V in (6, 3):
+            p2 = traversal_tt.top_visits(top, rays, V, roots=roots, **kw)
+            for variant in ("shared", "global"):
+                k2 = K2(top, rays, V, roots=roots, _variant=variant, **kw)
+                _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
+            z = K2(top, rays, V, roots=torch.zeros(B, dtype=torch.int32, device=dev), **kw)
+            _equal((*z[0], *z[1:]), (*K2(top, rays, V, **kw)[0], *K2(top, rays, V, **kw)[1:]))
+        card = traversal8.intersect_scene(geom_tt, rays, **kw)
+        cpu_geom = type(geom_tt)(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                                   for x in geom_tt))
+        cpu_geom = cpu_geom._replace(inst=type(geom_tt.inst)(
+            *(None if x is None else x.cpu() for x in geom_tt.inst)))
+        cpu = traversal8.intersect_scene(cpu_geom, Rays(*(x.cpu() for x in rays)),
+                                         **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                                            for k, v in kw.items()})
+        _equal(tuple(x.cpu() for x in card), cpu)
+    assert instanced.dropped_visits == 0 or int(instanced.dropped_visits) == 0
+    torch.cuda.synchronize()
