@@ -7,7 +7,9 @@ FastTracer and the game tracer on San Miguel, the adaptive block sampler
 with the image pipeline and the Sobol' sampler on veach-mis, the alpha,
 bump, parallax, BSSRDF and spectral scenes, two-level instanced scenes
 (their BLAS visits on K1, or K2, K3 and the K1 fallback, with per-lane
-roots), instance moves, refit and skinning, and the microbenchmarks P1-P3.
+roots), instance moves, refit and skinning, Mitsuba scene files through
+the port's loader (all 16 BSDF types, path regularization, San Miguel from
+a serialized file), and the microbenchmarks P1-P3.
 
     python3 chip_smoke.py [--profile]
 
@@ -195,6 +197,33 @@ failure exits non-zero, and nothing falls back to the CPU:
    build seconds; the Cornell box's sphere moved through the flat refit,
    its hits (t, validity) identical to a fresh build's; skin_vertices of
    65,536 vertices on the card against the CPU (SKIN_LIMIT).
+L1-L3. (loader_phases) Mitsuba files written to a temporary directory and
+   loaded through scene/loader/ (no file from outside the checkout, .hdr
+   the only image format). L1, BASELINE config 1: cornell.xml, phase 4's
+   Cornell box as rectangle, cube and sphere shapes (the sphere tessellated
+   32 x 64 by the loader); PrimTracer depth and normal AOVs at 512^2 (one
+   K1 launch each, the variant the size rule picks for its 612 rows), the
+   PT at 512^2, depth 6, chunks of 65,536, a warm-up and 4 timed passes,
+   its mean within L1_MEAN_GAP of phase 4's, every K1 call of one pass held
+   to the plain version; at 32^2 the tables' rows equal on the card and
+   the CPU and the PT within CARD_CPU_LIMIT of the CPU pass by pass. L2:
+   materials.xml, a 4 x 4 grid of spheres, one per BSDF type (with the
+   twosided, coating, rough coating and blend adapters), a blackbody area
+   light and a sun-and-sky map that must equal preetham_sky's; every type
+   in the material table; the PT at 512^2, depth 5, without and with
+   regularization (a warm-up and L2_PASSES timed passes each; K2, K3 and
+   the K1 fallback: 63,492 triangles), every K2, K3 and K1 call of one
+   pass held to its plain version; at L2_SMALL^2 one pass each of the PT
+   (both), BDPT and VCM (depth L2_SMALL_DEPTH) and the regularized
+   WavefrontPT against the CPU.
+   L3: the San Miguel stand-in's nodes merged by material into one
+   .serialized file (1,200,444 triangles with normals and uv) and an XML
+   that loads each mesh by shapeIndex; every loaded array equal to the one
+   written; parse and build seconds; one PT pass at 1024^2, depth 5,
+   chunks of 131,072 (K2, K3, K1), the first traversal's calls held to the
+   plain versions; parse, build and pass under L3_SECONDS. Last, an
+   envmap written as .hdr must load as the image read back (the loader's
+   grey stand-in for a missing file must not hide it).
 
 The kernel table comes next: one row for each variant of K1 and K2, for
 K3 and each of the probe's K3 designs, and for K4 and P1-P3, with its
@@ -206,7 +235,9 @@ by_scene, by_tracer (K1 shared: one pass of each tracer of 4d-4q, summed by
 mode, the adaptive and Sobol' passes among them; K1 global, K2 and K3:
 WavefrontPT's, the FastTracer's and the GameTracer's launches per pass
 and their recorded calls on San Miguel; K1 shared, K1 global, K2 and K3
-also the instanced traversals of 9b and 9d, every call summed),
+also the instanced traversals of 9b and 9d, every call summed, and the
+loader's: loader_cornell under the K1 variant it took, loader_materials
+and loader_sm under K1 global, K2 shared and K3),
 by_v, fallback_by_v and mixed_rays; the forced global variant and the
 probe's designs on the same rays beside K1's and K2's shared rows; the
 probe's split of the slots beside its cluster design), its device time
@@ -362,6 +393,27 @@ SKIN_LIMIT = 1e-5
 # device_ms's sleeping kernel: ~6 ms at the H100's 1.755 GHz, longer than
 # the host takes to queue its calls
 SLEEP_CYCLES = 10_000_000
+# the loader slice (loader_phases): sizes, depths, chunks and limits
+LOADER_SIZE = 512
+LOADER_CHUNK = 65536
+LOADER_PASSES = 4
+LOADER_SMALL = 32
+LOADER_CPU_PASSES = 2
+L1_DEPTH = 6
+L2_DEPTH = 5
+# L2 evaluates all 16 closed forms on every lane, and every simple type
+# again inside its coatings and blends (JAX's dispatch): 10-12 s a 512²
+# pass and 40-45 s a 32² BDPT or VCM pass on the card and the CPU, so one
+# timed pass a setting, and its card-against-CPU passes at 16², BDPT and
+# VCM at depth 3
+L2_PASSES = 1
+L2_SMALL = 16
+L2_SMALL_DEPTH = 3
+L1_MEAN_GAP = 0.05      # only the sphere's tessellation differs from phase 4
+L3_SIZE = 1024
+L3_DEPTH = 5
+L3_CHUNK = 131072
+L3_SECONDS = 60.0       # parse, build and one pass
 # the traversal kernels' names in a profile, one entry per K2
 # instantiation (template argument: V)
 KERNEL_RE = re.compile(r"traverse8(?:_shared)?_kernel"
@@ -448,10 +500,13 @@ def check_variants(label, run, plain, modes, variants, bound=None,
     `timed`, by its device time); the plain version in the modes of `timed`,
     as a median of `plain_reps` runs. Emits one line per mode and variant
     (None: the variant the size rule picks); returns {(mode, variant):
-    dict(err, ms, device_ms, plain_ms, steps, bound)}."""
+    dict(err, ms, device_ms, plain_ms, steps, bound)}. bound(steps,
+    table_bytes) gets the variant's steps and the table bytes the plain run
+    fetched (RowFetches); no timed device time may be under it."""
     out = {}
     for mode, kw in modes.items():
-        ref = plain(kw)
+        with RowFetches() as fetched:
+            ref = plain(kw)
         plain_ms = (cuda_median_ms(lambda: plain(kw), reps=plain_reps)
                     if mode in timed else None)
         for variant in variants:
@@ -461,7 +516,11 @@ def check_variants(label, run, plain, modes, variants, bound=None,
             dms = device_ms(lambda: run(variant, kw)) if mode in timed else None
             steps, flagged = int(got[1].sum()), int((got[2] != 0).sum())
             res = dict(err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
-                       steps=steps, bound=bound(steps) if bound else None)
+                       steps=steps,
+                       bound=bound(steps, fetched.nbytes) if bound else None)
+            if dms is not None and res["bound"] and dms < res["bound"][0]:
+                fail(f"{label} ({variant or 'auto'}, {mode}) took {dms} ms of "
+                     f"device time, under its bound {res['bound'][0]} ms")
             emit(phase="variant_vs_plain", kernel=label, mode=mode,
                  variant=variant or "auto", identical=ok, max_abs_err=err,
                  ms=ms, device_ms=dms, plain_ms=plain_ms, steps=steps,
@@ -490,12 +549,44 @@ def same(a, b):
     return ok, err
 
 
-def trav_bound(table, B, steps, mixed, mb, traversal8):
-    """bound_ms of one traversal launch: the table once, the rays in (o, d,
-    tmin, tmax; the any-hit mask when mixed) and the hits out (t, tri, u, v,
-    steps, flags); the measured steps times a node step's operations (the
-    cheaper step kind, so the bound stays a lower bound)."""
-    n_bytes = table.numel() * 4 + B * (32 + int(mixed)) + B * 21
+class RowFetches:
+    """While entered, the plain traversals (ops/traversal8._lockstep, which
+    K2's and K3's plain versions share) report their row fetches; `nbytes`
+    is then what the call must read of its table: each distinct node row's
+    boxes and links and each distinct leaf row's triangles, once. A call
+    on a large table reads a small part of it (a fallback batch's few live
+    rays), so the whole table would overstate its bound."""
+
+    def __init__(self):
+        from cudatracerlib_tpu_torch.ops import traversal8
+        self.t8, self.seen = traversal8, None
+
+    def __enter__(self):
+        self.t8.on_fetch = self._log
+        return self
+
+    def __exit__(self, *exc):
+        self.t8.on_fetch = None
+
+    def _log(self, table, rows, is_node, is_leaf):
+        if self.seen is None:
+            self.seen = torch.zeros(table.shape[0], dtype=torch.int64,
+                                    device=table.device)
+        self.seen[rows[is_node].long()] = self.t8.NODE_STEP_BYTES
+        self.seen[rows[is_leaf].long()] = self.t8.LEAF_STEP_BYTES
+
+    @property
+    def nbytes(self):
+        return 0 if self.seen is None else int(self.seen.sum())
+
+
+def trav_bound(table_bytes, B, steps, mixed, mb, traversal8):
+    """bound_ms of one traversal launch: the table rows it fetches once
+    (table_bytes, RowFetches), the rays in (o, d, tmin, tmax; the any-hit
+    mask when mixed) and the hits out (t, tri, u, v, steps, flags); the
+    measured steps times a node step's operations (the cheaper step kind,
+    so the bound stays a lower bound)."""
+    n_bytes = table_bytes + B * (32 + int(mixed)) + B * 21
     return mb.bound_ms(n_bytes, steps * traversal8.NODE_STEP_FLOPS)
 
 
@@ -601,8 +692,8 @@ def k1_on_calls(label, calls, K1, traversal8, mb):
             return (*h, st, fl), st, fl
         res = check_variants(
             "K1", run, plain, {mode: kw}, (None,), timed=(mode,), plain_reps=1,
-            bound=lambda steps: trav_bound(table, B, steps, mode == "mixed",
-                                           mb, traversal8),
+            bound=lambda steps, nb: trav_bound(nb, B, steps, mode == "mixed",
+                                               mb, traversal8),
             pass_of=label, call=i, rays=B)[mode, None]
         r = out.setdefault(mode, dict(launches=0, rays=0, live_rays=0, err=0.0,
                                       ms=0.0, device_ms=0.0, plain_ms=0.0,
@@ -1203,8 +1294,8 @@ def treelet_on_call(label, geom, call, K1, K2, K3, traversal8, traversal_tt, mb)
         r = traversal_tt.top_visits(top, rays, V, **kw_)
         return (*r[0], *r[1:]), r[5], r[6]
     k2 = check_variants("K2", k2_run, k2_plain, {mode: kw}, (None,), timed=(mode,),
-                        plain_reps=1, bound=lambda steps: mb.bound_ms(
-                            top.numel() * 4 + B * 33 + B * (29 + 8 * V),
+                        plain_reps=1, bound=lambda steps, nb: mb.bound_ms(
+                            nb + B * 33 + B * (29 + 8 * V),
                             steps * traversal8.NODE_STEP_FLOPS), **info)[mode, None]
     h = K2(top, rays, V, **kw)
     _, keys, order, t_prune = traversal_tt.visit_slots(
@@ -1221,8 +1312,8 @@ def treelet_on_call(label, geom, call, K1, K2, K3, traversal8, traversal_tt, mb)
         r = traversal_tt.treelet_hits(slabs, rays, t_prune, keys, order, V, **kw_)
         return (*r[0], *r[1:]), r[1], r[2]
     k3 = check_variants("K3", k3_run, k3_plain, {mode: kw}, (None,), timed=(mode,),
-                        plain_reps=1, bound=lambda steps: mb.bound_ms(
-                            needed * slabs[0].numel() * 4 + B * 33 + B * V * 29,
+                        plain_reps=1, bound=lambda steps, nb: mb.bound_ms(
+                            nb + B * 33 + B * V * 29,
                             steps * traversal8.NODE_STEP_FLOPS),
                         treelets_visited=needed, **info)[mode, None]
     tk = traversal_tt.two_phase(K2, K3, top, slabs, rays, V=V, with_overflow=True, **kw)
@@ -1236,8 +1327,8 @@ def treelet_on_call(label, geom, call, K1, K2, K3, traversal8, traversal_tt, mb)
         hh, st, fl = traversal8.intersect_wide(wide, fb, with_iters=True, **kw_)
         return (*hh, st, fl), st, fl
     k1 = check_variants("K1", k1_run, k1_plain, {mode: kw}, (None,), timed=(mode,),
-                        plain_reps=1, bound=lambda steps: trav_bound(
-                            wide, B, steps, mode == "mixed", mb, traversal8),
+                        plain_reps=1, bound=lambda steps, nb: trav_bound(
+                            nb, B, steps, mode == "mixed", mb, traversal8),
                         fallback=True, **info)[mode, None]
     return dict(K2=k2, K3=k3, K1=k1, fallback_rays=int(tk[1].sum()), mode=mode, V=V,
                 rays=B, treelets_visited=needed)
@@ -1813,8 +1904,9 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
     rays (tmax > tmin), steps, the kernel's time (CUDA-synchronised median
     of 3 runs, launch included) and device time (CUDA events behind a
     sleeping kernel, median of 3), the plain version's time (one
-    synchronised run) and the bound (the tables once, the rays with their
-    roots in, the outputs out; steps times a node step's operations).
+    synchronised run) and the bound (the table rows the plain run fetched,
+    RowFetches, once; the rays with their roots in, the outputs out; steps
+    times a node step's operations), which no call's device time may beat.
     Emits one line per kernel; returns {kernel: dict}."""
     out = {}
     for kind, args, kw in calls:
@@ -1828,7 +1920,7 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
             plain = lambda: traversal8.intersect_wide(table, rays, with_iters=True, **kw)
             flat = lambda r: (*r[0], r[1], r[2])
             steps_of = lambda r: r[1]
-            n_bytes = lambda: table.numel() * 4 + B * (32 + int(mode == "mixed")) + B * 21
+            io_bytes = B * (32 + int(mode == "mixed")) + B * 21
             variant = traversal8.launch_variant(table)
         elif kind == "K2":
             top, _, V = args
@@ -1836,7 +1928,7 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
             plain = lambda: traversal_tt.top_visits(top, rays, V, **kw)
             flat = lambda r: (*r[0], *r[1:])
             steps_of = lambda r: r[5]
-            n_bytes = lambda: top.numel() * 4 + B * 33 + B * (29 + 8 * V)
+            io_bytes = B * 33 + B * (29 + 8 * V)
             variant = traversal8.launch_variant(top)
         else:
             slabs, _, t_prune, keys, order, V = args
@@ -1845,21 +1937,21 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
                                                       V, **kw)
             flat = lambda r: (*r[0], *r[1:])
             steps_of = lambda r: r[1]
-            tid = keys >> traversal_tt.VID_ROOT_BITS
-            needed = int(torch.unique(tid[tid < slabs.shape[0]]).numel())
-            n_bytes = lambda: needed * slabs[0].numel() * 4 + B * 33 + B * V * 29
+            io_bytes = B * 33 + B * V * 29
             variant = "global"
         got = run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = plain()
-        torch.cuda.synchronize()
+        with RowFetches() as fetched:
+            ref = plain()
+            torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         ok, err = same(flat(got), flat(ref))
         if not ok:
             fail(f"{kind} disagrees with its plain version on {label} ({mode}, {kw.keys()})")
         steps = int(steps_of(got).sum())
-        bound = mb.bound_ms(n_bytes() + extra, steps * traversal8.NODE_STEP_FLOPS)
+        bound = mb.bound_ms(fetched.nbytes + io_bytes + extra,
+                            steps * traversal8.NODE_STEP_FLOPS)
         r = out.setdefault(kind, dict(launches=0, rays=0, live_rays=0, with_roots=0,
                                       by_mode={}, variants={}, err=0.0, steps=0,
                                       ms=0.0, device_ms=0.0, plain_ms=0.0,
@@ -1872,8 +1964,12 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
         r["variants"][variant] = r["variants"].get(variant, 0) + 1
         r["err"] = max(r["err"], err)
         r["steps"] += steps
+        dms = device_ms(run, reps=3)
+        if dms < bound[0]:
+            fail(f"{kind} on {label} took {dms} ms of device time, under its "
+                 f"bound {bound[0]} ms: the bound counts work the call does not do")
         r["ms"] += cuda_median_ms(run, reps=3)
-        r["device_ms"] += device_ms(run, reps=3)
+        r["device_ms"] += dms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += bound[0]
     for kind, r in out.items():
@@ -2229,6 +2325,468 @@ def instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmo
     return out
 
 
+# ---------------------------------------------------------------------------
+# the loader slice (loader_phases, L1-L3): scene files written here and
+# loaded through the port's scene/loader/
+# ---------------------------------------------------------------------------
+
+def _xml_film(size):
+    return (f'<film type="hdrfilm"><integer name="width" value="{size}"/>'
+            f'<integer name="height" value="{size}"/></film>')
+
+
+def _xml_shape(kind, body, transform=""):
+    tw = f'<transform name="toWorld">{transform}</transform>' if transform else ""
+    return f'  <shape type="{kind}">{body}{tw}</shape>\n'
+
+
+def cornell_xml(size, max_depth=6):
+    """example_scenes.cornell_box as a Mitsuba file: the walls, the light
+    and the cube as rectangle and cube shapes with the same transforms and
+    colours (XML applies its transforms in order, so scale, rotate,
+    translate compose as tf.compose(translate, rotate, scale)), the light's
+    radiance (17, 12, 4) on a 0.25-scaled rectangle, and the sphere as a
+    sphere shape (radius 0.35, the loader's 32 x 64 tessellation)."""
+    walls = (("white", '<rotate x="1" angle="-90"/><translate y="-1"/>'),
+             ("white", '<rotate x="1" angle="90"/><translate y="1"/>'),
+             ("white", '<rotate y="1" angle="180"/><translate z="1"/>'),
+             ("red", '<rotate y="1" angle="90"/><translate x="-1"/>'),
+             ("green", '<rotate y="1" angle="-90"/><translate x="1"/>'))
+    s = ['<?xml version="1.0"?>\n<scene version="0.5.0">\n',
+         f'  <integrator type="path"><integer name="maxDepth" value="{max_depth}"/>'
+         '</integrator>\n',
+         '  <sensor type="perspective"><float name="fov" value="32"/>'
+         '<float name="nearClip" value="0.001"/><float name="farClip" value="10000000"/>'
+         '<transform name="toWorld"><lookat origin="0, 0, -3.5" target="0, 0, 0" '
+         f'up="0, 1, 0"/></transform>{_xml_film(size)}</sensor>\n']
+    for name, rgb in (("white", "0.725, 0.71, 0.68"), ("red", "0.63, 0.065, 0.05"),
+                      ("green", "0.14, 0.45, 0.091"), ("black", "0, 0, 0")):
+        s.append(f'  <bsdf type="diffuse" id="{name}"><rgb name="reflectance" '
+                 f'value="{rgb}"/></bsdf>\n')
+    for mat, t in walls:
+        s.append(_xml_shape("rectangle", f'<ref id="{mat}"/>', t))
+    s.append(_xml_shape("rectangle", '<ref id="black"/><emitter type="area">'
+                        '<rgb name="radiance" value="17, 12, 4"/></emitter>',
+                        '<scale value="0.25"/><rotate x="1" angle="90"/>'
+                        '<translate y="0.995"/>'))
+    s.append(_xml_shape("sphere", '<float name="radius" value="0.35"/><point '
+                        'name="center" x="-0.4" y="-0.65" z="0.3"/><ref id="white"/>'))
+    s.append(_xml_shape("cube", '<ref id="white"/>',
+                        '<scale x="0.25" y="0.3" z="0.25"/><rotate y="1" angle="20"/>'
+                        '<translate x="0.45" y="-0.7" z="-0.2"/>'))
+    s.append("</scene>\n")
+    return "".join(s)
+
+
+_IOR15 = '<float name="intIOR" value="1.5"/><float name="extIOR" value="1.0"/>'
+_IOR149 = '<float name="intIOR" value="1.49"/><float name="extIOR" value="1.0"/>'
+_GGX = '<string name="distribution" value="ggx"/>'
+# one BSDF per type id, in schema order; the parameters of tests/test_bsdf.py
+# where it has them (hk takes the loader's defaults), with the adapters: a
+# twosided diffuse, a coating over a rough conductor, a rough coating over
+# a diffuse, a blend of plastic and a rough conductor
+MATERIAL_BSDFS = (
+    '<bsdf type="twosided"><bsdf type="diffuse"><rgb name="reflectance" '
+    'value="0.7, 0.5, 0.3"/></bsdf></bsdf>',
+    '<bsdf type="roughdiffuse"><rgb name="reflectance" value="0.6, 0.6, 0.6"/>'
+    '<float name="alpha" value="0.3"/></bsdf>',
+    f'<bsdf type="dielectric">{_IOR15}</bsdf>',
+    f'<bsdf type="thindielectric">{_IOR15}</bsdf>',
+    f'<bsdf type="roughdielectric"><float name="alpha" value="0.3"/>{_GGX}{_IOR15}</bsdf>',
+    '<bsdf type="conductor"><string name="material" value="cu"/></bsdf>',
+    f'<bsdf type="roughconductor"><float name="alpha" value="0.3"/>{_GGX}'
+    '<string name="material" value="au"/></bsdf>',
+    f'<bsdf type="plastic"><rgb name="diffuseReflectance" value="0.5, 0.2, 0.1"/>'
+    f'{_IOR149}</bsdf>',
+    f'<bsdf type="roughplastic"><float name="alpha" value="0.3"/>{_GGX}'
+    f'<rgb name="diffuseReflectance" value="0.5, 0.2, 0.1"/>{_IOR149}</bsdf>',
+    '<bsdf type="phong"><rgb name="specularReflectance" value="0.4, 0.4, 0.4"/>'
+    '<rgb name="diffuseReflectance" value="0.3, 0.3, 0.3"/>'
+    '<float name="exponent" value="40"/></bsdf>',
+    '<bsdf type="ward"><rgb name="specularReflectance" value="0.4, 0.4, 0.4"/>'
+    '<rgb name="diffuseReflectance" value="0.3, 0.3, 0.3"/>'
+    '<float name="alphaU" value="0.25"/><float name="alphaV" value="0.15"/></bsdf>',
+    '<bsdf type="hk"/>',
+    f'<bsdf type="coating">{_IOR149}<rgb name="sigmaA" value="0.1, 0.1, 0.1"/>'
+    '<float name="thickness" value="1"/><bsdf type="roughconductor">'
+    f'<float name="alpha" value="0.2"/>{_GGX}<string name="material" value="cu"/>'
+    '</bsdf></bsdf>',
+    f'<bsdf type="roughcoating"><float name="alpha" value="0.25"/>{_GGX}{_IOR149}'
+    '<rgb name="sigmaA" value="0.1, 0.1, 0.1"/><float name="thickness" value="1"/>'
+    '<bsdf type="diffuse"><rgb name="reflectance" value="0.6, 0.4, 0.3"/></bsdf></bsdf>',
+    '<bsdf type="blendbsdf"><float name="weight" value="0.4"/><bsdf type="plastic">'
+    '<rgb name="diffuseReflectance" value="0.8, 0.2, 0.2"/></bsdf>'
+    '<bsdf type="roughconductor"><float name="alpha" value="0.3"/></bsdf></bsdf>',
+    '<bsdf type="null"/>',
+)
+
+
+def materials_xml(size, max_depth=5):
+    """A 4 x 4 grid of spheres (radius 0.3, the loader's 32 x 64
+    tessellation), one for each of the 16 BSDF types, over a diffuse floor,
+    lit by a rectangle whose radiance is a 6500 K blackbody and by a
+    sun-and-sky environment."""
+    s = ['<?xml version="1.0"?>\n<scene version="0.5.0">\n',
+         f'  <integrator type="path"><integer name="maxDepth" value="{max_depth}"/>'
+         '</integrator>\n',
+         '  <sensor type="perspective"><float name="fov" value="45"/>'
+         '<transform name="toWorld"><lookat origin="0, 4, -5" target="0, 0.2, 0" '
+         f'up="0, 1, 0"/></transform>{_xml_film(size)}</sensor>\n',
+         _xml_shape("rectangle", '<bsdf type="diffuse"><rgb name="reflectance" '
+                    'value="0.5, 0.5, 0.5"/></bsdf>',
+                    '<scale value="4"/><rotate x="1" angle="-90"/>'),
+         _xml_shape("rectangle", '<bsdf type="diffuse"><rgb name="reflectance" '
+                    'value="0, 0, 0"/></bsdf><emitter type="area"><blackbody '
+                    'name="radiance" temperature="6500"/></emitter>',
+                    '<rotate x="1" angle="90"/><translate y="3"/>'),
+         '  <emitter type="sunsky"><vector name="sunDirection" x="0.35" y="0.7" '
+         'z="0.45"/><float name="turbidity" value="3"/></emitter>\n']
+    for t, bsdf in enumerate(MATERIAL_BSDFS):
+        x, z = -1.5 + (t % 4), -1.5 + (t // 4)
+        s.append(_xml_shape("sphere", f'<float name="radius" value="0.3"/><point '
+                            f'name="center" x="{x}" y="0.3" z="{z}"/>{bsdf}'))
+    s.append("</scene>\n")
+    return "".join(s)
+
+
+def write_serialized(path, meshes, level=1):
+    """A Mitsuba .serialized file (version 4, single precision) holding
+    `meshes` [(v, f, n, uv)], one zlib stream each, then the offset table
+    and the mesh count (the layout scene/loader/serialized.py reads)."""
+    import struct
+    import zlib
+    out = bytearray()
+    offsets = []
+    for v, f, n, uv in meshes:
+        offsets.append(len(out))
+        blob = (struct.pack("<I", 0x1003) + b"mesh\0"          # normals, uv, f32
+                + struct.pack("<QQ", v.shape[0], f.shape[0])
+                + np.ascontiguousarray(v, "<f4").tobytes()
+                + np.ascontiguousarray(n, "<f4").tobytes()
+                + np.ascontiguousarray(uv, "<f4").tobytes()
+                + np.ascontiguousarray(f, "<u4").tobytes())
+        out += struct.pack("<HH", 0x041C, 4) + zlib.compress(blob, level)
+    out += struct.pack(f"<{len(offsets)}Q", *offsets) + struct.pack("<I", len(offsets))
+    with open(path, "wb") as fh:
+        fh.write(out)
+
+
+# the San Miguel stand-in's four materials as the file's BSDFs, in the
+# stand-in's material order (ground, walls and columns, leaves, trunks)
+SM_BSDFS = (
+    f'<bsdf type="roughplastic"><float name="alpha" value="0.2"/>{_GGX}'
+    f'<rgb name="diffuseReflectance" value="0.45, 0.4, 0.33"/>{_IOR149}</bsdf>',
+    f'<bsdf type="coating">{_IOR149}<rgb name="sigmaA" value="0.05, 0.05, 0.05"/>'
+    '<bsdf type="diffuse"><rgb name="reflectance" value="0.55, 0.45, 0.35"/>'
+    '</bsdf></bsdf>',
+    '<bsdf type="twosided"><bsdf type="diffuse"><rgb name="reflectance" '
+    'value="0.12, 0.35, 0.08"/></bsdf></bsdf>',
+    '<bsdf type="roughdiffuse"><rgb name="reflectance" value="0.25, 0.16, 0.1"/>'
+    '<float name="alpha" value="0.5"/></bsdf>',
+)
+
+
+def sm_loader_files(dirpath, size, example_scenes, shapes):
+    """The San Miguel stand-in's nodes in world space, merged by material
+    into one mesh each (uv zeros where a node has none), written to one
+    .serialized file, and an XML that loads each by shapeIndex with the
+    stand-in's camera and a sun-and-sky emitter. Returns (xml path,
+    [(v, f, n, uv)] as written)."""
+    sc = example_scenes.san_miguel_stand_in(size, size)
+    groups = {}
+    for node in sc._nodes:
+        m = node.mesh.transformed(node.to_world)
+        if m.uv is None:
+            m = m._replace(uv=np.zeros((m.v.shape[0], 2), np.float32))
+        groups.setdefault(node.material, []).append(m)
+    meshes = []
+    for mat in sorted(groups):
+        m = shapes.merge(groups[mat])
+        meshes.append((m.v.astype(np.float32), m.f.astype(np.int32),
+                       m.n.astype(np.float32), m.uv.astype(np.float32)))
+    write_serialized(os.path.join(dirpath, "sm.serialized"), meshes)
+    s = ['<?xml version="1.0"?>\n<scene version="0.5.0">\n',
+         '  <integrator type="path"><integer name="maxDepth" value="5"/></integrator>\n',
+         '  <sensor type="perspective"><float name="fov" value="55"/>'
+         '<float name="nearClip" value="0.001"/><float name="farClip" value="10000000"/>'
+         '<transform name="toWorld"><lookat origin="8.0, 2.3, -13.2" '
+         f'target="-6.0, 2.8, 8.0" up="0, 1, 0"/></transform>{_xml_film(size)}</sensor>\n',
+         '  <emitter type="sunsky"><vector name="sunDirection" x="0.45" y="0.75" '
+         'z="-0.49"/></emitter>\n']
+    for k in range(len(meshes)):
+        s.append(_xml_shape("serialized", '<string name="filename" value="sm.serialized"/>'
+                            f'<integer name="shapeIndex" value="{k}"/>{SM_BSDFS[k]}'))
+    s.append("</scene>\n")
+    path = os.path.join(dirpath, "sm.xml")
+    with open(path, "w") as fh:
+        fh.write("".join(s))
+    return path, meshes
+
+
+def loader_phases(*args):
+    """L1-L3, the loader slice: Mitsuba files written to a temporary
+    directory (removed after, also when a phase fails), loaded through the
+    port's scene/loader/ and rendered on the card. Takes _loader_phases'
+    arguments after `tmp`; returns the kernel-table entries {tracer:
+    {kernel: dict}}."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="loader_") as tmp:
+        return _loader_phases(tmp, *args)
+
+
+def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
+                   plain_calls, pathmod, primmod, bdptmod, vcmmod, wfmod, filmmod,
+                   example_scenes, traversal8, traversal_tt, mb):
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    from cudatracerlib_tpu_torch.scene import shapes, sunsky
+    from cudatracerlib_tpu_torch.scene.loader import images, mitsuba
+    out = {}
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_mode=dict(K1.launches_by_mode),
+                    K2_by_v=dict(K2.launches_by_v),
+                    K2_by_variant=dict(K2.launches_by_variant),
+                    K3_by_v=dict(K3.launches_by_v), K4=K4.launches, plain=plain_calls())
+
+    def write(name, text):
+        path = os.path.join(tmp, name)
+        with open(path, "w") as fh:
+            fh.write(text)
+        return path
+
+    def finite(img, what):
+        if not np.isfinite(img).all() or not img.mean() > 0.0:
+            fail(f"the {what} image is not finite and non-black")
+
+    def table_info(scene):
+        g = scene.geom
+        return dict(tris=scene.num_tris, rows=g.wide.shape[0],
+                    top_rows=None if g.tt_top is None else g.tt_top.shape[0],
+                    treelets=None if g.tt_slabs is None else g.tt_slabs.shape[0])
+
+    def check_env(sc, want, what):
+        """The loaded environment must be the image written (no fallback
+        to the loader's grey stand-in)."""
+        env = sc._env["image"] if sc._env is not None else None
+        if env is None or env.shape != want.shape or not np.array_equal(env, want):
+            fail(f"the {what} environment is not the image written")
+
+    def pt_run(scene, size, depth, chunk, passes, what, **kw):
+        tr = pathmod.PathTracer(scene, size, size, max_depth=depth, chunk_size=chunk, **kw)
+        tr.do_pass()
+        torch.cuda.synchronize()
+        zero_counts()
+        secs, rays_n = timed_passes(tr, passes)
+        c = counts()
+        img = filmmod.develop(tr.film).cpu().numpy()
+        finite(img, what)
+        capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
+        if capped or overflowed or c["plain"] or c["K4"]:
+            fail(f"{what}: capped {capped}, overflowed {overflowed}, counts {c}")
+        return tr, img, dict(seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+                             live_rays=int(sum(rays_n)),
+                             mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+                             launches=c, launches_per_pass={
+                                 k: (v / passes if isinstance(v, int) else
+                                     {kk: vv / passes for kk, vv in v.items()})
+                                 for k, v in c.items()},
+                             capped=capped, overflowed=overflowed,
+                             mean_radiance=float(img.mean()), nvidia_smi=card)
+
+    # L1. BASELINE config 1 through the loader: the Cornell box file
+    t0 = time.perf_counter()
+    path = write("cornell.xml", cornell_xml(LOADER_SIZE, L1_DEPTH))
+    sc, settings = mitsuba.load_mitsuba(path)
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = sc.build(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    info = table_info(scene)
+    emit(phase="loader_load", scene="cornell.xml", parse_seconds=parse_s,
+         build_seconds=build_s, settings=vars(settings), **info)
+    if settings.max_depth != L1_DEPTH or (settings.width, settings.height) != (
+            LOADER_SIZE, LOADER_SIZE) or scene.geom.tt_top is not None:
+        fail(f"cornell.xml loaded wrong: {vars(settings)}, {info}")
+    # the variant of K1 the size rule picks for the loaded table (its
+    # 32 x 64 sphere makes it larger than phase 4's)
+    variant = traversal8.launch_variant(scene.geom.wide)
+    aov = {}
+    for mode in (primmod.D_LINEAR_DEPTH, primmod.D_NORMAL_SHADE):
+        tr = primmod.PrimTracer(scene, LOADER_SIZE, LOADER_SIZE, draw_mode=mode)
+        tr.do_pass()
+        torch.cuda.synchronize()
+        zero_counts()
+        secs, _ = timed_passes(tr, 1)
+        c = counts()
+        img = filmmod.develop(tr.film).cpu().numpy()
+        if not np.isfinite(img).all() or not np.abs(img).max() > 0.0:
+            fail(f"the loaded Cornell AOV {mode} is not finite and non-zero")
+        aov[mode] = dict(seconds=secs[0], launches=c["K1"],
+                         mrays_per_s=LOADER_SIZE ** 2 / secs[0] / 1e6)
+        if c["K1"] != 1 or c["K1_by_variant"][variant] != 1 or c["K2_by_v"].get(3) \
+                or c["plain"]:
+            fail(f"the loaded Cornell AOV took the wrong kernels: {c}")
+    emit(phase="loader_aov", scene="cornell.xml", size=LOADER_SIZE, k1_variant=variant,
+         by_mode={"linear_depth": aov[primmod.D_LINEAR_DEPTH],
+                  "normal_shade": aov[primmod.D_NORMAL_SHADE]}, nvidia_smi=card)
+    tr, img, r = pt_run(scene, LOADER_SIZE, L1_DEPTH, LOADER_CHUNK, LOADER_PASSES,
+                        "loaded Cornell")
+    gap = abs(r["mean_radiance"] - cornell_mean) / cornell_mean
+    emit(phase="headline", scene="cornell.xml", tracer="PathTracer", size=LOADER_SIZE,
+         max_depth=L1_DEPTH, chunk_size=LOADER_CHUNK, passes=LOADER_PASSES,
+         phase4_mean=cornell_mean, mean_gap=gap, mean_limit=L1_MEAN_GAP, **r)
+    if not gap < L1_MEAN_GAP:
+        fail(f"the loaded Cornell box's mean is {gap:.4f} off phase 4's")
+    if r["launches"]["K1_by_variant"][variant] != r["launches"]["K1"] or \
+            r["launches"]["K2_by_v"].get(3):
+        fail(f"the loaded Cornell PT took the wrong kernels: {r['launches']}")
+    calls = record_k1(tr.do_pass, traversal8, Rays)
+    out["loader_cornell"] = dict(launches_per_pass=len(calls), variant=variant,
+                                 by_mode=k1_on_calls("loader_cornell_512", calls, K1,
+                                                     traversal8, mb),
+                                 seconds_per_pass=r["seconds_per_pass"])
+    del tr, calls, scene
+    small = write("cornell32.xml", cornell_xml(LOADER_SMALL, L1_DEPTH))
+    rows = {d: mitsuba.load_mitsuba(small)[0].build(d).geom.wide.shape[0]
+            for d in (dev, "cpu")}
+    if rows[dev] != rows["cpu"]:
+        fail(f"the loaded Cornell tables differ in rows: {rows}")
+    card_vs_cpu("PathTracer", lambda s: pathmod.PathTracer(s, LOADER_SMALL, LOADER_SMALL,
+                                                           max_depth=L1_DEPTH),
+                lambda w, h: mitsuba.load_mitsuba(small)[0], LOADER_SMALL,
+                LOADER_CPU_PASSES, dev, scene="cornell.xml", rows=rows["cpu"])
+
+    # L2. every BSDF type: the materials file
+    t0 = time.perf_counter()
+    path = write("materials.xml", materials_xml(LOADER_SIZE, L2_DEPTH))
+    sc, settings = mitsuba.load_mitsuba(path)
+    parse_s = time.perf_counter() - t0
+    check_env(sc, sunsky.preetham_sky((0.35, 0.7, 0.45), turbidity=3.0), "materials.xml")
+    t0 = time.perf_counter()
+    scene = sc.build(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    info = table_info(scene)
+    types = list(pathmod.scene_active_types(scene))
+    emit(phase="loader_load", scene="materials.xml", parse_seconds=parse_s,
+         build_seconds=build_s, bsdf_types=types,
+         materials=int(scene.materials.mat_type.shape[0]), **info)
+    if types != list(range(16)) or scene.geom.tt_top is None:
+        fail(f"materials.xml: types {types}, split table {scene.geom.tt_top is not None}")
+    out["loader_materials"] = {}
+    for reg in (False, True):
+        tr, img, r = pt_run(scene, LOADER_SIZE, L2_DEPTH, LOADER_CHUNK, L2_PASSES,
+                            f"materials (regularize={reg})", regularize=reg)
+        emit(phase="headline", scene="materials.xml", tracer="PathTracer",
+             regularize=reg, size=LOADER_SIZE, max_depth=L2_DEPTH,
+             chunk_size=LOADER_CHUNK, passes=L2_PASSES, **r)
+        lc = r["launches"]
+        if not (lc["K1"] and lc["K2_by_v"][traversal8.V_INCOHERENT]
+                and lc["K3_by_v"][traversal8.V_INCOHERENT]):
+            fail(f"the materials PT did not run K2, K3 and the K1 fallback: {lc}")
+        if not reg:
+            calls = record_kernels(tr.do_pass, traversal8, traversal_tt, Rays)
+            held = hold_calls("loader_materials_512", calls, K1, K2, K3, traversal8,
+                              traversal_tt, mb)
+            out["loader_materials"] = {k: dict(v, pass_launches=r["launches_per_pass"],
+                                               seconds_per_pass=r["seconds_per_pass"])
+                                       for k, v in held.items()}
+            del calls
+        del tr
+    del scene
+    small = write("materials_small.xml", materials_xml(L2_SMALL, L2_DEPTH))
+    load_small = lambda w, h: mitsuba.load_mitsuba(small)[0]
+    sz = L2_SMALL
+    for name, make, limit in (
+            ("PathTracer", lambda s: pathmod.PathTracer(s, sz, sz, max_depth=L2_DEPTH),
+             CARD_CPU_LIMIT),
+            ("PathTracer_regularized", lambda s: pathmod.PathTracer(
+                s, sz, sz, max_depth=L2_DEPTH, regularize=True), CARD_CPU_LIMIT),
+            ("BDPT", lambda s: bdptmod.BDPT(s, sz, sz, max_depth=L2_SMALL_DEPTH),
+             CARD_CPU_LIMIT),
+            ("VCM", lambda s: vcmmod.VCM(s, sz, sz, max_depth=L2_SMALL_DEPTH),
+             VCM_CARD_CPU_LIMIT),
+            ("WavefrontPT_regularized", lambda s: wfmod.WavefrontPT(
+                s, sz, sz, max_depth=L2_DEPTH, regularize=True), CARD_CPU_LIMIT)):
+        card_vs_cpu(name, make, load_small, sz, 1, dev, limit=limit,
+                    scene="materials.xml")
+
+    # L3. the loader at San Miguel scale: one serialized file
+    t0 = time.perf_counter()
+    path, written = sm_loader_files(tmp, L3_SIZE, example_scenes, shapes)
+    write_s = time.perf_counter() - t0
+    t_l3 = time.perf_counter()
+    sc, settings = mitsuba.load_mitsuba(path)
+    parse_s = time.perf_counter() - t_l3
+    n_tris = sum(f.shape[0] for _, f, _, _ in written)
+    loaded = [node.mesh for node in sc._nodes]
+    same_arrays = len(loaded) == len(written) and all(
+        np.array_equal(m.v, v) and np.array_equal(m.f, f) and np.array_equal(m.n, n)
+        and np.array_equal(m.uv, uv) for m, (v, f, n, uv) in zip(loaded, written))
+    env_ok = sc._env is not None
+    check_env(sc, sunsky.preetham_sky((0.45, 0.75, -0.49)), "sm.xml")
+    t0 = time.perf_counter()
+    scene = sc.build(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    info = table_info(scene)
+    emit(phase="loader_load", scene="sm.xml", write_seconds=write_s,
+         parse_seconds=parse_s, mtris_per_s=n_tris / parse_s / 1e6,
+         build_seconds=build_s, bvh_seconds=scene.host["build_seconds"]["bvh"],
+         treelet_seconds=scene.host["build_seconds"]["treelet"],
+         meshes=len(written), arrays_equal=same_arrays, env=env_ok,
+         file_mb=os.path.getsize(os.path.join(tmp, "sm.serialized")) / 2 ** 20, **info)
+    if not same_arrays:
+        fail("the loaded San Miguel arrays differ from the ones written")
+    if n_tris != scene.num_tris or scene.geom.tt_top is None:
+        fail(f"sm.xml: {scene.num_tris} triangles built of {n_tris}, {info}")
+    tr = pathmod.PathTracer(scene, L3_SIZE, L3_SIZE, max_depth=L3_DEPTH,
+                            chunk_size=L3_CHUNK)
+    torch.cuda.synchronize()
+    zero_counts()
+    secs, rays_n = timed_passes(tr, 1)
+    c = counts()
+    img = filmmod.develop(tr.film).cpu().numpy()
+    finite(img, "loaded San Miguel")
+    capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
+    l3_s = time.perf_counter() - t_l3
+    emit(phase="headline", scene="sm.xml", tracer="PathTracer", size=L3_SIZE,
+         max_depth=L3_DEPTH, chunk_size=L3_CHUNK, passes=1, seconds_per_pass=secs[0],
+         live_rays=int(sum(rays_n)), mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+         launches=c, capped=capped, overflowed=overflowed,
+         mean_radiance=float(img.mean()), l3_seconds=l3_s, l3_limit=L3_SECONDS,
+         nvidia_smi=card)
+    if capped or overflowed or c["plain"] or c["K4"] or not (
+            c["K1"] and c["K2_by_v"][traversal8.V_INCOHERENT]
+            and c["K3_by_v"][traversal8.V_INCOHERENT]):
+        fail(f"the loaded San Miguel pass took the wrong kernels: {c}, "
+             f"capped {capped}, overflowed {overflowed}")
+    if not l3_s < L3_SECONDS:
+        fail(f"L3 took {l3_s:.1f} s")
+    # the first traversal of a pass (camera rays merged with no shadow
+    # rays): its K2, K3 and K1 calls held to the plain versions
+    calls = record_kernels(tr.do_pass, traversal8, traversal_tt, Rays, window=(0, 3))
+    held = hold_calls("loader_sm_1024", calls, K1, K2, K3, traversal8, traversal_tt, mb)
+    out["loader_sm"] = {k: dict(v, pass_launches={"K1": c["K1"], "K2_by_v": c["K2_by_v"],
+                                                   "K3_by_v": c["K3_by_v"]},
+                                seconds_per_pass=secs[0]) for k, v in held.items()}
+    del tr, calls, scene, sc, written, loaded
+
+    # the loaders' files round trip: an environment map written as .hdr
+    env = np.random.default_rng(5).random((16, 32, 3)).astype(np.float32) * 4
+    images.write_hdr(os.path.join(tmp, "env.hdr"), env)
+    want = images.load_hdr(os.path.join(tmp, "env.hdr"))
+    xml = write("env.xml", '<scene version="0.5.0"><emitter type="envmap"><string '
+                'name="filename" value="env.hdr"/></emitter></scene>')
+    sc, _ = mitsuba.load_mitsuba(xml)
+    check_env(sc, want, "env.xml")
+    emit(phase="loader_env", scene="env.xml", shape=list(want.shape),
+         max_rel_err=float(np.abs(want - env).max() / env.max()), equal_to_written=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2306,8 +2864,8 @@ def main():
             return (*h, st, fl), st, fl
         return check_variants(
             "K1", run, plain, modes_, variants,
-            bound=lambda steps: trav_bound(table, rays.o.shape[0], steps,
-                                           True, mb, traversal8),
+            bound=lambda steps, nb: trav_bound(nb, rays.o.shape[0], steps,
+                                               True, mb, traversal8),
             scene=label, rays=rays.o.shape[0], rows=table.shape[0],
             shared_bytes=table.shape[0] * traversal8.ROW_BYTES,
             rule=traversal8.launch_variant(table))
@@ -2404,6 +2962,7 @@ def main():
     img = filmmod.develop(tr.film).cpu().numpy()
     launches, plain_n = K1.launches, plain_calls()
     k1_by_variant = {"cornell_box": dict(K1.launches_by_variant)}
+    cornell_mean = float(img.mean())
     capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
     emit(phase="headline", scene="cornell_box", size=512, max_depth=6,
          chunk_size=65536, passes=4, seconds_per_pass=statistics.median(secs),
@@ -2446,7 +3005,7 @@ def main():
     k1_veach = k1_variants("veach_mis", vtable, v_rays, v_mask, K1_VARIANTS)
     k4_res = check_pool("veach_mis", vtable, v_rays, v_mask, K1, K4,
                         traversal8, Rays, 6)
-    k4_bound = trav_bound(vtable, B, k4_res["mixed"][4], True, mb, traversal8)
+    k4_bound = k1_veach["mixed", None]["bound"]   # K4 computes K1's function
     # the shared variant's prologue (staging the table), from its device
     # time against the global variant's: one ray (one block), and one dead
     # ray (tmax -1, one step) for every thread of a full grid
@@ -2638,13 +3197,13 @@ def main():
         tid = keys >> traversal_tt.VID_ROOT_BITS
         valid = tid < n_tt
         needed = int(torch.unique(tid[valid]).numel())
-        # K3 reads each slab that a valid visit names once, the rays (o, d,
+        # K3 reads the slab rows its visits fetch once, the rays (o, d,
         # tmin, the prune t, the any-hit mask) and the B*V keys and slots,
         # and writes one hit per slot (t, tri, u, v, steps, flags)
         res = check_variants(
             "K3", run, plain, modes, K3_DESIGNS,
-            bound=lambda steps: mb.bound_ms(
-                needed * slabs[0].numel() * 4 + B * 33 + B * V * 29,
+            bound=lambda steps, nb: mb.bound_ms(
+                nb + B * 33 + B * V * 29,
                 steps * traversal8.NODE_STEP_FLOPS),
             scene="san_miguel_stand_in", V=V, slots=B * V, treelets=n_tt,
             slab_rows=slabs.shape[1], treelets_visited=needed,
@@ -2709,12 +3268,12 @@ def main():
         def k2_plain(kw):
             r = traversal_tt.top_visits(top, sm_rays, V, **kw)
             return (*r[0], *r[1:]), r[5], r[6]
-        # K2 reads the top table and the rays and writes the hits, V visits
-        # (id, entry t), the count and the min-dropped t
+        # K2 reads the top rows it fetches and the rays and writes the
+        # hits, V visits (id, entry t), the count and the min-dropped t
         k2_res[V] = check_variants(
             "K2", k2_run, k2_plain, sm_modes, K1_VARIANTS,
-            bound=lambda steps: mb.bound_ms(
-                top.numel() * 4 + B * 33 + B * (29 + 8 * V),
+            bound=lambda steps, nb: mb.bound_ms(
+                nb + B * 33 + B * (29 + 8 * V),
                 steps * traversal8.NODE_STEP_FLOPS),
             scene="san_miguel_stand_in", V=V, rays=B, rows=top.shape[0],
             shared_bytes=top.shape[0] * traversal8.ROW_BYTES,
@@ -2884,6 +3443,13 @@ def main():
                                 pathmod, tracermod, filmmod, example_scenes,
                                 traversal8, traversal_tt, mb)
 
+    # L1-L3. Mitsuba files through the port's loader: the Cornell box
+    # (config 1; K1), all 16 BSDF types with and without regularization,
+    # and San Miguel from one serialized file (K2, K3, the K1 fallback)
+    loader_res = loader_phases(dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
+                               plain_calls, pathmod, primmod, bdptmod, vcmmod, wfmod,
+                               filmmod, example_scenes, traversal8, traversal_tt, mb)
+
     # the kernel table: one row for each variant of K1 and K2, timed at the
     # main path's shapes: K1 shared on veach-mis (Cornell under by_scene),
     # K1 global on the San Miguel fallback batch at V=3 (the whole
@@ -2990,6 +3556,9 @@ def main():
         return dict(inst_res[traversal][kind], pass_launches=inst_res[pt]["launches_per_pass"],
                     seconds_per_pass=inst_res[pt]["seconds_per_pass"])
     k1_rows[0]["by_tracer"]["instanced_grid"] = inst_entry("grid_traversal", "K1", "grid_pt")
+    # the loaded Cornell box's K1 launches, under the variant they took
+    lc = loader_res["loader_cornell"]
+    k1_rows[0 if lc["variant"] == "shared" else 1]["by_tracer"]["loader_cornell"] = lc
     k2_shared = k2_row("top_visits_shared_kernel", None)
     k3_kept = k3_row("treelet_hits_kernel", "traversal_tt.cu", None)
     for kind, kernel_row in (("K1", k1_rows[1]), ("K2", k2_shared), ("K3", k3_kept)):
@@ -2997,6 +3566,8 @@ def main():
                                                                 "bench_pt")
         kernel_row["by_tracer"]["instanced_bench_pt"] = inst_entry("bench_pt_traversal",
                                                                    kind, "bench_pt")
+        for name in ("loader_materials", "loader_sm"):
+            kernel_row["by_tracer"][name] = loader_res[name].get(kind)
     emit(kernels=[
         *k1_rows,
         k2_shared,

@@ -2,7 +2,7 @@
 
 Port of ``cudatracerlib_tpu/core/spectrum.py``: a spectrum is a plain
 ``(..., 3)`` float32 tensor in linear RGB. Besides the sRGB transfer
-functions and the XYZ conversions, the spectral integrator's pieces: hero
+functions, the XYZ conversions and the blackbody colour, the spectral integrator's pieces: hero
 wavelengths, the fitted spectral-primary upsampling basis (and Smits'
 1999 basis), the Wyman-Sloan-Shirley CIE 1931 colour matching functions
 and the Monte Carlo resolve of spectral radiance to linear RGB. RGBE and
@@ -48,6 +48,23 @@ def linear_to_srgb(c: Tensor) -> Tensor:
     c = c.clamp_min(0.0)
     return torch.where(c <= 0.0031308, 12.92 * c,
                        1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+
+
+def blackbody(temperature_k: float, scale: float = 1.0, device="cpu") -> Tensor:
+    """Normalized RGB of a blackbody emitter: Planck's law sampled at one
+    wavelength per RGB primary, in float32 as the JAX package computes it
+    (the constants rounded to float32 before they meet a tensor, lam^5 as
+    XLA's integer power multiplies it). A host-side material colour (the
+    scene loader's `blackbody` spectrum), so it is made on the CPU unless
+    the caller asks for another device."""
+    lam = torch.tensor([610.0, 550.0, 465.0], dtype=torch.float32, device=device) * 1e-9
+    h, c, kb = 6.62607e-34, 2.998e8, 1.38065e-23
+    lam2 = lam * lam
+    lam5 = lam * (lam2 * lam2)
+    x = torch.full_like(lam, h * c) / (lam * kb * temperature_k)
+    p = torch.full_like(lam, 2 * h * c * c) / lam5 / (torch.exp(x) - 1.0)
+    p = p / p.max()
+    return (p * scale).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,9 @@ The bounce also takes alpha masks (a stochastic pass-through), bump and
 parallax mapping, the stratified and Sobol' sequences for the NEE and BSDF
 dimensions (``models/samplers.py``), and hero-wavelength spectral transport
 (``spectral=C``: L and beta carry C wavelengths, RGB factors are upsampled
-on the fly, and the result resolves to RGB at the end). Path
-regularization (it needs the rough dielectric) is not ported and raises.
+on the fly, and the result resolves to RGB at the end), and path
+regularization (``regularize``: once a path has taken a smooth bounce, its
+delta dielectrics and conductors turn rough, bsdf.regularize_ctx).
 
 The ray, iteration and row counters are int64 tensors: one 512x512 pass at
 depth 6 traces millions of rays, past float32's exact integers.
@@ -51,12 +52,6 @@ Tensor = torch.Tensor
 
 _TRANSMISSION = (records.T_DELTA_TRANSMISSION | records.T_GLOSSY_TRANSMISSION
                  | records.T_DIFFUSE_TRANSMISSION)
-
-
-def _unported(**flags):
-    on = [k for k, v in flags.items() if v]
-    if on:
-        raise NotImplementedError(f"not ported yet: {', '.join(on)}")
 
 
 def _dead_rays(B: int, dev) -> traversal.Rays:
@@ -189,7 +184,7 @@ def _seq_dims(sampler_type, pixel_idx, sample_idx, dim0):
 
 def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
                 max_depth: int = 8, rr_depth: int = 3, use_nee: bool = True,
-                active_types: Sequence[int] = bsdfmod.PORTED_TYPES,
+                active_types: Sequence[int] = bsdfmod.ALL_TYPES,
                 with_media: bool | None = None, with_alpha: bool = False,
                 with_bump: bool = False, with_parallax: bool = False,
                 with_bssrdf: bool = False, regularize: bool = False,
@@ -205,10 +200,12 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     stratified wavelengths per path; the returned L is linear RGB either
     way. With sampler_type != 0 and pixel_idx given, depth d draws its NEE
     uniforms from sequence dimensions 4+6d..6+6d and its BSDF uniforms from
-    7+6d..9+6d (sample index sample_idx)."""
+    7+6d..9+6d (sample index sample_idx). With regularize, the BSDF of a
+    lane that has taken a smooth bounce is regularized (bsdf.regularize_ctx
+    with regularize_alpha); active_types must then hold
+    bsdf.REGULARIZE_EXTRA_TYPES, as PathTracer's do."""
     if with_media is None:
         with_media = mediummod.has_media(scene.media)
-    _unported(regularize=regularize)
     B, dev = rays.o.shape[0], rays.o.device
     geom = scene.geom
     f32 = dict(dtype=torch.float32, device=dev)
@@ -227,6 +224,7 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     active = torch.ones(B, dtype=torch.bool, device=dev)
     prev_pdf = zero
     prev_delta = torch.ones(B, dtype=torch.bool, device=dev)  # camera rays: weight 1
+    had_smooth = false             # a non-delta bounce happened (regularization)
     ins_med = false                # inside a subsurface material
     ins_mat = torch.zeros(B, dtype=torch.int32, device=dev)
     mono_done = false              # spectral: the path went monochromatic
@@ -340,6 +338,8 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
             # hero-wavelength dispersion: dielectrics refract with the
             # continuous eta(lambda_hero) (nm -> um)
             ctx = ctx._replace(lam_um=lam[:, 0] * 1e-3)
+        if regularize:
+            ctx = bsdfmod.regularize_ctx(ctx, had_smooth, regularize_alpha)
 
         # --- next-event estimation (surface and medium vertices jointly);
         # merged, occlusion resolves in the next bounce's traversal ---
@@ -447,6 +447,7 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         state, beta_next, alive = _roulette(state, beta_next, alive,
                                             depth >= rr_depth)
 
+        had_smooth = had_smooth | (cont & ~is_delta)
         cur = traversal.Rays(o=new_o, d=wo_world, tmin=zero, tmax=zero + 1e30)
         beta = torch.where(alive[:, None], beta_next, 0.0)
         active = alive
@@ -481,10 +482,11 @@ class PathTracer(tracer.TracerBase):
                  active_types: Optional[Sequence[int]] = None,
                  sampler_type: int = 0, spectral: int = 0):
         super().__init__(scene, width, height, spp_per_pass=spp_per_pass, seed=seed)
-        _unported(regularize=regularize)
         self.max_depth = max_depth
         if active_types is None:
             active_types = scene_active_types(scene)
+        if regularize:
+            active_types = regularized_types(active_types)
         self.active_types = tuple(active_types)
         self.with_alpha = bsdfmod.scene_has_alpha(scene)
         self.with_bump = bsdfmod.scene_has_bump(scene)
@@ -504,8 +506,8 @@ class PathTracer(tracer.TracerBase):
             spp=spp_per_pass, active_types=self.active_types,
             with_alpha=self.with_alpha, with_bump=self.with_bump,
             with_parallax=self.with_parallax, with_bssrdf=self.with_bssrdf,
-            with_textures=self.with_textures, sampler_type=sampler_type,
-            spectral=spectral)
+            regularize=regularize, with_textures=self.with_textures,
+            sampler_type=sampler_type, spectral=spectral)
 
     def render_pass(self, scene, film, pass_idx):
         for c in range(self._n_chunks):
@@ -534,6 +536,12 @@ class PathTracer(tracer.TracerBase):
 def scene_active_types(scene: schema.SceneData):
     """Static tuple of BSDF types present in the scene."""
     return tuple(sorted(set(schema.host_meta(scene)["mat_type"].tolist())))
+
+
+def regularized_types(active_types):
+    """active_types widened by the rough types that regularization turns
+    delta lobes into."""
+    return tuple(sorted(set(active_types) | set(bsdfmod.REGULARIZE_EXTRA_TYPES)))
 
 
 def _pt_chunk(scene: schema.SceneData, film: filmmod.Film, rays_ctr,

@@ -16,8 +16,13 @@ The JAX package's ``lax.while_loop`` is a Python loop here whose condition
 is one read back from the device per iteration (queue left, any lane
 active or draining); ``host_reads`` counts them. The bounce shares its
 math with ``path.pt_radiance`` (MIS at emitters, NEE, Russian roulette,
-alpha masks, bump and parallax mapping). Media-free scenes only, as in the
-JAX package; regularization is not ported yet and raises.
+alpha masks, bump and parallax mapping, path regularization). Media-free
+scenes only, as in the JAX package. A lane refilled from the path queue
+starts with had_smooth (a smooth bounce taken, for regularization) false.
+With regularize, WavefrontPT widens its active types by the rough ones
+regularization needs, as PathTracer does (the JAX package's WavefrontPT
+does not: there a regularized delta lane of a scene without those types
+samples nothing and its path ends).
 """
 from __future__ import annotations
 
@@ -52,7 +57,6 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
     ovf) counters advanced by the pass, and the pass's loop iterations and
     host reads."""
     global host_reads
-    pathmod._unported(regularize=regularize)
     B = lanes
     n_paths = w * h * spp
     geom = scene.geom
@@ -78,6 +82,7 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
     fin = torch.zeros(B, dtype=torch.bool, device=dev)
     prev_pdf = torch.zeros(B, **f32)
     prev_delta = torch.ones(B, dtype=torch.bool, device=dev)
+    had_smooth = torch.zeros(B, dtype=torch.bool, device=dev)
     p_contrib = torch.zeros((B, 3), **f32)
     p_rays = pathmod._dead_rays(B, dev)
     p_act = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -120,6 +125,8 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
         L = L + torch.where(hit_l[:, None], beta * le * w_hit[:, None], 0.0)
         ctx, frame, wi_local = pathmod._shading(scene, si, hit, cur.d, cone,
                                                 active_types, with_textures)
+        if regularize:
+            ctx = bsdfmod.regularize_ctx(ctx, had_smooth, regularize_alpha)
         if use_nee:
             ed, f_nee, pdf_nee, state = pathmod._nee_sample(
                 scene, ctx, frame, wi_local, si.p, state, active_types)
@@ -146,10 +153,11 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
             wo_world, weight, prev_delta, new_o = pathmod._pass_through(
                 alpha_pass, si, cur.d, wo_world, weight, prev_delta, new_o)
         beta_next = beta * weight
-        alive = ((hit_l | alpha_pass) & (weight.abs().amax(dim=-1) > 0)
-                 & (depth + 1 < max_depth))
+        cont = hit_l | alpha_pass
+        alive = cont & (weight.abs().amax(dim=-1) > 0) & (depth + 1 < max_depth)
         state, beta_next, alive = pathmod._roulette(state, beta_next, alive,
                                                     depth >= rr_depth)
+        had_smooth = had_smooth | (cont & ~prev_delta)
         cur = traversal.Rays(o=new_o, d=wo_world, tmin=zero, tmax=zero + 1e30)
         beta = torch.where(alive[:, None], beta_next, 0.0)
         # a path that stops here still owes its last NEE: the lane drains
@@ -181,6 +189,7 @@ def _wf_pass(scene: schema.SceneData, film: filmmod.Film, rays_ctr,
         fin = fin & ~(take | done)
         prev_pdf = torch.where(take, 0.0, prev_pdf)
         prev_delta = prev_delta | take
+        had_smooth = had_smooth & ~take
         state = torch.where(take, state_n, state)
         px, py = torch.where(take, px_n, px), torch.where(take, py_n, py)
         wt = torch.where(t1, wt_n, wt)
@@ -211,10 +220,11 @@ class WavefrontPT(tracer.TracerBase):
                          seed=seed)
         if mediummod.has_media(scene.media):
             raise ValueError("WavefrontPT is the media-free fast path; use PathTracer")
-        pathmod._unported(regularize=regularize)
         self.max_depth = max_depth
         if active_types is None:
             active_types = pathmod.scene_active_types(scene)
+        if regularize:
+            active_types = pathmod.regularized_types(active_types)
         self.active_types = tuple(active_types)
         self.lanes = min(lanes, width * height * spp_per_pass)
         dev = scene.device
@@ -230,6 +240,7 @@ class WavefrontPT(tracer.TracerBase):
                         with_alpha=bsdfmod.scene_has_alpha(scene),
                         with_bump=bsdfmod.scene_has_bump(scene),
                         with_parallax=bsdfmod.scene_has_parallax(scene),
+                        regularize=regularize,
                         with_textures=bsdfmod.scene_texture_mask(scene))
 
     def render_pass(self, scene, film, pass_idx):

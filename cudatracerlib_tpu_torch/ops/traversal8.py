@@ -64,6 +64,13 @@ VARIANTS = {"global": 0, "shared": 1}
 # min/max, 2 compares) for 8 children. A leaf step does more (about 54 per
 # triangle for 12 triangles), so steps times this is a lower bound.
 NODE_STEP_FLOPS = 26 * 8
+# bytes of its row a step must read: a node step the 8 children's boxes and
+# links (words 0-55), a leaf step the 12 triangles and their ids (0-119)
+NODE_STEP_BYTES, LEAF_STEP_BYTES = 56 * 4, 120 * 4
+# optional callable(table, rows, is_node, is_leaf): while set, the plain
+# versions report each step's row fetch to it (chip_smoke.py counts the
+# distinct rows a call reads for its bound)
+on_fetch = None
 
 
 def pack_unified(bvh8_nodes, bvh8_leaves):
@@ -145,6 +152,8 @@ def _lockstep(table: Tensor, rays: Rays, cur: Tensor, t_best: Tensor,
         if base is not None:
             row_idx = row_idx + base
         row = table[row_idx.long()]                                  # (B, 128)
+        if on_fetch is not None:
+            on_fetch(table, row_idx, is_node, is_leaf)
         tb = t_best[:, None]
 
         # node step: slab-test all 8 children, pick the nearest (lowest j on ties)

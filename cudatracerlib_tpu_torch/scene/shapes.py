@@ -1,7 +1,8 @@
 """Procedural shapes triangulated host-side (numpy).
 
-Verbatim port of the shapes of ``cudatracerlib_tpu/scene/shapes.py`` that the
-example scenes use, in Mitsuba's canonical object-space conventions.
+Verbatim port of ``cudatracerlib_tpu/scene/shapes.py``: the Mitsuba shape
+primitives the scene loader supports (rectangle, sphere, cube, cylinder,
+disk) in Mitsuba's canonical object-space conventions.
 """
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ class TriMesh(NamedTuple):
             ln = np.linalg.norm(n, axis=-1, keepdims=True)
             n = n / np.maximum(ln, 1e-20)
         return TriMesh(v.astype(np.float32), self.f, n, self.uv)
+
+    def surface_areas(self) -> np.ndarray:
+        a, b, c = self.v[self.f[:, 0]], self.v[self.f[:, 1]], self.v[self.f[:, 2]]
+        return 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=-1)
 
 
 def rectangle() -> TriMesh:
@@ -108,6 +113,17 @@ def cylinder(p0=(0, 0, 0), p1=(0, 0, 1), radius: float = 1.0,
         j = (i + 1) % n_seg
         faces += [[i, j, n_seg + i], [j, n_seg + j, n_seg + i]]
     return TriMesh(verts, np.array(faces, np.int32), normals.astype(np.float32), uv)
+
+
+def disk(n_seg: int = 64) -> TriMesh:
+    """Unit disk on the xy-plane at z=0, normal +z."""
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros(n_seg)], -1)
+    v = np.concatenate([[[0, 0, 0]], rim]).astype(np.float32)
+    f = np.array([[0, 1 + i, 1 + (i + 1) % n_seg] for i in range(n_seg)], np.int32)
+    n = np.tile(np.array([[0, 0, 1]], np.float32), (n_seg + 1, 1))
+    uv = (v[:, :2] * 0.5 + 0.5).astype(np.float32)
+    return TriMesh(v, f, n, uv)
 
 
 def merge(meshes) -> TriMesh:

@@ -14,7 +14,10 @@ the rays. PrimTracer, LightTracer, BDPT, PPM and the volumetric path
 tracer run on the card at 16x16 and are held to the same render on the
 CPU; PPM's and VCM's 32x32 renders to their goldens. VCM, the light
 tracer and the path tracer under the non-perspective sensors are held to
-the CPU, WavefrontPT to the chunked path tracer on the card."""
+the CPU, WavefrontPT to the chunked path tracer on the card. The scenes
+chip_smoke.py writes for the loader (cornell.xml, materials.xml with all
+16 BSDF types, plain and regularized) load through the port's Mitsuba
+loader and render on the card as on the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -582,3 +585,60 @@ def test_k2_roots_match_plain_on_gpu(dev):
         _equal(tuple(x.cpu() for x in card), cpu)
     assert instanced.dropped_visits == 0 or int(instanced.dropped_visits) == 0
     torch.cuda.synchronize()
+
+
+def _card_vs_cpu(make, load, dev, passes=2, limit=1e-5):
+    """The same tracer on a scene loaded for the card and for the CPU,
+    pass by pass: mean relative error under `limit`, finite and non-black."""
+    trs = [make(load().build(d)) for d in (dev, "cpu")]
+    for _ in range(passes):
+        card, cpu = (tr.render(1).cpu().numpy() for tr in trs)
+        assert np.isfinite(card).all() and card.mean() > 0
+        assert np.abs(card - cpu).mean() / cpu.mean() < limit
+    return trs
+
+
+@pytest.mark.gpu
+def test_loaded_cornell_on_gpu(dev, tmp_path):
+    """chip_smoke.py's cornell.xml through the port's loader at 16x16: the
+    path tracer and the PrimTracer on the card against the CPU."""
+    import chip_smoke
+    from cudatracerlib_tpu_torch.models import path as tpath, prim as tprim
+    from cudatracerlib_tpu_torch.scene.loader import mitsuba
+    p = tmp_path / "cornell.xml"
+    p.write_text(chip_smoke.cornell_xml(16))
+    load = lambda: mitsuba.load_mitsuba(str(p))[0]
+    _card_vs_cpu(lambda s: tpath.PathTracer(s, 16, 16, max_depth=6), load, dev)
+    _card_vs_cpu(lambda s: tprim.PrimTracer(s, 16, 16, draw_mode=tprim.D_NORMAL_SHADE),
+                 load, dev, passes=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regularize", [False, True], ids=["plain", "regularized"])
+def test_loaded_materials_on_gpu(dev, tmp_path, regularize):
+    """chip_smoke.py's materials.xml (all 16 BSDF types) at 16x16: the path
+    tracer and WavefrontPT on the card against the CPU, plain and
+    regularized."""
+    import chip_smoke
+    from cudatracerlib_tpu_torch.models import path as tpath, wavefront as twf
+    from cudatracerlib_tpu_torch.scene.loader import mitsuba
+    p = tmp_path / "materials.xml"
+    p.write_text(chip_smoke.materials_xml(16))
+    load = lambda: mitsuba.load_mitsuba(str(p))[0]
+    _card_vs_cpu(lambda s: tpath.PathTracer(s, 16, 16, max_depth=5,
+                                            regularize=regularize), load, dev)
+    _card_vs_cpu(lambda s: twf.WavefrontPT(s, 16, 16, max_depth=5, lanes=200,
+                                           regularize=regularize), load, dev)
+
+
+@pytest.mark.gpu
+def test_rough_transmittance_on_gpu(dev):
+    """The rough transmittance lookup on the card against the CPU."""
+    from cudatracerlib_tpu_torch.core import rough_transmittance as rt
+    r = np.random.default_rng(2)
+    eta, cos, alpha = (torch.from_numpy(r.uniform(lo, hi, 4096).astype(np.float32))
+                       for lo, hi in ((0.9, 2.4), (-1.0, 1.0), (0.0, 1.2)))
+    for dist in (0, 1):
+        cpu = rt.eval_specular_albedo_eta(dist, eta, cos, alpha)
+        card = rt.eval_specular_albedo_eta(dist, eta.to(dev), cos.to(dev), alpha.to(dev))
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0, atol=1e-6)

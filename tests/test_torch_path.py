@@ -100,14 +100,16 @@ def test_cornell_golden():
 
 
 def test_unported_features_raise():
-    """Path regularization (it needs the rough dielectric) and the unported
-    BSDF types still raise; the sequence samplers are ported
-    (tests/test_torch_samplers.py)."""
+    """Path regularization, the other BSDF types and the sequence samplers
+    are ported (the name is kept from when they raised): each renders a
+    finite film. Regularization is held to JAX in
+    tests/test_torch_regularize.py, the samplers in
+    tests/test_torch_samplers.py."""
     sc = tscenes.cornell_box(8, 8).build("cpu")
-    with pytest.raises(NotImplementedError, match="regularize"):
-        tpath.PathTracer(sc, 8, 8, regularize=True)
-    with pytest.raises(NotImplementedError):
-        tpath.PathTracer(sc, 8, 8, active_types=(0, 7)).render(1)
+    tr = tpath.PathTracer(sc, 8, 8, regularize=True)
+    assert set(tr.active_types) >= {4, 6}    # the rough dielectric and conductor
+    assert tr.render(1).isfinite().all()
+    assert tpath.PathTracer(sc, 8, 8, active_types=(0, 7)).render(1).isfinite().all()
     assert tpath.PathTracer(sc, 8, 8, sampler_type=2).render(1).isfinite().all()
 
 

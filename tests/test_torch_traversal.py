@@ -181,6 +181,28 @@ def test_steps_cap_and_stack_overflow_flags(setup):
     assert torch.equal(h1.tri[~ovf], full.tri[~ovf])
 
 
+def test_on_fetch_reports_each_step(setup, monkeypatch):
+    """The plain traversal reports one row fetch per step of each lane (a
+    node row or a leaf row, never both), inside the table; unset, it
+    reports nothing."""
+    s = setup
+    table = s["tsc"].geom.wide
+    seen = []
+    monkeypatch.setattr(traversal8, "on_fetch",
+                        lambda t, rows, is_node, is_leaf: seen.append(
+                            (t, rows.clone(), is_node.clone(), is_leaf.clone())))
+    _, steps, _ = traversal8.intersect_wide(table, s["tr"], with_iters=True)
+    assert all(t is table for t, *_ in seen)
+    assert not any(bool((n & lf).any()) for _, _, n, lf in seen)
+    assert sum(int((n | lf).sum()) for _, _, n, lf in seen) == int(steps.sum())
+    rows = torch.cat([r[n | lf] for _, r, n, lf in seen])
+    assert 0 <= int(rows.min()) and int(rows.max()) < table.shape[0]
+    monkeypatch.setattr(traversal8, "on_fetch", None)
+    seen.clear()
+    traversal8.intersect_wide(table, s["tr"])
+    assert seen == []
+
+
 def test_kernel_wrapper_rejects_cpu_tensors(setup):
     s = setup
     with pytest.raises(ValueError):

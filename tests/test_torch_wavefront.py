@@ -10,8 +10,9 @@ JAX package's WavefrontPT at 16x16, depth 3, 256 lanes, 2 passes: the film
 within a mean relative error of 0.5% (float drift can flip a rare roulette
 draw, as in test_torch_path.py), the weights equal, the live rays within
 0.1%. The capped and overflowed counts are 0; the loop reads one exit test
-back per iteration, plus the last; a fog scene and regularization raise
-(alpha, bump and parallax scenes are ported: test_torch_texture_features).
+back per iteration, plus the last; a fog scene raises (alpha, bump and
+parallax scenes are ported: test_torch_texture_features; regularization:
+test_torch_regularize).
 """
 import numpy as np
 import pytest
@@ -88,5 +89,7 @@ def test_unported_scenes_raise():
     sc = tscenes.cornell_box(8, 8)
     sc.add_material(thost.MaterialSpec(alpha_mode=tschema.ALPHA_LUMINANCE))
     assert twf.WavefrontPT(sc.build("cpu"), 8, 8)._kw["with_alpha"]
-    with pytest.raises(NotImplementedError, match="regularize"):
-        twf.WavefrontPT(tscenes.cornell_box(8, 8).build("cpu"), 8, 8, regularize=True)
+    # regularization is ported: a finite pass (held to the chunked tracer
+    # in tests/test_torch_regularize.py)
+    wf = twf.WavefrontPT(tscenes.cornell_box(8, 8).build("cpu"), 8, 8, regularize=True)
+    assert wf.render(1).isfinite().all()
