@@ -9,7 +9,9 @@ bump, parallax, BSSRDF and spectral scenes, two-level instanced scenes
 (their BLAS visits on K1, or K2, K3 and the K1 fallback, with per-lane
 roots), instance moves, refit and skinning, Mitsuba scene files through
 the port's loader (all 16 BSDF types, path regularization, San Miguel from
-a serialized file), and the microbenchmarks P1-P3.
+a serialized file), the microbenchmarks P1-P3, and multi-device rendering
+(the sharded passes and tracers of parallel/render.py over a world of one
+rank through NCCL, and the command-line renderer).
 
     python3 chip_smoke.py [--profile]
 
@@ -113,8 +115,8 @@ failure exits non-zero, and nothing falls back to the CPU:
    K1's in phase 2), and K3 and the probe's three K3 designs (cluster,
    split, walk), identical to their plain versions (hits, visit lists,
    counts, min-dropped t, steps, flags) and timed as K1's; on the mixed
-   slots, the probe's cluster and walk designs at each chunk size and
-   staging threshold of K3_CHUNKS x K3_MIN_STAGES (identical, the
+   slots, the probe's cluster and walk designs at the probe's own chunk
+   size and staging threshold (identical, the
    staged-segment count equal to the plain model's,
    schedule_probe.treelet_segments, and the device time), the cluster and
    split designs staging only (device
@@ -142,9 +144,9 @@ failure exits non-zero, and nothing falls back to the CPU:
    shared, every K1 launch global), no CUDA tensor may reach a plain
    version, and no ray may be capped or overflow. With
    --profile, one more pass runs under torch.profiler and its kernel table
-   is printed, summed over each kernel's template instantiations (and in
-   4c one more veach-mis pass; the BDPT and light-tracer passes of 4e are
-   profiled in every run);
+   is printed, summed over each kernel's template instantiations (and so
+   does one more pass of each headline that names a profiled pass: 4c-4q,
+   7a, 7c, 9c, 9d; without --profile none of them runs);
 7a. the config-3 headline (sm_slice_phases): WavefrontPT on the same
    scene, 1024^2, depth 5, 131,072 lanes, a warm-up pass, then 2 timed
    passes: loop iterations and host reads per pass, K2, K3 and K1-fallback
@@ -224,6 +226,25 @@ L1-L3. (loader_phases) Mitsuba files written to a temporary directory and
    plain versions; parse, build and pass under L3_SECONDS. Last, an
    envmap written as .hdr must load as the image read back (the loader's
    grey stand-in for a missing file must not hide it).
+S. (parallel_phases) multi-device rendering on a world of one rank
+   through NCCL (the machine has one card; make_mesh from an in-process
+   HashStore): the sharded passes against the unsharded ones on the same
+   seeds (CARD_CPU_LIMIT; PPM_CARD_CPU_LIMIT and VCM_CARD_CPU_LIMIT for PPM
+   and VCM), with the counts zeroed around each run and K1's launches by
+   mode equal to the unsharded pass's: S1 the PT on Cornell 512^2, depth
+   6, with the row-sharded film and with reduce_film; S2 the light tracer
+   (6 + 7 K1 launches), BDPT and VCM (11 + 41) on the glass Cornell box
+   256^2, depth 6, each with splat parts and with a per-pass all-reduce;
+   S3 PPM on the fog Cornell box 256^2, 65,536 photons, beamgrid, then a
+   pass with adaptive radii (r2 within 1e-6); S4 the PT on phase 7's San
+   Miguel 1024^2, depth 5, all 1,048,576 lanes in one batch (K2, K3, the
+   K1 fallback); the calls of one S1 pass, one S2 BDPT pass and S4's first
+   traversal held to the plain versions (record_kernels, hold_calls); S5
+   the five sharded tracers, 2 passes at 64^2, against the unsharded
+   ones; seconds of every run beside the unsharded run's. Last the CLI in
+   a subprocess, BDPT on Cornell 128^2, 2 passes, alone and with
+   --devices 1 (the PNGs within one level, a non-zero time in its log),
+   and --devices 2, which must raise on one card.
 
 The kernel table comes next: one row for each variant of K1 and K2, for
 K3 and each of the probe's K3 designs, and for K4 and P1-P3, with its
@@ -237,7 +258,8 @@ WavefrontPT's, the FastTracer's and the GameTracer's launches per pass
 and their recorded calls on San Miguel; K1 shared, K1 global, K2 and K3
 also the instanced traversals of 9b and 9d, every call summed, and the
 loader's: loader_cornell under the K1 variant it took, loader_materials
-and loader_sm under K1 global, K2 shared and K3),
+and loader_sm under K1 global, K2 shared and K3; phase S's launches
+under parallel and parallel_san_miguel),
 by_v, fallback_by_v and mixed_rays; the forced global variant and the
 probe's designs on the same rays beside K1's and K2's shared rows; the
 probe's split of the slots beside its cluster design), its device time
@@ -260,6 +282,9 @@ import numpy as np
 import torch
 
 T0 = time.perf_counter()
+# the profiled passes run only under --profile (parsing a trace of 10^5
+# device events takes up to a minute)
+PROFILE = "--profile" in sys.argv[1:]
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "goldens", "cornell_32_pt.npz")
 N_RAYS = 131072 + 513
@@ -271,11 +296,6 @@ K1_VARIANTS = (None, "global", "stride", "smem_stack")
 # K3's designs held to its plain version on the San Miguel slots: the kept
 # kernel (None) and the three of utils/schedule_probe.K3_DESIGNS
 K3_DESIGNS = (None, "cluster", "split", "walk")
-# the probe's cluster and walk designs at other chunk sizes and staging
-# thresholds (1 << 30: never staged), beside the probe's own (CHUNK,
-# MIN_STAGE)
-K3_CHUNKS = (1024, 4096, 16384)
-K3_MIN_STAGES = (64, 256, 1024, 1 << 30)
 SM_HALF = 131072
 VEACH_HALF = 65536
 # the film sizes of the veach-mis and San Miguel headlines
@@ -297,8 +317,11 @@ LP_PASSES = 4
 # on the mean relative error of every cumulative image, PrimTracer's too:
 # the card's images lay 2.5e-8 to 1.8e-7 from the CPU's and the goldens
 # (H100 80GB HBM3), the splats' atomic adds and the card's transcendental
-# functions rounding a last bit differently
-CARD_CPU_PASSES = 6
+# functions rounding a last bit differently. 2 passes (6 until the
+# multi-device slice made room for its phase: at 6 the CPU side of the 32²
+# BDPT, PPM, VCM, volumetric-PT, adaptive and sampler comparisons took
+# ~100 s on a fast host, at 3 ~55 s)
+CARD_CPU_PASSES = 2
 CARD_CPU_LIMIT = 1e-5
 # the participating-media slice (BASELINE config 5): fog_cornell 256^2,
 # depth 6; PPM with W*H photons, a warm-up and PPM_PASSES timed passes
@@ -405,10 +428,10 @@ L2_DEPTH = 5
 # again inside its coatings and blends (JAX's dispatch): 10-12 s a 512²
 # pass and 40-45 s a 32² BDPT or VCM pass on the card and the CPU, so one
 # timed pass a setting, and its card-against-CPU passes at 16², BDPT and
-# VCM at depth 3
+# VCM at depth 2 (20-23 s each at depth 3 on the CPU side)
 L2_PASSES = 1
 L2_SMALL = 16
-L2_SMALL_DEPTH = 3
+L2_SMALL_DEPTH = 2
 L1_MEAN_GAP = 0.05      # only the sphere's tessellation differs from phase 4
 L3_SIZE = 1024
 L3_DEPTH = 5
@@ -634,9 +657,11 @@ def check_pool(scene_name, table, rays, amask, K1, K4, traversal8, Rays, seed):
 
 
 def profile_pass(tr, scene_name, **extra):
-    """One more pass of `tr` under torch.profiler: device time, busy share,
-    event count, and the traversal kernels summed over their template
-    instantiations."""
+    """Under --profile, one more pass of `tr` under torch.profiler: device
+    time, busy share, event count, and the traversal kernels summed over
+    their template instantiations. Without it, nothing."""
+    if not PROFILE:
+        return
     from torch.profiler import ProfilerActivity, profile as tprofile
     # device activity only: the CPU ops of a pass of 10^5 launches would
     # take minutes to sum, and only device events are counted
@@ -2787,6 +2812,305 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
     return out
 
 
+# the multi-device slice (phase S): sizes of the sharded passes and tracers
+PAR_SIZE = 512          # S1: Cornell, depth 6
+PAR_LP_SIZE = 256       # S2, S3: the glass and fog boxes, depth 6
+PAR_PHOTONS = 65536     # S3: bench.py's config 5
+PAR_SM_DEPTH = 5        # S4: San Miguel 1024^2 (phase 7's scene)
+PAR_CLASS_SIZE = 64     # S5: the five sharded tracers, 2 passes each
+PAR_CLASS_PASSES = 2
+PAR_CLI_SIZE = 128      # the CLI's BDPT, 2 passes
+PAR_CLI_SECONDS = 300
+
+
+def _png_pixels(path):
+    """The pixels of a PNG that film.save_png wrote (8-bit RGB, filter 0;
+    the card's machine has no imaging library)."""
+    import struct
+    import zlib
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_calls,
+                    traversal8, traversal_tt, mb):
+    """S. multi-device rendering (parallel/render.py) on a world of one rank
+    through NCCL (make_mesh: the machine has one card): each sharded pass
+    and tracer against its unsharded counterpart on the same seeds (mean
+    relative error under CARD_CPU_LIMIT, PPM's and VCM's limits for PPM and
+    VCM), every launch counted with the counts zeroed just before and read
+    just after each run (no plain version on a CUDA tensor, no K4), K1's
+    launches by mode equal to the unsharded pass's, seconds of each run
+    beside the unsharded run's.
+    S1: sharded_pt_pass on Cornell PAR_SIZE^2, depth 6, one pass, the
+    row-sharded film and reduce_film=True; S2: sharded_lt_pass,
+    sharded_bdpt_pass and sharded_vcm_pass on the glass Cornell box
+    PAR_LP_SIZE^2, depth 6, with and without splat parts (K1 by mode: 6 + 7
+    for LT, 11 + 41 for BDPT and VCM); S3: sharded_ppm_pass on the fog
+    Cornell box PAR_LP_SIZE^2, PAR_PHOTONS photons, beamgrid, then one pass
+    of ShardedPPMTracer with adaptive radii (per-pixel r2 within 1e-6);
+    S4: sharded_pt_pass on phase 7's San Miguel 1024^2, depth PAR_SM_DEPTH
+    (K2, K3, the K1 fallback); one pass of S1, S2's BDPT and S4's first
+    traversal recorded and every call held to the plain versions
+    (record_kernels, hold_calls); S5: the five sharded tracers rendering
+    PAR_CLASS_PASSES passes at PAR_CLASS_SIZE^2 against the unsharded
+    ones (the glass box; the PT on Cornell). Last the CLI in a subprocess: BDPT on Cornell PAR_CLI_SIZE^2, 2
+    passes, alone and with --devices 1 (the PNGs within one level, a
+    non-zero time in the log), and --devices 2 must raise. Returns
+    {"launches": {case: counts}, "held": {case: hold_calls's result}}."""
+    import torch.distributed as dist
+    from cudatracerlib_tpu_torch import cli
+    from cudatracerlib_tpu_torch.models import bdpt as bdptmod
+    from cudatracerlib_tpu_torch.models import film as filmmod
+    from cudatracerlib_tpu_torch.models import lighttracer as ltmod
+    from cudatracerlib_tpu_torch.models import path as pathmod
+    from cudatracerlib_tpu_torch.models import ppm as ppmmod
+    from cudatracerlib_tpu_torch.models import vcm as vcmmod
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    from cudatracerlib_tpu_torch.parallel import render as prender
+    from cudatracerlib_tpu_torch.utils import example_scenes
+
+    mesh = prender.make_mesh(1, device=dev)
+    emit(phase="parallel_mesh", backend=dist.get_backend(), world=mesh.size,
+         rank=mesh.rank, device=str(mesh.device), nccl=".".join(
+             str(v) for v in torch.cuda.nccl.version()))
+    if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+        fail(f"the mesh is not NCCL on the card: {dist.get_backend()}, {mesh.device}")
+    out = dict(launches={}, held={})
+
+    def counts():
+        return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_mode=dict(K1.launches_by_mode), K2=K2.launches,
+                    K2_by_variant=dict(K2.launches_by_variant), K3=K3.launches,
+                    K4=K4.launches, plain=plain_calls())
+
+    def run(fn):
+        """fn() with the counts zeroed just before and read just after:
+        (its result, seconds to torch.cuda.synchronize, counts)."""
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, counts()
+
+    def image(film):
+        return filmmod.develop(film._replace(n_passes=1.0)).cpu().numpy()
+
+    def check(case, got, want, limit, same_modes=True, **extra):
+        """A sharded run (image, seconds, counts) against its unsharded one."""
+        (a, s_a, c_a), (b, s_b, c_b) = got, want
+        for img in (a, b):
+            if not np.isfinite(img).all() or not img.mean() > 0.0:
+                fail(f"the {case} image is not finite and non-black")
+        err = float(np.abs(a - b).mean() / max(np.abs(b).mean(), 1e-9))
+        out["launches"][case] = c_a
+        emit(phase="parallel", case=case, rel_err=err, limit=limit, seconds=s_a,
+             unsharded_seconds=s_b, launches=c_a, unsharded_launches=c_b,
+             nvidia_smi=card, **extra)
+        if not err < limit:
+            fail(f"the sharded {case} differs from the unsharded run: {err}")
+        if c_a["plain"] or c_a["K4"] or c_a["K1"] <= 0:
+            fail(f"the sharded {case} took the wrong kernels: {c_a}")
+        if same_modes and c_a["K1_by_mode"] != c_b["K1_by_mode"]:
+            fail(f"the sharded {case}'s K1 launches by mode {c_a['K1_by_mode']} "
+                 f"differ from the unsharded {c_b['K1_by_mode']}")
+
+    def modes(c, closest, any_hit, case):
+        if c["K1_by_mode"] != dict(closest=closest, any_hit=any_hit, mixed=0):
+            fail(f"{case}: K1 launches by mode {c['K1_by_mode']}, expected "
+                 f"{closest} + {any_hit}")
+
+    # S1. the path tracer on Cornell, both film layouts
+    n = PAR_SIZE
+    scene = example_scenes.cornell_box(n, n).build(dev)
+    tr = pathmod.PathTracer(scene, n, n, max_depth=6, chunk_size=n * n)
+    unsharded = run(lambda: tr.render_pass(scene, filmmod.new_film(n, n, dev), 0))
+    unsharded = (image(unsharded[0]),) + unsharded[1:]
+    for layout in ("rows", "reduce_film"):
+        def pt():
+            film = filmmod.new_film(n, n, dev)
+            if layout == "rows":
+                film = prender._film_specs(film, mesh)
+            film = prender.sharded_pt_pass(scene, film, 0, mesh, n, n, max_depth=6,
+                                           reduce_film=layout == "reduce_film")
+            return prender.gather_film(film, mesh) if layout == "rows" else film
+        film, secs, c = run(pt)
+        check(f"pt_cornell_{n}_{layout}", (image(film), secs, c), unsharded,
+              CARD_CPU_LIMIT)
+    calls = record_kernels(lambda: prender.sharded_pt_pass(
+        scene, prender._film_specs(filmmod.new_film(n, n, dev), mesh), 0, mesh, n, n,
+        max_depth=6), traversal8, traversal_tt, Rays)
+    out["held"]["pt_cornell"] = hold_calls(f"parallel_pt_cornell_{n}", calls, K1, K2,
+                                           K3, traversal8, traversal_tt, mb)
+    del tr, scene, calls
+
+    # S2. the light tracer, BDPT and VCM on the glass box, both layouts
+    n = PAR_LP_SIZE
+    scene = example_scenes.cornell_glass(n, n).build(dev)
+    types = pathmod.scene_active_types(scene)
+    radius = vcmmod.VCM(scene, n, n, max_depth=LP_DEPTH).initial_radius
+
+    def single(name):
+        film = filmmod.new_film(n, n, dev)
+        if name == "lt":
+            return ltmod.lt_pass(scene, film, 0, n * n, LP_DEPTH, types)
+        if name == "bdpt":
+            return bdptmod.bdpt_pass(scene, film, 0, n, n, LP_DEPTH, types)[0]
+        return vcmmod.vcm_pass(scene, film, 0, n, n, LP_DEPTH, types, radius)[0]
+
+    def sharded(name, parts):
+        film = filmmod.new_film(n, n, dev)
+        p = prender.new_splat_parts(mesh, n, n) if parts else None
+        if name == "lt":
+            res = prender.sharded_lt_pass(scene, film, 0, mesh, n, n,
+                                          max_depth=LP_DEPTH, splat_parts=p)
+            return prender.fold_splat_parts(film, res, mesh) if parts else res
+        if parts:
+            film = prender._film_specs(film, mesh)
+        kw = dict(max_depth=LP_DEPTH, splat_parts=p)
+        res = (prender.sharded_bdpt_pass(scene, film, 0, mesh, n, n, **kw)
+               if name == "bdpt" else
+               prender.sharded_vcm_pass(scene, film, 0, mesh, n, n, radius, **kw))
+        if not parts:
+            return res
+        return prender.fold_splat_parts(prender.gather_film(res[0], mesh), res[1], mesh)
+
+    want_modes = dict(lt=(LP_DEPTH, LP_DEPTH + 1),
+                      bdpt=(11, 41), vcm=(11, 41))
+    for name in ("lt", "bdpt", "vcm"):
+        film, secs, c = run(lambda: single(name))
+        modes(c, *want_modes[name], f"unsharded {name}")
+        unsharded = (image(film), secs, c)
+        for parts in (True, False):
+            case = f"{name}_glass_{n}_{'parts' if parts else 'all_reduce'}"
+            film, secs, c = run(lambda: sharded(name, parts))
+            modes(c, *want_modes[name], case)
+            check(case, (image(film), secs, c), unsharded,
+                  VCM_CARD_CPU_LIMIT if name == "vcm" else CARD_CPU_LIMIT)
+    calls = record_kernels(lambda: sharded("bdpt", True), traversal8, traversal_tt, Rays)
+    out["held"]["bdpt_glass"] = hold_calls(f"parallel_bdpt_glass_{n}", calls, K1, K2,
+                                           K3, traversal8, traversal_tt, mb)
+    del scene, calls
+
+    # S3. PPM on the fog box (beamgrid), then adaptive radii
+    scene = example_scenes.fog_cornell(n, n).build(dev)
+    kw = dict(n_photons=PAR_PHOTONS, max_depth=MEDIA_DEPTH)
+    tr = ppmmod.PPMTracer(scene, n, n, **kw)
+    r0 = tr.radius
+    film, secs, c = run(lambda: tr.render_pass(scene, filmmod.new_film(n, n, dev), 0))
+    unsharded = (image(film), secs, c)
+    film, secs, c = run(lambda: prender.sharded_ppm_pass(
+        scene, prender._film_specs(filmmod.new_film(n, n, dev), mesh), 0, mesh, n, n,
+        radius=r0, with_volume=True, vol_est=tr.vol_est,
+        vol_max_per_cell=tr.vol_max_per_cell, **kw))
+    check(f"ppm_fog_{n}_beamgrid", (image(prender.gather_film(film, mesh)), secs, c),
+          unsharded, PPM_CARD_CPU_LIMIT, photons=PAR_PHOTONS, radius=r0)
+    trs = [cls(scene, n, n, adaptive_radii=True, **kw, **extra)
+           for cls, extra in ((ppmmod.PPMTracer, {}),
+                              (prender.ShardedPPMTracer, dict(mesh=mesh)))]
+    (img_u, s_u, c_u), (img_s, s_s, c_s) = [run(lambda: tr_.render(1)) for tr_ in trs]
+    r2 = [trs[0]._ppm_state.r2, trs[1].gathered_state().r2]
+    r2_err = float(((r2[1] - r2[0]).abs() / r2[0].abs().clamp_min(1e-30)).max())
+    check(f"ppm_fog_{n}_adaptive", (img_s.cpu().numpy(), s_s, c_s),
+          (img_u.cpu().numpy(), s_u, c_u), PPM_CARD_CPU_LIMIT, r2_max_rel=r2_err)
+    if not r2_err < 1e-6:
+        fail(f"the sharded adaptive radii differ from the unsharded ones: {r2_err}")
+    del scene, tr, trs, r2
+
+    # S4. San Miguel 1024^2 (phase 7's scene): K2, K3 and the K1 fallback
+    n = SM_SIZE
+    tr = pathmod.PathTracer(sm_scene, n, n, max_depth=PAR_SM_DEPTH, chunk_size=131072)
+    film, secs, c = run(lambda: tr.render_pass(sm_scene, filmmod.new_film(n, n, dev), 0))
+    unsharded = (image(film), secs, c)
+    torch.cuda.reset_peak_memory_stats()
+    film, secs, c = run(lambda: prender.sharded_pt_pass(
+        sm_scene, prender._film_specs(filmmod.new_film(n, n, dev), mesh), 0, mesh, n, n,
+        max_depth=PAR_SM_DEPTH))
+    check(f"pt_san_miguel_{n}", (image(prender.gather_film(film, mesh)), secs, c),
+          unsharded, CARD_CPU_LIMIT, same_modes=False,
+          peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    if (min(c["K2"], c["K3"]) <= 0 or c["K2_by_variant"]["shared"] != c["K2"]
+            or c["K1_by_variant"]["global"] != c["K1"]):
+        fail(f"the sharded San Miguel pass took the wrong kernels: {c}")
+    calls = record_kernels(lambda: prender.sharded_pt_pass(
+        sm_scene, prender._film_specs(filmmod.new_film(n, n, dev), mesh), 0, mesh, n, n,
+        max_depth=PAR_SM_DEPTH), traversal8, traversal_tt, Rays, window=(0, 3))
+    out["held"]["pt_san_miguel"] = hold_calls(f"parallel_pt_san_miguel_{n}", calls,
+                                              K1, K2, K3, traversal8, traversal_tt, mb)
+    del tr, film, calls
+
+    # S5. the five sharded tracers against the unsharded ones
+    n = PAR_CLASS_SIZE
+    for name, cls, single_cls, scene_fn, extra, limit in (
+            ("ShardedPathTracer", prender.ShardedPathTracer, pathmod.PathTracer,
+             example_scenes.cornell_box, {}, CARD_CPU_LIMIT),
+            ("ShardedBDPT", prender.ShardedBDPT, bdptmod.BDPT,
+             example_scenes.cornell_glass, {}, CARD_CPU_LIMIT),
+            ("ShardedLightTracer", prender.ShardedLightTracer, ltmod.LightTracer,
+             example_scenes.cornell_glass, {}, CARD_CPU_LIMIT),
+            ("ShardedPPMTracer", prender.ShardedPPMTracer, ppmmod.PPMTracer,
+             example_scenes.cornell_glass, {}, PPM_CARD_CPU_LIMIT),
+            ("ShardedVCM", prender.ShardedVCM, vcmmod.VCM,
+             example_scenes.cornell_glass, {}, VCM_CARD_CPU_LIMIT)):
+        scene = scene_fn(n, n).build(dev)
+        got = run(lambda: cls(scene, n, n, mesh=mesh, max_depth=LP_DEPTH,
+                              **extra).render(PAR_CLASS_PASSES))
+        want = run(lambda: single_cls(scene, n, n, max_depth=LP_DEPTH,
+                                      **extra).render(PAR_CLASS_PASSES))
+        check(f"{name}_{n}", (got[0].cpu().numpy(),) + got[1:],
+              (want[0].cpu().numpy(),) + want[1:], limit, passes=PAR_CLASS_PASSES)
+        del scene
+
+    # the CLI: BDPT alone, over a world of one rank, and two ranks refused
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        pngs, logs = [], []
+        for extra in ([], ["--devices", "1"]):
+            png = os.path.join(tmp, f"bdpt{len(pngs)}.png")
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "cudatracerlib_tpu_torch", "cornell", "-t", "BDPT",
+                 "-p", "2", "--res", f"{PAR_CLI_SIZE}x{PAR_CLI_SIZE}", "-o", png, *extra],
+                cwd=HERE, capture_output=True, text=True, timeout=PAR_CLI_SECONDS)
+            done = [ln for ln in p.stdout.splitlines() if ln.startswith("[done]")]
+            m = re.search(r" in ([0-9.]+)s", done[-1]) if done else None
+            logs.append(dict(args=extra, returncode=p.returncode,
+                             wall_s=time.perf_counter() - t0,
+                             render_s=float(m.group(1)) if m else None,
+                             done=done[-1] if done else None))
+            if p.returncode or not m or not float(m.group(1)) > 0 or not os.path.exists(png):
+                fail(f"the CLI {extra} failed: {p.returncode}\n{p.stdout[-2000:]}\n"
+                     f"{p.stderr[-4000:]}")
+            pngs.append(_png_pixels(png).astype(int))
+        diff = int(np.abs(pngs[0] - pngs[1]).max())
+        try:
+            cli.main(["cornell", "-t", "BDPT", "-p", "1", "--res", "16x16", "-o",
+                      os.path.join(tmp, "two.png"), "--devices", "2"])
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            fail("--devices 2 on one card did not raise")
+    emit(phase="parallel_cli", runs=logs, png_max_level_diff=diff,
+         png_shape=list(pngs[0].shape), devices_2_refused=refused)
+    if diff > 1 or not pngs[0].max() > 0:
+        fail(f"the CLI's BDPT images differ by {diff} levels (or are black)")
+    dist.destroy_process_group()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -2813,7 +3137,6 @@ def main():
     from cudatracerlib_tpu_torch.utils import microbench as mb
     from cudatracerlib_tpu_torch.utils import schedule_probe as probe
 
-    profile = "--profile" in sys.argv[1:]
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3082,7 +3405,7 @@ def main():
         fail("the veach-mis image is not finite and non-black")
     if capped or overflowed:
         fail(f"veach-mis: capped {capped} / overflowed {overflowed} rays")
-    if profile:
+    if PROFILE:
         profile_pass(vtr, "veach_mis", kernel="K1")
     del vtr
     veach_4c = dict(seconds_per_pass=statistics.median(secs), pass_seconds=secs,
@@ -3172,9 +3495,9 @@ def main():
     def k3_designs(V, slots):
         """K3 and its probe designs (K3_DESIGNS) against its plain version
         on each mode's sorted slots {mode: (keys, order, t_prune)}; then, on
-        the mixed slots, the probe's cluster and walk designs at each chunk
-        size and staging threshold of K3_CHUNKS x K3_MIN_STAGES (identical,
-        staged count against the plain model, device time), the cluster and
+        the mixed slots, the probe's cluster and walk designs at the probe's
+        own chunk size and staging threshold (identical, staged count
+        against the plain model, device time), the cluster and
         split designs staging only, and the probe's split of the slots.
         Returns check_variants's result."""
         def run(design, m):
@@ -3218,23 +3541,20 @@ def main():
             return probe.treelet_hits(slabs, sm_rays, t_prune, keys, order, V,
                                       design, chunk, min_stage, stage_only,
                                       _scratch=scratch, **kw)
-        for chunk in K3_CHUNKS:
-            for min_stage in K3_MIN_STAGES:
-                staged = int(probe.treelet_segments(
-                    keys, n_tt, chunk, min_stage)[3].sum())
-                for design in ("cluster", "walk"):
-                    scratch = torch.empty(2, dtype=torch.int32, device=dev)
-                    got = probe_run(chunk, min_stage, design, scratch=scratch)
-                    ok, err = same((*got[0], *got[1:]), ref)
-                    dms = device_ms(lambda: probe_run(chunk, min_stage, design))
-                    emit(phase="k3_sweep", V=V, design=design, chunk=chunk,
-                         min_stage=min_stage, device_ms=dms, identical=ok,
-                         max_abs_err=err, staged=int(scratch[1]),
-                         staged_model=staged)
-                    if not ok or int(scratch[1]) != staged:
-                        fail(f"K3's {design} design at chunk {chunk}, "
-                             f"min_stage {min_stage}: identical {ok}, staged "
-                             f"{int(scratch[1])} against the model's {staged}")
+        chunk, min_stage = probe_split
+        staged = int(probe.treelet_segments(keys, n_tt, chunk, min_stage)[3].sum())
+        for design in ("cluster", "walk"):
+            scratch = torch.empty(2, dtype=torch.int32, device=dev)
+            got = probe_run(chunk, min_stage, design, scratch=scratch)
+            ok, err = same((*got[0], *got[1:]), ref)
+            dms = device_ms(lambda: probe_run(chunk, min_stage, design))
+            emit(phase="k3_sweep", V=V, design=design, chunk=chunk,
+                 min_stage=min_stage, device_ms=dms, identical=ok,
+                 max_abs_err=err, staged=int(scratch[1]), staged_model=staged)
+            if not ok or int(scratch[1]) != staged:
+                fail(f"K3's {design} design at chunk {chunk}, min_stage "
+                     f"{min_stage}: identical {ok}, staged {int(scratch[1])} "
+                     f"against the model's {staged}")
         stage_only = {d: device_ms(lambda: probe_run(*probe_split, design=d,
                                                      stage_only=True))
                       for d in ("cluster", "split")}
@@ -3409,7 +3729,7 @@ def main():
             or sm_by_variant["K1"]["global"] != K1.launches):
         fail(f"San Miguel launches by variant: {sm_by_variant}")
 
-    if profile:
+    if PROFILE:
         profile_pass(tr, "san_miguel_stand_in")
     del tr
 
@@ -3449,6 +3769,19 @@ def main():
     loader_res = loader_phases(dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
                                plain_calls, pathmod, primmod, bdptmod, vcmmod, wfmod,
                                filmmod, example_scenes, traversal8, traversal_tt, mb)
+
+    # S. multi-device rendering (parallel/render.py) on a world of one rank
+    # through NCCL, on phase 7's San Miguel scene among others
+    par = parallel_phases(dev, card, scene, K1, K2, K3, K4, zero_counts, plain_calls,
+                          traversal8, traversal_tt, mb)
+    par_n = {"K1": {}, "K2": 0, "K3": 0}
+    for c in par["launches"].values():
+        for v, k in c["K1_by_variant"].items():
+            par_n["K1"][v] = par_n["K1"].get(v, 0) + k
+        par_n["K2"] += c["K2"]
+        par_n["K3"] += c["K3"]
+    k1_by_variant["parallel"] = par_n["K1"]
+    light_path["parallel"] = {case: held.get("K1") for case, held in par["held"].items()}
 
     # the kernel table: one row for each variant of K1 and K2, timed at the
     # main path's shapes: K1 shared on veach-mis (Cornell under by_scene),
@@ -3568,6 +3901,10 @@ def main():
                                                                    kind, "bench_pt")
         for name in ("loader_materials", "loader_sm"):
             kernel_row["by_tracer"][name] = loader_res[name].get(kind)
+        n_par = par_n["K1"].get("global", 0) if kind == "K1" else par_n[kind]
+        kernel_row["launches"] += n_par
+        kernel_row["by_tracer"]["parallel_san_miguel"] = dict(
+            launches=n_par, held=par["held"]["pt_san_miguel"].get(kind))
     emit(kernels=[
         *k1_rows,
         k2_shared,

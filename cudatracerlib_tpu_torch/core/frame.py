@@ -79,3 +79,7 @@ def cos_phi(v: Tensor) -> Tensor:
     return torch.where(st < 1e-12, 1.0,
                        (v[..., 0] / st.clamp_min(1e-12)).clamp(-1.0, 1.0))
 
+
+
+def same_hemisphere(a: Tensor, b: Tensor) -> Tensor:
+    return a[..., 2] * b[..., 2] > 0.0

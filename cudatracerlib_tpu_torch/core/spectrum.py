@@ -5,8 +5,9 @@ Port of ``cudatracerlib_tpu/core/spectrum.py``: a spectrum is a plain
 functions, the XYZ conversions and the blackbody colour, the spectral integrator's pieces: hero
 wavelengths, the fitted spectral-primary upsampling basis (and Smits'
 1999 basis), the Wyman-Sloan-Shirley CIE 1931 colour matching functions
-and the Monte Carlo resolve of spectral radiance to linear RGB. RGBE and
-the 8-bit packings are not ported (nothing on a render path uses them).
+and the Monte Carlo resolve of spectral radiance to linear RGB; RGBE and
+the 8-bit RGBA packings, whose 32-bit patterns (the JAX package's uint32)
+travel in int64 tensors, as torch's uint32 has few operators.
 """
 from __future__ import annotations
 
@@ -39,6 +40,20 @@ def xyz_to_rgb(xyz: Tensor) -> Tensor:
     return torch.einsum("ij,...j->...i", _mat(_XYZ2RGB, xyz), xyz)
 
 
+def xyz_to_yxy(xyz: Tensor) -> Tensor:
+    s = xyz.sum(-1)
+    safe = s.clamp_min(1e-12)
+    return torch.stack([xyz[..., 1], xyz[..., 0] / safe, xyz[..., 1] / safe], dim=-1)
+
+
+def yxy_to_xyz(yxy: Tensor) -> Tensor:
+    Y, x, y = yxy[..., 0], yxy[..., 1], yxy[..., 2]
+    ys = y.clamp_min(1e-12)
+    X = x * Y / ys
+    Z = (1.0 - x - y) * Y / ys
+    return torch.stack([X, Y, Z], dim=-1)
+
+
 def srgb_to_linear(c: Tensor) -> Tensor:
     return torch.where(c <= 0.04045, c / 12.92,
                        torch.pow(((c + 0.055) / 1.055).clamp_min(0.0), 2.4))
@@ -48,6 +63,49 @@ def linear_to_srgb(c: Tensor) -> Tensor:
     c = c.clamp_min(0.0)
     return torch.where(c <= 0.0031308, 12.92 * c,
                        1.055 * torch.pow(c, 1.0 / 2.4) - 0.055)
+
+
+# --------------------------------------------------------------------------
+# RGBE shared-exponent packing (Ward). 32 bits: r,g,b mantissas + exponent.
+# --------------------------------------------------------------------------
+
+def to_rgbe(rgb: Tensor) -> Tensor:
+    """Pack (...,3) float rgb to (...,) RGBE words (int64 holding uint32)."""
+    rgb = rgb.clamp_min(0.0)
+    m = rgb.amax(dim=-1)
+    # frexp: m = f * 2^e with f in [0.5, 1)
+    f, e = torch.frexp(m.clamp_min(1e-32))
+    scale = f * 256.0 / m.clamp_min(1e-32)
+    quant = (rgb * scale[..., None]).to(torch.int64).clamp(0, 255)
+    ebits = (e.to(torch.int64) + 128).clamp(0, 255)
+    packed = quant[..., 0] | (quant[..., 1] << 8) | (quant[..., 2] << 16) | (ebits << 24)
+    return torch.where(m < 1e-32, 0, packed)
+
+
+def from_rgbe(p: Tensor) -> Tensor:
+    r = (p & 0xFF).to(torch.float32)
+    g = ((p >> 8) & 0xFF).to(torch.float32)
+    b = ((p >> 16) & 0xFF).to(torch.float32)
+    e = ((p >> 24) & 0xFF).to(torch.int32)
+    one = torch.ones(e.shape, dtype=torch.float32, device=p.device)
+    scale = torch.where(p == 0, 0.0, torch.ldexp(one, e - (128 + 8)))
+    return torch.stack([r, g, b], dim=-1) * scale[..., None]
+
+
+# --------------------------------------------------------------------------
+# 8-bit RGBA packing ("RGBCOL" display format in the reference)
+# --------------------------------------------------------------------------
+
+def to_rgbcol(rgb: Tensor) -> Tensor:
+    q = torch.round(rgb * 255.0).clamp(0, 255).to(torch.int64)
+    return q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16) | 0xFF000000
+
+
+def from_rgbcol(p: Tensor) -> Tensor:
+    r = (p & 0xFF).to(torch.float32)
+    g = ((p >> 8) & 0xFF).to(torch.float32)
+    b = ((p >> 16) & 0xFF).to(torch.float32)
+    return torch.stack([r, g, b], dim=-1) / 255.0
 
 
 def blackbody(temperature_k: float, scale: float = 1.0, device="cpu") -> Tensor:

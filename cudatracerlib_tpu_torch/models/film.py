@@ -104,10 +104,23 @@ def to_srgb_u8(hdr: Tensor) -> Tensor:
 
 
 def save_png(hdr: Tensor, path: str):
+    """An 8-bit sRGB PNG, written with zlib alone (no imaging library)."""
+    import struct
+    import zlib
+
     import numpy as np
-    from PIL import Image as PILImage
     arr = np.asarray(to_srgb_u8(hdr).cpu())
-    PILImage.fromarray(arr).save(path)
+    h, w = arr.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], 1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                + chunk(b"IEND", b""))
 
 
 def save_hdr_npz(hdr: Tensor, path: str):

@@ -448,6 +448,17 @@ def _build_vol_grid_ball(rows, valid, radius, lo, hi):
     return dda.build_ball_grid(rows[:, 0:9], rows[:, 0:3], keep, radius, lo, hi)
 
 
+def develop_image(film: filmmod.Film, ppm_state, n_passes: int, w: int,
+                  h: int) -> Tensor:
+    """The film's image, plus with adaptive radii (ppm_state) each pixel's
+    gathered flux tau / (passes * pi * r2)."""
+    img = filmmod.develop(film)
+    if ppm_state is not None:
+        denom = max(float(n_passes), 1.0) * math.pi * ppm_state.r2.clamp_min(1e-20)
+        img = img + (ppm_state.tau / denom[:, None]).reshape(h, w, 3)
+    return img
+
+
 class PPMTracer(tracer.TracerBase):
     """Progressive photon mapper (reference PPPMTracer). The volumetric
     estimator is selectable like the reference's template parameter:
@@ -567,13 +578,8 @@ class PPMTracer(tracer.TracerBase):
         return film
 
     def develop(self):
-        img = filmmod.develop(self.film)
-        if self._ppm_state is not None:
-            st = self._ppm_state
-            denom = (max(float(self.pass_idx), 1.0) * math.pi
-                     * st.r2.clamp_min(1e-20))
-            img = img + (st.tau / denom[:, None]).reshape(self.height, self.width, 3)
-        return img
+        return develop_image(self.film, self._ppm_state, self.pass_idx,
+                             self.width, self.height)
 
     def render(self, n_passes: int = 1):
         for _ in range(n_passes):

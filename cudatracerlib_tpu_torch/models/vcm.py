@@ -86,15 +86,16 @@ def _extend(ctx, frame, si, wi_local, dvc_h, dvcm_h, dvm_h, beta, alive, state,
 def vcm_pass(scene: schema.SceneData, film: filmmod.Film, pass_idx,
              w: int, h: int, max_depth: int, active_types, radius,
              pixel_idx: Tensor = None, total_paths: int = None,
-             photon_gather_axis: str = None):
+             photon_gather_axis=None):
     """One VCM pass over all pixels; returns (film, PassStats).
 
     pixel_idx restricts the pass to a pixel / light-path subset (a sharded
     pass); total_paths keeps eta_vcm and the t=1 splat normalization global.
-    photon_gather_axis (gathering the photon map across devices) waits for
-    the port of ``parallel/`` and raises."""
-    if photon_gather_axis is not None:
-        raise NotImplementedError("photon_gather_axis: parallel/ is not ported yet")
+    photon_gather_axis, a ``parallel.render.Mesh`` in place of the JAX
+    package's axis name, all-gathers the photon rows over the mesh before
+    the grid is built: shard-major, each rank's rows in rank order, as the
+    JAX pass's all_gather (not the single-device order, so a full grid cell
+    may keep other photons than a single-device pass's)."""
     dev = film.rgb.device
     if pixel_idx is None:
         pixel_idx = torch.arange(w * h, dtype=torch.int32, device=dev)
@@ -165,6 +166,9 @@ def vcm_pass(scene: schema.SceneData, film: filmmod.Film, pass_idx,
     rows = torch.cat(photon_rows, 0)
     valid = torch.cat(photon_valid, 0)
     del photon_rows, photon_valid
+    if photon_gather_axis is not None:
+        rows = photon_gather_axis.all_gather(rows)
+        valid = photon_gather_axis.all_gather(valid)
     grid = hashgrid.build_grid(rows, rows[:, 0:3], valid, scene.world_lo,
                                scene.world_hi, 2.0 * radius)
     n_photons = valid.sum()

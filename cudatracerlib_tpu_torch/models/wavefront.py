@@ -19,10 +19,12 @@ math with ``path.pt_radiance`` (MIS at emitters, NEE, Russian roulette,
 alpha masks, bump and parallax mapping, path regularization). Media-free
 scenes only, as in the JAX package. A lane refilled from the path queue
 starts with had_smooth (a smooth bounce taken, for regularization) false.
-With regularize, WavefrontPT widens its active types by the rough ones
-regularization needs, as PathTracer does (the JAX package's WavefrontPT
-does not: there a regularized delta lane of a scene without those types
-samples nothing and its path ends).
+As the JAX package's WavefrontPT, and unlike PathTracer, it does not widen
+its default active types (the scene's) by the rough types regularization
+turns delta lobes into: in a scene without a rough dielectric or rough
+conductor a regularized delta lane then samples no active type, its weight
+is 0 and its path ends. A caller who wants the widened set passes
+``active_types=path.regularized_types(...)``.
 """
 from __future__ import annotations
 
@@ -223,8 +225,6 @@ class WavefrontPT(tracer.TracerBase):
         self.max_depth = max_depth
         if active_types is None:
             active_types = pathmod.scene_active_types(scene)
-        if regularize:
-            active_types = pathmod.regularized_types(active_types)
         self.active_types = tuple(active_types)
         self.lanes = min(lanes, width * height * spp_per_pass)
         dev = scene.device

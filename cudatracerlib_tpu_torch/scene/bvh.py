@@ -188,3 +188,13 @@ def _pack(nodes_lo, nodes_hi, links, order, root_lo, root_hi) -> BVH:
     packed[:, 13] = links[:, 1].astype(np.int32).view(np.float32)
     return BVH(nodes=packed, tri_order=order.astype(np.int32),
                world_lo=root_lo.astype(np.float32), world_hi=root_hi.astype(np.float32))
+
+
+def flatten_leaf_stats(bvh: BVH):
+    """Debug: (num_nodes, num_leaves, avg_leaf_size)."""
+    l0 = bvh.nodes[:, 12].view(np.int32)
+    l1 = bvh.nodes[:, 13].view(np.int32)
+    codes = np.concatenate([l0, l1])
+    leaves = codes[codes <= -2]
+    counts = (-2 - leaves) & 15
+    return bvh.nodes.shape[0], leaves.shape[0], float(counts.mean()) if len(counts) else 0.0

@@ -232,3 +232,38 @@ def from_jax_layout(top_t: np.ndarray, slabs_t: np.ndarray):
                 lk[s] = -2 - (r + ((-2 - l) - padded))
     slabs = np.ascontiguousarray(slabs_t[:-1].transpose(0, 2, 1))
     return top, slabs
+
+
+def unified_equivalent(tt: TreeletTable) -> np.ndarray:
+    """A single unified table semantically identical to the partitioned one:
+    virtual-leaf links become plain node links into the appended slab rows
+    (the tests' check of the partition's remap round trip)."""
+    n_top = tt.top.shape[0]
+    out = np.concatenate([tt.top, tt.slabs.reshape(-1, 128)], axis=0).copy()
+    for i in range(n_top):
+        if out[i, 120] != 0.0:
+            continue  # leaf row: [48:56] is e1y data, not links
+        lk = out[i, 48:56].view(np.int32)
+        for s_ in range(8):
+            lnk = lk[s_]
+            if lnk <= -2 and (-2 - lnk) >= n_top:
+                vid = (-2 - lnk) - n_top
+                tid, root = vid >> VID_ROOT_BITS, vid & ((1 << VID_ROOT_BITS) - 1)
+                lk[s_] = n_top + tid * tt.treelet_rows + root  # node link
+    for t in range(tt.slabs.shape[0]):
+        base = n_top + t * tt.treelet_rows
+        for rr in range(tt.treelet_rows):
+            row = out[base + rr]
+            lk = row[48:56].view(np.int32)
+            # node rows have [120] == 0 (leaf rows keep their count there);
+            # a padding row is all zero
+            if row[120] != 0.0:
+                continue
+            if not np.any(lk != 0) and not np.any(row[:48] != 0):
+                continue
+            for s_ in range(8):
+                lnk = lk[s_]
+                if lnk == -1:
+                    continue
+                lk[s_] = (base + lnk) if lnk >= 0 else (-2 - (base + (-2 - lnk)))
+    return out

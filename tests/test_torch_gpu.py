@@ -642,3 +642,51 @@ def test_rough_transmittance_on_gpu(dev):
         cpu = rt.eval_specular_albedo_eta(dist, eta, cos, alpha)
         card = rt.eval_specular_albedo_eta(dist, eta.to(dev), cos.to(dev), alpha.to(dev))
         np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_sharded_world_of_one_on_gpu(dev):
+    """A world of one rank through NCCL (make_mesh without a process group:
+    an in-process HashStore): ShardedPathTracer (the row film) and
+    ShardedBDPT (the row film and splat parts) at 32x32, 2 passes, against
+    the unsharded tracers on the card, within 1e-5."""
+    import torch.distributed as dist
+    from cudatracerlib_tpu_torch.models import bdpt as tbdpt
+    from cudatracerlib_tpu_torch.models import path as tpath
+    from cudatracerlib_tpu_torch.parallel import render as prender
+    try:
+        mesh = prender.make_mesh(1, device=dev)
+        assert dist.get_backend() == "nccl" and mesh.device.type == "cuda"
+        scene = tscenes.cornell_box(32, 32).build(dev)
+        for sharded, single in ((prender.ShardedPathTracer, tpath.PathTracer),
+                                (prender.ShardedBDPT, tbdpt.BDPT)):
+            a = sharded(scene, 32, 32, mesh=mesh, max_depth=4).render(2).cpu().numpy()
+            b = single(scene, 32, 32, max_depth=4).render(2).cpu().numpy()
+            assert np.isfinite(a).all() and a.mean() > 0
+            assert _rel(a, b) < 1e-5, sharded.__name__
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_one_card_refused(dev, tmp_path):
+    """launch refuses more ranks than cards, and make_mesh in a rank whose
+    card does not exist raises (a subprocess joins a world of cards + 1
+    ranks as its last rank, through a FileStore; NCCL starts lazily, so
+    nothing waits for the other ranks)."""
+    import os
+    import subprocess
+    import sys
+    from cudatracerlib_tpu_torch.parallel import render as prender
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="cards"):
+        prender.launch(prender.run_jobs, n, args=([],), device="cuda")
+    code = ("import torch.distributed as dist\n"
+            "from cudatracerlib_tpu_torch.parallel import render as prender\n"
+            f"dist.init_process_group('nccl', store=dist.FileStore({str(tmp_path / 's')!r}, {n}),"
+            f" rank={n - 1}, world_size={n})\n"
+            f"prender.make_mesh({n}, device='cuda')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                       text=True, timeout=120)
+    assert p.returncode != 0 and "would share a card" in p.stderr, p.stderr[-2000:]

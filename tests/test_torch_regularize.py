@@ -20,9 +20,13 @@ false.
 - WavefrontPT(regularize=True) against the port's chunked PathTracer on
   both scenes: the same sample set, so the images within
   tests/test_wavefront.py's rtol 1e-5 / atol 1e-7 and the live rays
-  identical. The JAX package's WavefrontPT does not widen its active types
-  by the rough ones (PathTracer does): given them explicitly, it matches
-  the port's."""
+  identical. WavefrontPT, as the JAX package's, does not widen its active
+  types by the rough ones (PathTracer does), so on the glass scene it is
+  given PathTracer's widened types explicitly.
+- WavefrontPT(regularize=True) against the JAX one pass for pass on the
+  glass scene, which has no rough type: with the default active types (a
+  regularized delta lane ends its path in both) and with the widened types
+  passed to both."""
 from unittest import mock
 
 import numpy as np
@@ -42,6 +46,7 @@ from cudatracerlib_tpu.scene.loader import mitsuba as jmitsuba
 from cudatracerlib_tpu.utils import example_scenes as jscenes
 from cudatracerlib_tpu.utils import transforms as jtf
 from cudatracerlib_tpu_torch.models import bsdf as tbsdf
+from cudatracerlib_tpu_torch.models import film as tfilm
 from cudatracerlib_tpu_torch.models import path as tpath
 from cudatracerlib_tpu_torch.models import wavefront as twf
 from cudatracerlib_tpu_torch.scene import host as thost
@@ -161,8 +166,9 @@ def test_first_bounce_is_never_regularized():
 def test_wavefront_regularized_matches_pt_glass(lanes):
     scene = glass_scene(PORT).build("cpu")
     pt = tpath.PathTracer(scene, 24, 24, max_depth=6, regularize=True, chunk_size=24 * 24)
-    wf = twf.WavefrontPT(scene, 24, 24, max_depth=6, regularize=True, lanes=lanes)
-    assert wf.active_types == pt.active_types
+    wf = twf.WavefrontPT(scene, 24, 24, max_depth=6, regularize=True, lanes=lanes,
+                         active_types=pt.active_types)
+    assert wf.active_types == pt.active_types == (0, 2, 4, 6)
     i1, i2 = pt.render(2).numpy(), wf.render(2).numpy()
     assert np.isfinite(i2).all() and i2.mean() > 0
     np.testing.assert_allclose(i2, i1, rtol=1e-5, atol=1e-7)
@@ -179,15 +185,30 @@ def test_wavefront_regularized_matches_pt_materials(materials):
 
 
 def test_wavefront_regularized_matches_jax():
-    """The JAX WavefrontPT given the widened active types (it does not widen
-    them itself) against the port's, at 16x16, pass for pass."""
+    """Both WavefrontPTs given the widened active types, at 16x16, pass for
+    pass."""
     types = tpath.regularized_types((0, 2))
     jtr = jwf.WavefrontPT(glass_scene(JAX).build(), 16, 16, max_depth=5, lanes=256,
                           regularize=True, active_types=types)
     ttr = twf.WavefrontPT(glass_scene(PORT).build("cpu"), 16, 16, max_depth=5,
-                          lanes=256, regularize=True)
+                          lanes=256, regularize=True, active_types=types)
     assert ttr.active_types == types
     assert_pass_for_pass(ttr, jtr, 2)
+
+
+def test_wavefront_regularized_default_matches_jax():
+    """Both WavefrontPTs with their default active types, the scene's (no
+    rough type), at 16x16, pass for pass; the regularized image differs
+    from the widened one, where those lanes go on."""
+    jtr = jwf.WavefrontPT(glass_scene(JAX).build(), 16, 16, max_depth=5, lanes=256,
+                          regularize=True)
+    scene = glass_scene(PORT).build("cpu")
+    ttr = twf.WavefrontPT(scene, 16, 16, max_depth=5, lanes=256, regularize=True)
+    assert ttr.active_types == jtr.active_types == (0, 2)
+    assert_pass_for_pass(ttr, jtr, 2)
+    wide = twf.WavefrontPT(scene, 16, 16, max_depth=5, lanes=256, regularize=True,
+                           active_types=tpath.regularized_types((0, 2)))
+    assert not np.array_equal(wide.render(2).numpy(), tfilm.develop(ttr.film).numpy())
 
 
 def test_pt_radiance_regularize_argument():

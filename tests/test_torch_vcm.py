@@ -16,8 +16,9 @@ patched ``bsdf.sample_with_rng`` and ``hashgrid.build_grid`` saw.
 Then: the initial radius, the radius schedule r_i = r_0 i^((alpha-1)/2)
 and eta_vcm = pi r^2 n_paths exactly; the port's 4-pass render against
 tests/goldens/cornell_32_vcm.npz (test_goldens_family.py's bound, mean
-relative error < 0.02); ``photon_gather_axis`` raising until parallel/ is
-ported."""
+relative error < 0.02); ``photon_gather_axis`` taking a mesh of
+parallel/render.py (on a gloo world of one, the gathered pass equals the
+ungathered one; tests/test_torch_parallel_bdpt.py holds 2 ranks to JAX)."""
 import contextlib
 import os
 from unittest import mock
@@ -164,7 +165,18 @@ def test_vcm_golden():
 
 
 def test_photon_gather_axis_raises():
+    """photon_gather_axis no longer raises: it takes a Mesh and gathers the
+    photon rows over it (the name stays from when it raised)."""
+    import torch.distributed as dist
+    from cudatracerlib_tpu_torch.parallel import render as tpr
     sc = tscenes.cornell_box(8, 8).build("cpu")
-    with pytest.raises(NotImplementedError):
-        tvcm.vcm_pass(sc, tfilm.new_film(8, 8, "cpu"), 0, 8, 8, 2, (0,), 0.01,
-                      photon_gather_axis="x")
+    try:
+        mesh = tpr.make_mesh(1, device="cpu")
+        got, st = tvcm.vcm_pass(sc, tfilm.new_film(8, 8, "cpu"), 0, 8, 8, 2, (0,), 0.01,
+                                photon_gather_axis=mesh)
+    finally:
+        dist.destroy_process_group()
+    want, st1 = tvcm.vcm_pass(sc, tfilm.new_film(8, 8, "cpu"), 0, 8, 8, 2, (0,), 0.01)
+    for buf in ("rgb", "weight", "splat"):
+        torch.testing.assert_close(getattr(got, buf), getattr(want, buf), rtol=0, atol=0)
+    assert int(st.photons) == int(st1.photons) > 0
