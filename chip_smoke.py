@@ -296,6 +296,13 @@ K1_VARIANTS = (None, "global", "stride", "smem_stack")
 # K3's designs held to its plain version on the San Miguel slots: the kept
 # kernel (None) and the three of utils/schedule_probe.K3_DESIGNS
 K3_DESIGNS = (None, "cluster", "split", "walk")
+# K1's global variant: PR 1's one thread per ray, the group design as the
+# render paths run it, and the probe's group designs with 8, 16 and 32
+# lanes a live ray, without and with ("p") an L2 prefetch of each node
+# step's eligible children (k1_global_runner)
+K1_GLOBAL_DESIGNS = ("thread", "group", "g8", "g16", "g32", "g8p", "g16p", "g32p")
+# the lanes of the edge batch with one live lane
+K1_EDGE_BIG = 1 << 20
 SM_HALF = 131072
 VEACH_HALF = 65536
 # the film sizes of the veach-mis and San Miguel headlines
@@ -558,11 +565,22 @@ def check_variants(label, run, plain, modes, variants, bound=None,
     return out
 
 
+def equal(x, y):
+    """torch.equal, with a NaN equal to a NaN (a NaN tmax comes back as t)."""
+    if x is None or y is None:
+        return x is y
+    if not x.is_floating_point():
+        return torch.equal(x, y)
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and bool(((x == y) | (x.isnan() & y.isnan())).all()))
+
+
 def same(a, b):
     """(all identical, max abs difference over the finite entries of the
-    float tensors) of two tuples of tensors; None entries are skipped."""
+    float tensors) of two tuples of tensors; None entries are skipped, a
+    NaN equals a NaN."""
     pairs = [(x, y) for x, y in zip(a, b) if x is not None or y is not None]
-    ok = all(torch.equal(x, y) for x, y in pairs)
+    ok = all(equal(x, y) for x, y in pairs)
     err = 0.0
     for x, y in pairs:
         if x.is_floating_point():
@@ -690,6 +708,12 @@ def profile_pass(tr, scene_name, **extra):
                    ms=e.self_device_time_total / 1e3) for e in top_k], **extra)
 
 
+def plain_kw(kw):
+    """A recorded K1 call's arguments for its plain version, which takes no
+    design."""
+    return {k: v for k, v in kw.items() if k != "_design"}
+
+
 def record_k1(run, traversal8, Rays):
     """The K1 calls of `run()` as record_kernels records them: the list of
     (table, rays, kw)."""
@@ -701,7 +725,8 @@ def record_k1(run, traversal8, Rays):
 def k1_on_calls(label, calls, K1, traversal8, mb):
     """K1 against its plain version on each recorded call of one pass
     (check_variants: every field identical, the call timed, its device time
-    and one plain run taken, its bound by trav_bound), summed by mode.
+    and one plain run taken, its bound by trav_bound; a call on the global
+    variant through k1_global_call), summed by mode.
     Emits one more line per mode; returns {mode: dict}."""
     out = {}
     for i, (table, rays, kw) in enumerate(calls):
@@ -713,13 +738,18 @@ def k1_on_calls(label, calls, K1, traversal8, mb):
             return (*h, st, fl), st, fl
 
         def plain(kw):
-            h, st, fl = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+            h, st, fl = traversal8.intersect_wide(table, rays, with_iters=True,
+                                                  **plain_kw(kw))
             return (*h, st, fl), st, fl
-        res = check_variants(
-            "K1", run, plain, {mode: kw}, (None,), timed=(mode,), plain_reps=1,
-            bound=lambda steps, nb: trav_bound(nb, B, steps, mode == "mixed",
-                                               mb, traversal8),
-            pass_of=label, call=i, rays=B)[mode, None]
+        if traversal8.launch_variant(table) == "global":
+            res = k1_global_call(label, table, rays, kw, traversal8, mb,
+                                 k1_global_runner(K1, traversal8))
+        else:
+            res = check_variants(
+                "K1", run, plain, {mode: kw}, (None,), timed=(mode,), plain_reps=1,
+                bound=lambda steps, nb: trav_bound(nb, B, steps, mode == "mixed",
+                                                   mb, traversal8),
+                pass_of=label, call=i, rays=B)[mode, None]
         r = out.setdefault(mode, dict(launches=0, rays=0, live_rays=0, err=0.0,
                                       ms=0.0, device_ms=0.0, plain_ms=0.0,
                                       steps=0, bound_ms=0.0))
@@ -735,6 +765,208 @@ def k1_on_calls(label, calls, K1, traversal8, mb):
              identical=True, max_abs_err=r["err"], **{k: v for k, v in r.items()
                                                       if k != "err"})
     return out
+
+
+def k1_edge_batches(table, rays, n_big, seed=0):
+    """The batches that hold K1's global variant at its edges, made from
+    `rays` (B of them, on the card), as [(name, rays, kw)]: every lane dead
+    (tmax -1); one live lane in n_big (the rays repeated, every other lane
+    dead); NaN tmin on a third of the lanes and NaN tmax on another third;
+    tmin = tmax = 0; a 2-entry ring stack (it overflows); a 5-step cap (it
+    caps) and a 0-step one; one ray; per-lane roots (row 0 or one of its
+    node children) with half the lanes dead."""
+    dev, B = rays.o.device, rays.o.shape[0]
+    gen = np.random.default_rng(seed)
+    tmn, tmx = rays.tmin, rays.tmax
+
+    def with_t(tmin, tmax, r=rays):
+        return type(rays)(r.o, r.d, tmin.contiguous(), tmax.contiguous())
+    idx = torch.arange(n_big, device=dev) % B
+    big = type(rays)(*(x[idx].contiguous() for x in rays))
+    one_live = torch.full((n_big,), -1.0, device=dev)
+    one_live[n_big // 3] = big.tmax[n_big // 3]
+    third = torch.from_numpy(gen.integers(0, 3, B)).to(dev)
+    nan = torch.full_like(tmn, float("nan"))
+    zero = torch.zeros_like(tmn)
+    links = table[0, 48:56].contiguous().view(torch.int32)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        links[links >= 0]])
+    roots = starts[torch.from_numpy(gen.integers(0, starts.numel(), B)).to(dev)]
+    half = torch.from_numpy(gen.random(B) < 0.5).to(dev)
+    return [
+        ("all_dead", with_t(tmn, torch.full_like(tmx, -1.0)), {}),
+        (f"one_live_in_{n_big}", with_t(big.tmin, one_live, big), {}),
+        ("nan", with_t(torch.where(third == 1, nan, tmn),
+                       torch.where(third == 2, nan, tmx)), {}),
+        ("tmin_eq_tmax_0", with_t(zero, zero.clone()), {}),
+        ("stack_overflow", rays, dict(stack_depth=2)),
+        ("step_cap", rays, dict(max_iters=5)),
+        ("no_steps", rays, dict(max_iters=0)),
+        ("one_ray", type(rays)(*(x[:1].contiguous() for x in rays)), {}),
+        ("roots_half_dead", with_t(tmn, torch.where(half, tmx, -1.0)),
+         dict(roots=roots.contiguous())),
+    ]
+
+
+def k1_global_runner(K1, traversal8):
+    """run_design(design, table, rays, kw, counts=False) -> (hit, steps,
+    flags, work): K1's global variant in `design` ("thread", "group"; "g8",
+    "g16", "g32": the probe's group design with that many lanes a live ray,
+    and with a trailing "p" its L2 prefetch of eligible children). With
+    `counts` a group design runs on a new work area and returns it, to read
+    its counters; else (timed runs) on the stream's, as the render paths
+    do, and work is None."""
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
+
+    def run_design(design, table, rays, kw, counts=False):
+        kw = plain_kw(kw)
+        if design == "thread":
+            return (*K1(table, rays, with_iters=True, _variant="global",
+                        _design="thread", **kw), None)
+        work = traversal8.group_work(rays.o.shape[0], table.device) if counts else None
+        if design == "group":
+            res = K1(table, rays, with_iters=True, _variant="global",
+                     _design="group", _scratch=work, **kw)
+        else:
+            res = probe.traverse8_group(table, rays, int(design[1:].rstrip("p")),
+                                        design.endswith("p"), with_iters=True,
+                                        _scratch=work, **kw)
+        return (*res, work)
+    return run_design
+
+
+def left_counting(work, traversal8):
+    """True when a group design launch, counting in set 0 of a new work
+    area, left a counter of set 1 other than zero (the next launch on the
+    stream counts there)."""
+    return bool(work[traversal8.GROUP_WORK // 2:traversal8.GROUP_WORK].any())
+
+
+def check_edge_batch(name, table, rays, kw, K1, traversal8, run_design):
+    """One edge batch (k1_edge_batches) in the three modes: each design
+    (run_design(design, table, rays, kw_) -> (hit, steps, flags, work)) on
+    every field against the plain version, the group design's live count
+    against the plain model (traversal8.live_lanes), every ray classified
+    and the counters left zero; the overflow and cap batches must overflow
+    and cap. Returns
+    {design: max_abs_err}."""
+    B = rays.o.shape[0]
+    amask = torch.arange(B, device=rays.o.device) % 3 == 0
+    want_live = int(traversal8.live_lanes(rays, kw.get("max_iters", traversal8.MAX_ITERS),
+                                          kw.get("roots")).sum())
+    errs = {}
+    for mode, mkw in (("closest", {}), ("any_hit", dict(any_hit=True)),
+                      ("mixed", dict(any_mask=amask))):
+        ref = traversal8.intersect_wide(table, rays, with_iters=True, **kw, **mkw)
+        flags = ref[2]
+        if name == "stack_overflow" and not bool((flags & 2).any()):
+            fail(f"the {name} batch did not overflow ({mode})")
+        if name == "step_cap" and not bool((flags & 1).any()):
+            fail(f"the {name} batch did not cap ({mode})")
+        for design in K1_GLOBAL_DESIGNS:
+            h, st, fl, work = run_design(design, table, rays, dict(kw, **mkw),
+                                         counts=True)
+            ok, err = same((*h, st, fl), (*ref[0], ref[1], ref[2]))
+            errs[design] = max(errs.get(design, 0.0), err)
+            counts = None if work is None else [int(work[k])
+                                                for k in traversal8.GROUP_COUNTERS]
+            if not ok or (counts is not None and (counts[1] != want_live
+                                                  or counts[3] != B
+                                                  or left_counting(work, traversal8))):
+                fail(f"K1 global ({design}) on the {name} edge batch ({mode}): "
+                     f"identical {ok}, work counters {counts}, live {want_live}")
+    return errs
+
+
+# every K1 global call k1_global_call held, for the lines at the end of
+# the run (their chain floors need P1, measured in phase 8)
+K1_GLOBAL_CALLS = []
+
+
+def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
+                   plain_ms=None, nbytes=None, sweep=False):
+    """One call of K1's global variant (table, rays, kw; kw's `_design` is
+    the design its call site runs, "thread" without one) in PR 1's
+    per-thread design and the group design, and with `sweep` in every
+    design of K1_GLOBAL_DESIGNS, each against the plain version (`ref`,
+    (t, tri, u, v, steps, flags), taken here when not given, with its time
+    and the table bytes it fetched): every field identical, the group
+    designs' live count equal to the plain model's and their counters left
+    zero. Device times (CUDA
+    events behind a sleeping kernel, median of 3): the two designs twice,
+    in the order thread, group, group, thread, so that each has two
+    readings; the rest once. Records the call's lanes, live lanes
+    (tmin <= tmax), the mean, p99 and largest steps over the live lanes
+    and the times in K1_GLOBAL_CALLS; returns check_variants's result for
+    the call site's design, with the times by design. The first call of
+    each label sweeps every design."""
+    mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
+    serving = kw.get("_design", "thread")
+    kw = plain_kw(kw)
+    B = rays.o.shape[0]
+    if ref is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RowFetches() as fetched:
+            h, st, fl = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+            torch.cuda.synchronize()
+        plain_ms, nbytes, ref = (time.perf_counter() - t0) * 1e3, fetched.nbytes, \
+            (*h, st, fl)
+    steps_ref = ref[-2]
+    want_live = int(traversal8.live_lanes(rays, roots=kw.get("roots")).sum())
+    sweep = sweep or not any(c["call_of"] == label for c in K1_GLOBAL_CALLS)
+    designs = K1_GLOBAL_DESIGNS if sweep else ("thread", "group")
+    err = 0.0
+    for design in designs:
+        h, st, fl, work = run_design(design, table, rays, kw, counts=True)
+        ok, e = same((*h, st, fl), ref)
+        counts = None if work is None else [int(work[k])
+                                            for k in traversal8.GROUP_COUNTERS]
+        if not ok or (counts is not None and (counts[1] != want_live or counts[3] != B
+                                              or left_counting(work, traversal8))):
+            fail(f"K1 global ({design}) disagrees with its plain version on {label} "
+                 f"({mode}): identical {ok}, work counters {counts}, live {want_live}")
+        err = max(err, e)
+    times = {}
+    for design in ("thread", "group", "group", "thread", *designs[2:]):
+        times.setdefault(design, []).append(
+            device_ms(lambda: run_design(design, table, rays, kw), reps=3))
+    steps = int(steps_ref.sum())
+    bound = trav_bound(nbytes, B, steps, mode == "mixed", mb, traversal8)
+    if min(min(v) for v in times.values()) < bound[0]:
+        fail(f"K1 global on {label} took {times} ms of device time, under its "
+             f"bound {bound[0]} ms")
+    live = rays.tmin <= rays.tmax
+    ls = steps_ref[live].double()
+    K1_GLOBAL_CALLS.append(dict(
+        call_of=label, mode=mode, serving=serving, lanes=B, live=int(live.sum()),
+        roots="roots" in kw, steps=steps,
+        live_steps_mean=float(ls.mean()) if ls.numel() else None,
+        live_steps_p99=float(torch.quantile(ls, 0.99)) if ls.numel() else None,
+        live_steps_max=int(ls.max()) if ls.numel() else 0,
+        device_ms=times, bound_ms=bound[0], plain_ms=plain_ms))
+    med = {d: statistics.median(v) for d, v in times.items()}
+    return dict(err=err, ms=cuda_median_ms(lambda: run_design(serving, table, rays, kw),
+                                           reps=3),
+                device_ms=med[serving], plain_ms=plain_ms, steps=steps, bound=bound,
+                designs=med)
+
+
+def k1_global_lines(ns_per_row):
+    """One line per call in K1_GLOBAL_CALLS, with its chain floor: the
+    largest live steps times P1's ns per dependent row, both from this
+    run; returns the lines."""
+    lines = []
+    for c in K1_GLOBAL_CALLS:
+        floor = c["live_steps_max"] * ns_per_row / 1e6
+        med = {d: statistics.median(v) for d, v in c["device_ms"].items()}
+        line = dict(c, chain_floor_ms=floor, ns_per_dependent_row=ns_per_row,
+                    thread_over_floor=med["thread"] / floor if floor else None,
+                    group_over_floor=med["group"] / floor if floor else None,
+                    thread_over_group=med["thread"] / med["group"])
+        emit(phase="k1_global_call", **line)
+        lines.append(line)
+    return lines
 
 
 def timed_passes(tr, n):
@@ -807,6 +1039,7 @@ def light_path_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant,
 
     def counts():
         return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K1_by_mode=dict(K1.launches_by_mode), K4=K4.launches,
                     plain=plain_calls())
 
@@ -970,6 +1203,7 @@ def media_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant, pathmod,
 
     def counts():
         return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K1_by_mode=dict(K1.launches_by_mode), K4=K4.launches,
                     plain=plain_calls())
 
@@ -1118,6 +1352,7 @@ def vcm_phases(dev, K1, K4, zero_counts, plain_calls, k1_by_variant, vcmmod,
 
     def counts():
         return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K1_by_mode=dict(K1.launches_by_mode), K4=K4.launches,
                     plain=plain_calls())
 
@@ -1254,6 +1489,7 @@ def fast_cornell_phase(dev, K1, K4, zero_counts, plain_calls, k1_by_variant,
         zero_counts()
         secs, _ = timed_passes(tr, FAST_PASSES)
         c = dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                 K1_by_design=dict(K1.launches_by_design),
                  K4=K4.launches, plain=plain_calls())
         for v, n in c["K1_by_variant"].items():
             k1_by_variant["fast"][v] += n
@@ -1301,7 +1537,8 @@ def treelet_on_call(label, geom, call, K1, K2, K3, traversal8, traversal_tt, mb)
     """One recorded treelet traversal (rays, kw, coherent) held kernel by
     kernel to the plain versions with check_variants: K2 at the call's
     visit budget, K3 on K2's sorted slots, K1 on the exact path's fallback
-    batch (tmax -1 on every ray whose visits did not overflow); each timed,
+    batch (tmax -1 on every ray whose visits did not overflow; both
+    designs, k1_global_call); each timed,
     its device time and one plain run taken, its bound as phase 5's.
     Returns {kernel: result} with the fallback's live rays."""
     rays, kw, coherent = call
@@ -1344,17 +1581,8 @@ def treelet_on_call(label, geom, call, K1, K2, K3, traversal8, traversal_tt, mb)
     tk = traversal_tt.two_phase(K2, K3, top, slabs, rays, V=V, with_overflow=True, **kw)
     fb = type(rays)(rays.o, rays.d, rays.tmin, torch.where(tk[1], tk[0].t, -1.0))
 
-    def k1_run(variant, kw_):
-        hh, st, fl = K1(wide, fb, with_iters=True, **kw_)
-        return (*hh, st, fl), st, fl
-
-    def k1_plain(kw_):
-        hh, st, fl = traversal8.intersect_wide(wide, fb, with_iters=True, **kw_)
-        return (*hh, st, fl), st, fl
-    k1 = check_variants("K1", k1_run, k1_plain, {mode: kw}, (None,), timed=(mode,),
-                        plain_reps=1, bound=lambda steps, nb: trav_bound(
-                            nb, B, steps, mode == "mixed", mb, traversal8),
-                        fallback=True, **info)[mode, None]
+    k1 = k1_global_call(label, wide, fb, dict(kw, _design=traversal8.FALLBACK_DESIGN),
+                        traversal8, mb, k1_global_runner(K1, traversal8))
     return dict(K2=k2, K3=k3, K1=k1, fallback_rays=int(tk[1].sum()), mode=mode, V=V,
                 rays=B, treelets_visited=needed)
 
@@ -1381,6 +1609,7 @@ def sm_slice_phases(dev, scene, pt_rays_n, K1, K2, K3, K4, zero_counts, plain_ca
 
     def counts():
         return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K2_by_v=dict(K2.launches_by_v),
                     K2_by_variant=dict(K2.launches_by_variant),
                     K3_by_v=dict(K3.launches_by_v), K4=K4.launches,
@@ -1389,6 +1618,7 @@ def sm_slice_phases(dev, scene, pt_rays_n, K1, K2, K3, K4, zero_counts, plain_ca
     def check(c, want_by_v, n, what):
         ok = (c["K2_by_v"] == want_by_v and c["K3_by_v"] == want_by_v
               and c["K1"] == n and c["K1_by_variant"]["global"] == n
+              and c["K1_by_design"]["group"] == n
               and c["K2_by_variant"]["shared"] == n and not c["K4"] and not c["plain"])
         if not ok:
             fail(f"the {what} run took the wrong kernels: {c}, expected {n} "
@@ -1493,6 +1723,7 @@ def veach_slice_phases(dev, veach, veach_4c, K1, K4, zero_counts, plain_calls,
 
     def counts():
         return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K4=K4.launches, plain=plain_calls())
 
     def check(c, n, what):
@@ -1754,6 +1985,7 @@ def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
     finally:
         hashgrid.build_grid = orig_build
     c = dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+             K1_by_design=dict(K1.launches_by_design),
              K2_by_v=dict(K2.launches_by_v), K2_by_variant=dict(K2.launches_by_variant),
              K3_by_v=dict(K3.launches_by_v), K4=K4.launches, plain=plain_calls())
     img = filmmod.develop(tr.film).cpu().numpy()
@@ -1775,6 +2007,7 @@ def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
     want = {traversal8.V_COHERENT: GAME_FRAMES, traversal8.V_INCOHERENT: GAME_FRAMES}
     if (c["K2_by_v"] != want or c["K3_by_v"] != want or c["K1"] != 2 * GAME_FRAMES
             or c["K1_by_variant"]["global"] != c["K1"]
+            or c["K1_by_design"]["group"] != c["K1"]
             or c["K2_by_variant"]["shared"] != 2 * GAME_FRAMES or c["K4"] or c["plain"]):
         fail(f"the game run took the wrong kernels: {c}")
     profile_pass(tr, "san_miguel_stand_in", tracer="GameTracer")
@@ -1888,7 +2121,7 @@ def record_kernels(run, traversal8, traversal_tt, Rays, window=None):
     def keep(kw):
         return {k: v.clone() if isinstance(v, torch.Tensor) else v
                 for k, v in kw.items()
-                if k in ("any_hit", "any_mask", "roots") and v is not None
+                if k in ("any_hit", "any_mask", "roots", "_design") and v is not None
                 and v is not False}
 
     def copy_rays(rays):
@@ -1932,7 +2165,9 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
     synchronised run) and the bound (the table rows the plain run fetched,
     RowFetches, once; the rays with their roots in, the outputs out; steps
     times a node step's operations), which no call's device time may beat.
-    Emits one line per kernel; returns {kernel: dict}."""
+    A K1 call on the global variant also goes through k1_global_call (both
+    designs; device_ms_by_design sums their times). Emits one line per
+    kernel; returns {kernel: dict}."""
     out = {}
     for kind, args, kw in calls:
         mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
@@ -1942,7 +2177,8 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
         if kind == "K1":
             table = args[0]
             run = lambda: K1(table, rays, with_iters=True, **kw)
-            plain = lambda: traversal8.intersect_wide(table, rays, with_iters=True, **kw)
+            plain = lambda: traversal8.intersect_wide(table, rays, with_iters=True,
+                                                      **plain_kw(kw))
             flat = lambda r: (*r[0], r[1], r[2])
             steps_of = lambda r: r[1]
             io_bytes = B * (32 + int(mode == "mixed")) + B * 21
@@ -1997,6 +2233,14 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
         r["device_ms"] += dms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += bound[0]
+        if kind == "K1" and variant == "global":
+            designs = k1_global_call(label, table, rays, kw, traversal8, mb,
+                                     k1_global_runner(K1, traversal8), ref=flat(ref),
+                                     plain_ms=plain_ms, nbytes=fetched.nbytes)["designs"]
+            for design, dms in designs.items():
+                r.setdefault("device_ms_by_design", {})
+                r["device_ms_by_design"][design] = \
+                    r["device_ms_by_design"].get(design, 0.0) + dms
     for kind, r in out.items():
         emit(phase="kernel_on_call", kernel=kind, call_of=label, identical=True,
              max_abs_err=r["err"], **{k: v for k, v in r.items() if k != "err"})
@@ -2020,6 +2264,7 @@ def instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmo
     def counts():
         return dict(K1=K1.launches, K1_by_mode=dict(K1.launches_by_mode),
                     K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K2_by_v=dict(K2.launches_by_v),
                     K2_by_variant=dict(K2.launches_by_variant),
                     K3_by_v=dict(K3.launches_by_v), K4=K4.launches, plain=plain_calls())
@@ -2569,6 +2814,7 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
 
     def counts():
         return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K1_by_mode=dict(K1.launches_by_mode),
                     K2_by_v=dict(K2.launches_by_v),
                     K2_by_variant=dict(K2.launches_by_variant),
@@ -2669,6 +2915,7 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
         fail(f"the loaded Cornell PT took the wrong kernels: {r['launches']}")
     calls = record_k1(tr.do_pass, traversal8, Rays)
     out["loader_cornell"] = dict(launches_per_pass=len(calls), variant=variant,
+                                 launches=r["launches"],
                                  by_mode=k1_on_calls("loader_cornell_512", calls, K1,
                                                      traversal8, mb),
                                  seconds_per_pass=r["seconds_per_pass"])
@@ -2819,7 +3066,7 @@ PAR_PHOTONS = 65536     # S3: bench.py's config 5
 PAR_SM_DEPTH = 5        # S4: San Miguel 1024^2 (phase 7's scene)
 PAR_CLASS_SIZE = 64     # S5: the five sharded tracers, 2 passes each
 PAR_CLASS_PASSES = 2
-PAR_CLI_SIZE = 128      # the CLI's BDPT, 2 passes
+PAR_CLI_SIZE = 128      # the CLI's PPM, 2 passes
 PAR_CLI_SECONDS = 300
 
 
@@ -2865,10 +3112,13 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
     (K2, K3, the K1 fallback); one pass of S1, S2's BDPT and S4's first
     traversal recorded and every call held to the plain versions
     (record_kernels, hold_calls); S5: the five sharded tracers rendering
-    PAR_CLASS_PASSES passes at PAR_CLASS_SIZE^2 against the unsharded
-    ones (the glass box; the PT on Cornell). Last the CLI in a subprocess: BDPT on Cornell PAR_CLI_SIZE^2, 2
-    passes, alone and with --devices 1 (the PNGs within one level, a
-    non-zero time in the log), and --devices 2 must raise. Returns
+    PAR_CLASS_PASSES passes at PAR_CLASS_SIZE^2, develop() (the splat
+    parts folded; render() leaves them out, as the JAX package's) against
+    the unsharded ones' render() (the glass box; the PT on Cornell). Last
+    the CLI in a subprocess: PPM on Cornell PAR_CLI_SIZE^2, 2 passes,
+    alone and with --devices 1 (the PNGs within one level, a non-zero time
+    in the log; with --devices the CLI writes the film without splat
+    parts, as the JAX CLI, and PPM has none), and --devices 2 must raise. Returns
     {"launches": {case: counts}, "held": {case: hold_calls's result}}."""
     import torch.distributed as dist
     from cudatracerlib_tpu_torch import cli
@@ -2892,6 +3142,7 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
 
     def counts():
         return dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
+                    K1_by_design=dict(K1.launches_by_design),
                     K1_by_mode=dict(K1.launches_by_mode), K2=K2.launches,
                     K2_by_variant=dict(K2.launches_by_variant), K3=K3.launches,
                     K4=K4.launches, plain=plain_calls())
@@ -3043,7 +3294,8 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
           unsharded, CARD_CPU_LIMIT, same_modes=False,
           peak_gb=torch.cuda.max_memory_allocated() / 2**30)
     if (min(c["K2"], c["K3"]) <= 0 or c["K2_by_variant"]["shared"] != c["K2"]
-            or c["K1_by_variant"]["global"] != c["K1"]):
+            or c["K1_by_variant"]["global"] != c["K1"]
+            or c["K1_by_design"]["group"] != c["K1"]):
         fail(f"the sharded San Miguel pass took the wrong kernels: {c}")
     calls = record_kernels(lambda: prender.sharded_pt_pass(
         sm_scene, prender._film_specs(filmmod.new_film(n, n, dev), mesh), 0, mesh, n, n,
@@ -3066,23 +3318,27 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
             ("ShardedVCM", prender.ShardedVCM, vcmmod.VCM,
              example_scenes.cornell_glass, {}, VCM_CARD_CPU_LIMIT)):
         scene = scene_fn(n, n).build(dev)
-        got = run(lambda: cls(scene, n, n, mesh=mesh, max_depth=LP_DEPTH,
-                              **extra).render(PAR_CLASS_PASSES))
+
+        def sharded_develop():
+            tr = cls(scene, n, n, mesh=mesh, max_depth=LP_DEPTH, **extra)
+            tr.render(PAR_CLASS_PASSES)
+            return tr.develop()
+        got = run(sharded_develop)
         want = run(lambda: single_cls(scene, n, n, max_depth=LP_DEPTH,
                                       **extra).render(PAR_CLASS_PASSES))
         check(f"{name}_{n}", (got[0].cpu().numpy(),) + got[1:],
               (want[0].cpu().numpy(),) + want[1:], limit, passes=PAR_CLASS_PASSES)
         del scene
 
-    # the CLI: BDPT alone, over a world of one rank, and two ranks refused
+    # the CLI: PPM alone, over a world of one rank, and two ranks refused
     import tempfile
     with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
         pngs, logs = [], []
         for extra in ([], ["--devices", "1"]):
-            png = os.path.join(tmp, f"bdpt{len(pngs)}.png")
+            png = os.path.join(tmp, f"ppm{len(pngs)}.png")
             t0 = time.perf_counter()
             p = subprocess.run(
-                [sys.executable, "-m", "cudatracerlib_tpu_torch", "cornell", "-t", "BDPT",
+                [sys.executable, "-m", "cudatracerlib_tpu_torch", "cornell", "-t", "PPM",
                  "-p", "2", "--res", f"{PAR_CLI_SIZE}x{PAR_CLI_SIZE}", "-o", png, *extra],
                 cwd=HERE, capture_output=True, text=True, timeout=PAR_CLI_SECONDS)
             done = [ln for ln in p.stdout.splitlines() if ln.startswith("[done]")]
@@ -3097,7 +3353,7 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
             pngs.append(_png_pixels(png).astype(int))
         diff = int(np.abs(pngs[0] - pngs[1]).max())
         try:
-            cli.main(["cornell", "-t", "BDPT", "-p", "1", "--res", "16x16", "-o",
+            cli.main(["cornell", "-t", "PPM", "-p", "1", "--res", "16x16", "-o",
                       os.path.join(tmp, "two.png"), "--devices", "2"])
         except RuntimeError as e:
             refused = str(e)
@@ -3106,7 +3362,7 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
     emit(phase="parallel_cli", runs=logs, png_max_level_diff=diff,
          png_shape=list(pngs[0].shape), devices_2_refused=refused)
     if diff > 1 or not pngs[0].max() > 0:
-        fail(f"the CLI's BDPT images differ by {diff} levels (or are black)")
+        fail(f"the CLI's PPM images differ by {diff} levels (or are black)")
     dist.destroy_process_group()
     return out
 
@@ -3162,21 +3418,24 @@ def main():
         for f in (K1, K2):
             f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
         K1.launches_by_mode = dict.fromkeys(K1.launches_by_mode, 0)
+        K1.launches_by_design = dict.fromkeys(K1.launches_by_design, 0)
         for f in plains:
             f.cuda_calls = 0
 
-    def k1_variants(label, table, rays, amask_, variants, only_mixed=False):
+    def k1_variants(label, table, rays, amask_, variants):
         """K1's variants against its plain version on `rays`: closest-hit,
-        any-hit and mixed (any-hit where `amask_`), or only mixed."""
+        any-hit and mixed (any-hit where `amask_`); "group" forces the
+        global variant's group design."""
         modes_ = {"closest": {}, "any_hit": dict(any_hit=True),
                   "mixed": dict(any_mask=amask_)}
-        if only_mixed:
-            modes_ = {"mixed": modes_["mixed"]}
 
         def run(variant, kw):
             if variant in probe.DESIGNS:
                 h, st, fl = probe.traverse8(table, rays, variant,
                                             with_iters=True, **kw)
+            elif variant == "group":
+                h, st, fl = K1(table, rays, with_iters=True, _variant="global",
+                               _design="group", **kw)
             else:
                 h, st, fl = K1(table, rays, with_iters=True, _variant=variant,
                                **kw)
@@ -3260,7 +3519,7 @@ def main():
                 torch.full((N_RAYS,), 1e-4, device=dev),
                 torch.full((N_RAYS,), 1e9, device=dev))
     amask = torch.from_numpy(rng.random(N_RAYS) < 0.5).to(dev)
-    k1_cornell = k1_variants("cornell_box", table, rays, amask, K1_VARIANTS)
+    k1_cornell = k1_variants("cornell_box", table, rays, amask, K1_VARIANTS + ("group",))
     check_pool("cornell_box", table, rays, amask, K1, K4, traversal8, Rays, 5)
 
     # 3. golden image on the card
@@ -3325,7 +3584,7 @@ def main():
     emit(phase="veach_build", tris=veach.num_tris, rows=vtable.shape[0],
          table_kb=vtable.numel() * 4 / 1024,
          bvh_seconds=veach.host["build_seconds"]["bvh"])
-    k1_veach = k1_variants("veach_mis", vtable, v_rays, v_mask, K1_VARIANTS)
+    k1_veach = k1_variants("veach_mis", vtable, v_rays, v_mask, K1_VARIANTS + ("group",))
     k4_res = check_pool("veach_mis", vtable, v_rays, v_mask, K1, K4,
                         traversal8, Rays, 6)
     k4_bound = k1_veach["mixed", None]["bound"]   # K4 computes K1's function
@@ -3386,7 +3645,8 @@ def main():
     secs, rays_n = timed_passes(vtr, 8)
     counts = dict(K1=K1.launches, K4=K4.launches, K2=K2.launches,
                   K3=K3.launches, plain=plain_calls(),
-                  K1_by_variant=dict(K1.launches_by_variant))
+                  K1_by_variant=dict(K1.launches_by_variant),
+                  K1_by_design=dict(K1.launches_by_design))
     k1_by_variant["veach_mis"] = dict(K1.launches_by_variant)
     img = filmmod.develop(vtr.film).cpu().numpy()
     capped, overflowed = (int(x) for x in vtr._ovf_dev.tolist())
@@ -3477,10 +3737,24 @@ def main():
     sm_mask = torch.from_numpy(rng.random(B) < 0.5).to(dev)
     sm_modes = {"closest": {}, "any_hit": dict(any_hit=True),
                 "mixed": dict(any_mask=sm_mask)}
-    # K1 on the unsplit table: the global variant by the size rule; the
-    # shared variant forced there must be refused, not fall back
+    # K1 on the unsplit table: the global variant by the size rule (in both
+    # designs, every lane live); the shared variant forced there must be
+    # refused, not fall back
     kernel_ms = {}
     k1_sm = k1_variants("san_miguel_stand_in", wide, sm_rays, sm_mask, (None,))
+    k1_run_design = k1_global_runner(K1, traversal8)
+    k1_global_call("san_miguel_random_rays", wide, sm_rays, dict(any_mask=sm_mask),
+                   traversal8, mb, k1_run_design)
+    # K1's global variant on the batches at its edges, both designs and the
+    # probe's, every field against the plain version
+    t0 = time.perf_counter()
+    for name, rr, kw in k1_edge_batches(wide, sm_rays, K1_EDGE_BIG, seed=5):
+        errs = check_edge_batch(name, wide, rr, kw, K1, traversal8, k1_run_design)
+        emit(phase="k1_edge_batch", batch=name, rays=rr.o.shape[0],
+             live=int(traversal8.live_lanes(rr, kw.get("max_iters", traversal8.MAX_ITERS),
+                                            kw.get("roots")).sum()),
+             kw=sorted(kw), identical=True, max_abs_err=errs)
+    emit(phase="k1_edge_batch", seconds=time.perf_counter() - t0)
     k1_res = {mode: K1(wide, sm_rays, **kw) for mode, kw in sm_modes.items()}
     try:
         K1(wide, sm_rays, _variant="shared")
@@ -3641,9 +3915,10 @@ def main():
                 # visits did not overflow has tmax -1 and takes one step
                 fb = Rays(sm_rays.o, sm_rays.d, sm_rays.tmin,
                           torch.where(tk[1], tk[0].t, -1.0))
-                kernel_ms["K1_fallback", V] = k1_variants(
-                    f"san_miguel_fallback_V{V}", wide, fb, sm_mask, (None,),
-                    only_mixed=True)["mixed", None]
+                kernel_ms["K1_fallback", V] = k1_global_call(
+                    f"san_miguel_fallback_V{V}", wide, fb,
+                    dict(any_mask=sm_mask, _design=traversal8.FALLBACK_DESIGN),
+                    traversal8, mb, k1_run_design)
                 # K4 on the same batch: its per-lane refill against K1's
                 # one thread per ray, identical on every field
                 k4_fallback[V] = check_pool(f"san_miguel_fallback_V{V}", wide, fb,
@@ -3703,7 +3978,8 @@ def main():
     for name, f in (("K2", K2), ("K3", K3)):
         launches.update({(name, V): n for V, n in f.launches_by_v.items()})
     sm_by_variant = dict(K1=dict(K1.launches_by_variant),
-                         K2=dict(K2.launches_by_variant))
+                         K2=dict(K2.launches_by_variant),
+                         K1_design=dict(K1.launches_by_design))
     plain_n = plain_calls()
     img = filmmod.develop(tr.film).cpu().numpy()
     capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
@@ -3726,7 +4002,8 @@ def main():
              f"{K4.launches} K4 launches")
     # the top table fits shared memory, the unsplit table does not
     if (sm_by_variant["K2"]["shared"] != K2.launches
-            or sm_by_variant["K1"]["global"] != K1.launches):
+            or sm_by_variant["K1"]["global"] != K1.launches
+            or K1.launches_by_design["group"] != K1.launches):
         fail(f"San Miguel launches by variant: {sm_by_variant}")
 
     if PROFILE:
@@ -3857,6 +4134,7 @@ def main():
              by_scene={sc: dict(launches=k1_by_variant[sc]["shared"],
                                 **brief(res["mixed", None]),
                                 global_variant=brief(res["mixed", "global"]),
+                                group_design=brief(res["mixed", "group"]),
                                 designs={d: brief(res["mixed", d])
                                          for d in probe.DESIGNS})
                        for sc, res in (("cornell_box", k1_cornell),
@@ -3864,16 +4142,25 @@ def main():
              by_tracer={name: dict(launches=k1_by_variant[name]["shared"],
                                    one_pass=rec)
                         for name, rec in light_path.items()}),
+        vrow("traverse8_group_kernel<16>", "traversal8.cu",
+             "cudatracerlib_tpu/ops/traversal_pl.py:188",
+             sm_by_variant["K1_design"]["group"],
+             max(r["err"] for k, r in kernel_ms.items() if k[0] == "K1_fallback"),
+             kernel_ms["K1_fallback", traversal8.V_INCOHERENT], variant="global",
+             design="group",
+             fallback_by_v={f"V{V}": dict(brief(kernel_ms["K1_fallback", V]),
+                                          designs=kernel_ms["K1_fallback", V]["designs"])
+                            for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)},
+             by_tracer=sm_by_tracer("K1", "K1_fallback")),
         vrow("traverse8_kernel", "traversal8.cu",
              "cudatracerlib_tpu/ops/traversal_pl.py:188",
-             sm_by_variant["K1"]["global"],
-             max(max_err(k1_sm, None), *(r["err"] for k, r in kernel_ms.items()
-                                         if k[0] == "K1_fallback")),
-             kernel_ms["K1_fallback", traversal8.V_INCOHERENT], variant="global",
-             fallback_by_v={f"V{V}": brief(kernel_ms["K1_fallback", V])
-                            for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)},
-             mixed_rays=brief(k1_sm["mixed", None]),
-             by_tracer=sm_by_tracer("K1", "K1_fallback"))]
+             loader_res["loader_cornell"]["launches"]["K1_by_design"]["thread"],
+             max_err(k1_sm, None), k1_sm["mixed", None], variant="global",
+             design="thread",
+             fallback_by_v={f"V{V}": dict(
+                 device_ms=kernel_ms["K1_fallback", V]["designs"]["thread"])
+                 for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)},
+             by_tracer={})]
     def mb_row(entry):
         return (entry["max_abs_err"], entry["ms"], entry["plain_ms"],
                 (entry["bound_ms"], entry["bound_by"]))
@@ -3889,16 +4176,22 @@ def main():
         return dict(inst_res[traversal][kind], pass_launches=inst_res[pt]["launches_per_pass"],
                     seconds_per_pass=inst_res[pt]["seconds_per_pass"])
     k1_rows[0]["by_tracer"]["instanced_grid"] = inst_entry("grid_traversal", "K1", "grid_pt")
-    # the loaded Cornell box's K1 launches, under the variant they took
+    # the loaded Cornell box's K1 launches, under the variant and design
+    # they took (the per-thread design on a global table)
     lc = loader_res["loader_cornell"]
-    k1_rows[0 if lc["variant"] == "shared" else 1]["by_tracer"]["loader_cornell"] = lc
+    k1_rows[0 if lc["variant"] == "shared" else 2]["by_tracer"]["loader_cornell"] = lc
+    # every K1 global call held, with its chain floor from this run's P1
+    k1_global = k1_global_lines(p1["ns_per_dependent_fetch"])
+    k1_rows[1]["calls"] = len(k1_global)
     k2_shared = k2_row("top_visits_shared_kernel", None)
     k3_kept = k3_row("treelet_hits_kernel", "traversal_tt.cu", None)
     for kind, kernel_row in (("K1", k1_rows[1]), ("K2", k2_shared), ("K3", k3_kept)):
-        kernel_row["by_tracer"]["instanced_bench"] = inst_entry("bench_traversal", kind,
-                                                                "bench_pt")
-        kernel_row["by_tracer"]["instanced_bench_pt"] = inst_entry("bench_pt_traversal",
-                                                                   kind, "bench_pt")
+        # the instanced visits' K1 fallback runs one thread per ray
+        inst_row = k1_rows[2] if kind == "K1" else kernel_row
+        inst_row["by_tracer"]["instanced_bench"] = inst_entry("bench_traversal", kind,
+                                                              "bench_pt")
+        inst_row["by_tracer"]["instanced_bench_pt"] = inst_entry("bench_pt_traversal",
+                                                                 kind, "bench_pt")
         for name in ("loader_materials", "loader_sm"):
             kernel_row["by_tracer"][name] = loader_res[name].get(kind)
         n_par = par_n["K1"].get("global", 0) if kind == "K1" else par_n[kind]

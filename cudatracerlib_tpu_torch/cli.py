@@ -10,8 +10,10 @@ with a progress bar and a PNG at the end). Renders on the card unless
 
 ``--devices N`` starts N ranks (parallel.render.launch: one spawned process
 per card, NCCL; gloo with ``--device cpu``) that render with the sharded
-tracers; rank 0 writes the outputs. Without it one process renders on one
-device.
+tracers; rank 0 writes the outputs: the gathered film without the splat
+parts, as the JAX CLI writes ``tr.film``, so a sharded light tracer's image
+is black and a sharded BDPT's or VCM's lacks its splats (ROADMAP queue 3,
+item 7). Without it one process renders on one device.
 """
 from __future__ import annotations
 
@@ -193,7 +195,9 @@ def _render(mesh, a):
     ftypes = {"box": pipeline.F_BOX, "gaussian": pipeline.F_GAUSSIAN,
               "mitchell": pipeline.F_MITCHELL, "lanczos": pipeline.F_LANCZOS,
               "triangle": pipeline.F_TRIANGLE}
-    film = tr.film if mesh is None else tr.gathered_film()
+    # the JAX CLI writes tr.film: with --devices, the gathered film without
+    # the splat parts (ROADMAP queue 3, item 7)
+    film = tr.film if mesh is None else tr.gathered_film(parts=False)
     if not lead:
         return
     hdr = pipeline.apply_pipeline(film, ftypes[a.filter], tonemap=a.tonemap,

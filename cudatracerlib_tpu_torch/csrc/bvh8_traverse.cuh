@@ -27,7 +27,22 @@
 // The state machine is split in three: Walk::init (an empty stack), step
 // (one row) and traverse (the loop over steps with the cap). K1, K2 and K3
 // run traverse; K4 runs step itself, so that a lane can take a new ray
-// between two steps.
+// between two steps. K1's group design (traversal8.cu, group_traverse)
+// runs the same steps on a group of lanes, one child or triangle a lane,
+// with step's float expressions in the same order and a reduction that
+// keeps what the strict-< scans keep, its ring stack spread over the
+// group's registers.
+//
+// What bounds a traversal on an H100 (PERF.md): where most lanes are live
+// and the table is small (Cornell, veach-mis, K2's top tables), the
+// instruction stream under divergence: one thread runs a node step's 8
+// slab tests or a leaf step's 12 triangle tests in series, and a warp
+// runs its node-step and leaf-step lanes one after the other and waits
+// for its slowest ray.
+// Where few lanes are live on a large table (the treelet fallback), the
+// chain of dependent row fetches of the slowest ray: a step's fetch
+// (~0.5-0.7 us from L2 or HBM) plus its serial tests; the group design
+// shortens the second part and writes the dead lanes without a fetch.
 //
 // step and traverse are templates over where a row comes from; a source
 // gives a row's base pointer (row) and its swizzle:

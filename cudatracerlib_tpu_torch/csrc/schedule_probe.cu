@@ -421,6 +421,35 @@ extern "C" int ctl_probe_traverse8(
                        steps_out, flags_out);
 }
 
+// ctl_traverse8's arguments for K1's global variant in the group design
+// with `lanes` (8, 16 or 32) lanes a live ray, and with `prefetch` a node
+// step's L2 prefetch of its eligible children's rows, in place of the
+// variant; work: the design's work area (kWork + n_rays int32), counting
+// in its set `set`. Returns a CUDA error code, or -1 for another lane
+// count.
+extern "C" int ctl_probe_traverse8_group(
+    const float* table, int n_rows, const float* o, const float* d,
+    const float* tmin, const float* tmax, const int* roots,
+    const uint8_t* any_mask, int n_rays, int any_hit, int stack_depth,
+    int max_iters, float* t_out, int* tri_out, float* u_out, float* v_out,
+    int* steps_out, uint8_t* flags_out, int* work, int set, int lanes,
+    int prefetch, void* stream) {
+  if ((lanes != 8 && lanes != 16 && lanes != 32) || set < 0 || set > 1) {
+    return -1;
+  }
+  if (n_rays <= 0) return (int)cudaGetLastError();
+  auto launch = lanes == 8    ? (prefetch ? launch_group<8, true>
+                                          : launch_group<8, false>)
+                : lanes == 16 ? (prefetch ? launch_group<16, true>
+                                          : launch_group<16, false>)
+                              : (prefetch ? launch_group<32, true>
+                                          : launch_group<32, false>);
+  return launch(reinterpret_cast<const float4*>(table), n_rows, o, d, tmin,
+                tmax, roots, any_mask, n_rays, any_hit, stack_depth,
+                max_iters, t_out, tri_out, u_out, v_out, steps_out,
+                flags_out, work, set, (cudaStream_t)stream);
+}
+
 // ctl_top_visits's arguments, with `design` in place of the variant.
 extern "C" int ctl_probe_top_visits(
     const float* top, int n_top, const float* o, const float* d,

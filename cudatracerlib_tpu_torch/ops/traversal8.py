@@ -8,7 +8,11 @@ one traversal, with the same per-ray semantics, step counts and flags:
   ``cudatracerlib_tpu/ops/traversal_pl.py::_traverse_kernel``. It takes CUDA
   tensors only. A table that fits a block's shared memory
   (``table_variant``) runs the shared variant: one block per SM holds the
-  table; a larger one runs the global variant, rows from device memory.
+  table; a larger one runs the global variant, rows from device memory,
+  one thread per ray, or in the group design where the caller asks for it
+  (the flat treelet fallback: dead lanes written without a row read, live
+  rays drained from a queue by groups of lanes; ``live_lanes`` models the
+  queue).
 - ``intersect_wide_pool_cuda``: the wrapper of K4, ``csrc/traversal_pool.cu``,
   which replaces the TPU kernel ``traversal_pl.py::_traverse_kernel_pool``:
   persistent warps that take rays from a global queue. It computes exactly
@@ -59,6 +63,24 @@ ROW_BYTES = 512
 SHARED_THREADS = 512
 # the launch variants of K1 and K2, by their C entries' codes
 VARIANTS = {"global": 0, "shared": 1}
+# the designs of K1's global variant: "thread", one thread per ray; "group",
+# dead lanes written without a row read and live rays drained from a queue
+# by groups of GROUP_LANES lanes (csrc/traversal8.cu); the C entry's codes
+# for the group design counting in set 0 or 1 of its work area: GROUP_WORK
+# int32 words of two counter sets (a launch counts in one, zero, and zeroes
+# the other; set 0's counters at GROUP_COUNTERS: rays claimed in chunks,
+# live rays, queue claims, rays classified), then one queue slot per ray
+GLOBAL_DESIGNS = ("thread", "group")
+GROUP_CODE = 2
+GROUP_LANES = 16
+GROUP_WORK = 256
+GROUP_COUNTERS = (0, 32, 64, 96)
+# the design K1's global variant takes on the flat treelet path's fallback
+# batch, whose lanes are dead but for the few whose visits overflowed (tens
+# to thousands of a batch). The instanced visits' fallback (per-lane roots)
+# keeps one thread per ray: its batches hold 0-3 live lanes, where the group
+# design's fixed cost (~3 us a launch on an H100) is not repaid (PERF.md)
+FALLBACK_DESIGN = "group"
 # float32 operations of a node step, counted from csrc/bvh8_traverse.cuh:
 # 26 per child (6 subtractions and 6 products for the slab distances, 12
 # min/max, 2 compares) for 8 children. A leaf step does more (about 54 per
@@ -371,6 +393,52 @@ def launch_variant(table: Tensor, forced: str = None) -> str:
     return table_variant(table.shape[0], _shared_limit(table.device.index))
 
 
+def live_lanes(rays: Rays, max_iters: int = MAX_ITERS,
+               roots: Tensor = None) -> Tensor:
+    """(B,) bool: the lanes the group design traverses; it writes every
+    other lane's outputs without reading the table. A lane with
+    !(tmin <= tmax) (a NaN included) that starts on a node row takes one
+    step in ``intersect_wide``: the root admits no child (tn >= tmin > tmax
+    >= tf, or a NaN fails tn <= tf) and the stack is empty, so its outputs
+    are t = tmax, tri -1, u = v = 0, one step and no flag whatever the
+    table, for max_iters >= 1. A lane with tmin = tmax is live: it may
+    descend boxes that hold its origin."""
+    B = rays.o.shape[0]
+    start = torch.zeros(B, dtype=torch.int32, device=rays.o.device) \
+        if roots is None else (roots.to(torch.int32) << 8) | 0xFF
+    return (rays.tmin <= rays.tmax) | (start < 0) | (max_iters < 1)
+
+
+def _check_design(design):
+    if design is not None and design not in GLOBAL_DESIGNS:
+        raise ValueError(f"no design {design!r} of K1's global variant: one "
+                         f"of {list(GLOBAL_DESIGNS)}")
+
+
+def group_work(B: int, dev) -> Tensor:
+    """A new work area of the group design for B rays, its counters zero."""
+    return torch.zeros(GROUP_WORK + B, dtype=torch.int32, device=dev)
+
+
+# the group design's work area of each (device, stream) and the counter set
+# its next launch takes: launches on a stream take the sets in turn, each
+# zeroing the other's, so no launch needs a memset; a new area (zeros, set
+# 0), at the next power of two of rays, when a batch outgrows it
+_group_work = {}
+
+
+def stream_group_work(B: int, dev):
+    """(work area, counter set) for the group design's next launch of B
+    rays on `dev`'s current stream (no rays launch nothing and take no
+    set)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    work, count_set = _group_work.get(key, (None, 0))
+    if work is None or work.numel() < GROUP_WORK + B:
+        work, count_set = group_work(1 << max(B - 1, 1).bit_length(), dev), 0
+    _group_work[key] = (work, 1 - count_set if B > 0 else count_set)
+    return work, count_set
+
+
 def queue_counter(variant: str, dev):
     """The ray queue counter a K1 or K2 launch of `variant` needs: an int32
     scratch tensor for the shared variant (its C entry zeroes it on the
@@ -422,32 +490,54 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
                         stack_depth: int = STACK_DEPTH,
                         max_iters: int = MAX_ITERS, roots: Tensor = None,
                         with_iters: bool = False, any_mask: Tensor = None,
-                        _variant: str = None):
+                        _variant: str = None, _design: str = None,
+                        _scratch: Tensor = None):
     """Launch K1 (``csrc/traversal8.cu``) on the current stream: the same
     signature, results, step counts and flags as ``intersect_wide``.
 
     Takes CUDA tensors only: (R, 128) float32 table; rays o, d (B, 3) and
     tmin, tmax (B,) float32; roots (B,) int32; any_mask (B,) bool. Raises on
     anything else, and when the card refuses the launch. The variant comes
-    from the table's size (``launch_variant``; `_variant` forces one); the
-    shared variant's ray queue counter is an int32 scratch tensor allocated
-    here (``queue_counter``). Each launch adds one to
+    from the table's size (``launch_variant``; `_variant` forces one). The
+    global variant runs in `_design` (``GLOBAL_DESIGNS``): "thread" unless
+    the caller asks for "group", as the flat treelet fallback does
+    (``FALLBACK_DESIGN``). The shared variant's ray queue counter is an
+    int32 scratch tensor allocated here (``queue_counter``); the group
+    design's work area is kept for the stream (``stream_group_work``), or
+    `_scratch` gives it a new one (``group_work``), whose
+    ``GROUP_COUNTERS`` then read. Each launch adds one to
     ``intersect_wide_cuda.launches``, to
-    ``intersect_wide_cuda.launches_by_variant[variant]`` and to
-    ``intersect_wide_cuda.launches_by_mode[mode]`` (``launch_mode``)."""
+    ``intersect_wide_cuda.launches_by_variant[variant]``, to
+    ``intersect_wide_cuda.launches_by_mode[mode]`` (``launch_mode``) and, on
+    the global variant, to ``intersect_wide_cuda.launches_by_design``."""
+    _check_design(_design)
     args, out = _wide_args(table, rays, any_hit, stack_depth, max_iters, roots,
                            any_mask)
     variant = launch_variant(table, _variant)
-    counter = queue_counter(variant, table.device)
+    design = (_design or "thread") if variant == "global" else None
+    code = VARIANTS[variant]
+    if design == "group":
+        B = rays.o.shape[0]
+        if _scratch is None:
+            counter, count_set = stream_group_work(B, table.device)
+        else:
+            _require(_scratch, "_scratch", torch.int32, (GROUP_WORK + B,),
+                     table.device)
+            counter, count_set = _scratch, 0
+        code = GROUP_CODE + count_set
+    else:
+        counter = queue_counter(variant, table.device)
     fn = cuda_build.load_library("traversal8.cu").ctl_traverse8
     fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    res = _wide_result(fn(*args, _ptr(counter), VARIANTS[variant],
-                          _stream(table.device)), out, with_iters)
+    res = _wide_result(fn(*args, _ptr(counter), code, _stream(table.device)),
+                       out, with_iters)
     intersect_wide_cuda.launches += 1
     intersect_wide_cuda.launches_by_variant[variant] += 1
     intersect_wide_cuda.launches_by_mode[launch_mode(any_hit, any_mask)] += 1
+    if design is not None:
+        intersect_wide_cuda.launches_by_design[design] += 1
     return res
 
 
@@ -463,6 +553,7 @@ def launch_mode(any_hit: bool, any_mask: Tensor = None) -> str:
 intersect_wide_cuda.launches = 0
 intersect_wide_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 intersect_wide_cuda.launches_by_mode = dict.fromkeys(MODES, 0)
+intersect_wide_cuda.launches_by_design = dict.fromkeys(GLOBAL_DESIGNS, 0)
 
 
 def intersect_wide_pool_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
@@ -589,9 +680,13 @@ def intersect_treelet_exact(geom, rays: Rays, any_hit: bool = False,
     the whole table by K1 (on the CPU, its plain version), with tmax = their
     treelet t. The fallback always runs over the whole batch, with no host
     read of the count: every other ray gets tmax -1, which no box or
-    triangle can meet, so it costs one step. Each ray runs its own thread,
-    so the JAX package's compaction ladder is not needed. A fallback hit is
-    closer than the treelet t by construction and wins outright."""
+    triangle can meet, so it is a dead lane of one step. Without per-lane
+    roots, on a table too large for shared memory, K1 runs the group design
+    here (``FALLBACK_DESIGN``): it writes the dead lanes without reading
+    the table and compacts the live rays into a queue inside the launch,
+    the counterpart of the JAX package's compaction ladder and persistent
+    lanes. A fallback hit is closer than the treelet t by construction and
+    wins outright."""
     from . import traversal_tt
     if (roots is None) != (roots_top is None):
         raise ValueError("roots and roots_top go together")
@@ -603,9 +698,11 @@ def intersect_treelet_exact(geom, rays: Rays, any_hit: bool = False,
     hit, ovf = res[0], res[1]
     fb_rays = Rays(o=rays.o, d=rays.d, tmin=rays.tmin,
                    tmax=torch.where(ovf, hit.t, -1.0))
+    design = dict(_design=FALLBACK_DESIGN) \
+        if geom.wide.is_cuda and roots is None else {}
     fb, fb_steps, fb_flags = _wide_fn(geom.wide)(
         geom.wide, fb_rays, any_hit=any_hit, with_iters=True, roots=roots,
-        any_mask=any_mask)
+        any_mask=any_mask, **design)
     win = fb.valid & ovf
     hit = Hit(t=torch.where(win, fb.t, hit.t),
               tri=torch.where(win, fb.tri, hit.tri),

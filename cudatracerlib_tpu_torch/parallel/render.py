@@ -385,21 +385,28 @@ class _Sharded:
         if rows:
             self.film = _film_specs(self.film, mesh)
 
-    def gathered_film(self) -> filmmod.Film:
-        """The whole film on every rank: rows gathered, splat parts folded
-        (collectives: every rank must call it)."""
+    def gathered_film(self, parts: bool = True) -> filmmod.Film:
+        """The whole film on every rank: rows gathered, and with `parts` the
+        splat parts folded (collectives: every rank must call it)."""
         film = gather_film(self.film, self.mesh) if self._rows else self.film
-        if self._splat_parts is not None:
+        if parts and self._splat_parts is not None:
             film = fold_splat_parts(film, self._splat_parts, self.mesh)
         return film
 
     def develop(self) -> Tensor:
+        """The whole image, the splat parts folded in."""
         return filmmod.develop(self.gathered_film())
 
     def render(self, n_passes: int = 1) -> Tensor:
+        """As the JAX package's: `n_passes` passes, then the gathered film
+        developed without the splat parts. The JAX tracers inherit
+        TracerBase.render, which develops self.film while their develop()
+        folds the parts, so a sharded BDPT or VCM image lacks its splats
+        and a sharded light tracer's is black (ROADMAP queue 3, item 7);
+        develop() gives the whole image."""
         for _ in range(n_passes):
             self.do_pass()
-        return self.develop()
+        return filmmod.develop(self.gathered_film(parts=False))
 
 
 def _mesh_for(scene, mesh):
@@ -509,6 +516,10 @@ class ShardedPPMTracer(_Sharded, ppmmod.PPMTracer):
         return ppmmod.develop_image(self.gathered_film(), self.gathered_state(),
                                     self.pass_idx, self.width, self.height)
 
+    def render(self, n_passes: int = 1) -> Tensor:
+        """The JAX PPMTracer's: passes, then develop() (no splat parts)."""
+        return ppmmod.PPMTracer.render(self, n_passes)
+
 
 class ShardedVCM(_Sharded, vcmmod.VCM):
     """VCM with pixels sharded and the photon map all-gathered: the
@@ -605,11 +616,12 @@ def run_jobs(mesh: Mesh, jobs):
 
     A job is (tag, (example scene, w, h), name, kw): `name` is one of this
     module's sharded passes or tracers. A tracer renders kw.pop("passes",
-    1) passes; the result holds its image, and for an adaptive PPM tracer
-    the per-pixel r2. A pass runs that many passes on a fresh film in the
-    layout its arguments give (rows where the pass adds rows; kw
-    "splat_parts": True makes the parts) and the result holds the gathered
-    film's rgb, weight and splat (parts folded) and its developed image.
+    1) passes; the result holds render()'s image, develop()'s (`img`),
+    and for an adaptive PPM tracer the per-pixel r2. A pass runs that many
+    passes on a fresh film in the layout its arguments give (rows where
+    the pass adds rows; kw "splat_parts": True makes the parts) and the
+    result holds the gathered film's rgb, weight and splat (parts folded)
+    and its developed image.
     Returns {tag: {name: numpy array}} (every rank; rank 0's is launch's)."""
     from ..utils import example_scenes
     out = {}
@@ -619,7 +631,7 @@ def run_jobs(mesh: Mesh, jobs):
         scene = getattr(example_scenes, scene_name)(w, h).build(mesh.device)
         if name in _TRACERS:
             tr = globals()[name](scene, w, h, mesh=mesh, **kw)
-            res = dict(img=tr.render(passes))
+            res = dict(render=tr.render(passes), img=tr.develop())
             if name == "ShardedPPMTracer" and tr._ppm_state is not None:
                 res["r2"] = tr.gathered_state().r2
         elif name in _PASSES:

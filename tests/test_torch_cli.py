@@ -7,9 +7,9 @@ utils (params, timers, debug_viz, introspect) against the JAX package's.
   the sharded class (the JAX CLI's at 2 virtual devices, the port's over a
   gloo world of one); a name with no sharded class exits in both.
 - ``main([..., "--device", "cpu"])`` renders Cornell 16x16 to a PNG and a
-  Radiance .hdr; the light tracer's PNG with ``--devices 2`` (two gloo
-  ranks, launch's timeout LAUNCH_TIMEOUT) within one level of one
-  process's.
+  Radiance .hdr; the light tracer with ``--devices 2`` (two gloo ranks,
+  launch's timeout LAUNCH_TIMEOUT) writes the JAX CLI's PNG and .hdr at
+  two virtual devices: the film without its splat parts.
 - ``--arg`` values reach the tracer as bool, int, float or str, as the JAX
   CLI coerces them; ``--debug-nans`` raises FloatingPointError on a NaN
   injected into a pass's film, and only under the flag.
@@ -119,18 +119,26 @@ def test_main_writes_png(tmp_path, capsys):
 
 
 def test_main_devices_2_on_cpu(tmp_path, monkeypatch):
-    """Two gloo ranks light-trace the image of one process (the splat sums
-    in another order: PNG levels within 1). The light tracer, because the
-    JAX CLI's sharded PT takes pt_radiance's Russian-roulette depth where
-    its single-device PT takes the scene's."""
+    """Two gloo ranks light-trace Cornell 16x16 and write what the JAX CLI
+    writes with --devices 2 (on two virtual devices): the film without its
+    splat parts, which for the light tracer is black (ROADMAP queue 3,
+    item 7). The PNG and the .hdr equal the JAX CLI's; one process's image
+    is not black, so the parts are what is left out."""
     from cudatracerlib_tpu_torch.parallel import render as tpr
     launch = tpr.launch
     monkeypatch.setattr(tpr, "launch", lambda *a, **kw: launch(
         *a, **dict(kw, timeout=LAUNCH_TIMEOUT, tmpdir=str(tmp_path))))
     one = np.asarray(Image.open(_main(tmp_path, "one", tracer="LT"))).astype(int)
-    two = np.asarray(Image.open(_main(tmp_path, "two", "--devices", "2",
-                                      tracer="LT"))).astype(int)
-    assert one.max() > 0 and np.abs(two - one).max() <= 1
+    two = _main(tmp_path, "two", "--devices", "2", "--hdr", str(tmp_path / "two.hdr"),
+                tracer="LT")
+    jout = tmp_path / "jax.png"
+    jcli.main(["cornell", "-t", "LT", "-p", "2", "--res", "16x16", "-o", str(jout),
+               "--devices", "2", "--hdr", str(tmp_path / "jax.hdr")])
+    assert one.max() > 0
+    np.testing.assert_array_equal(np.asarray(Image.open(two)),
+                                  np.asarray(Image.open(jout)))
+    np.testing.assert_array_equal(timages.load_image(str(tmp_path / "two.hdr")),
+                                  timages.load_image(str(tmp_path / "jax.hdr")))
 
 
 def test_debug_nans(tmp_path, monkeypatch):

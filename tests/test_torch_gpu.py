@@ -234,6 +234,50 @@ def test_table_variants_match_plain_on_gpu(dev):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+def test_k1_global_design_matches_plain_on_gpu(dev):
+    """K1's global variant in both designs (one thread per ray; dead lanes
+    written without a row read and live rays from a queue, one group of
+    lanes each: 32 as kept, 8 and 16 through utils/schedule_probe.py)
+    against the plain version, closest / any-hit / mixed, on the
+    20,000-triangle San Miguel table (global by the size rule), on
+    chip_smoke.py's edge batches: every lane dead, one live lane in 65,536,
+    NaN tmin or tmax, tmin = tmax = 0, a 2-entry stack that overflows, a
+    5-step and a 0-step cap, one ray, per-lane roots with half the lanes
+    dead. The group design's live count equals the plain model's
+    (traversal8.live_lanes); the probe's designs run with and without the
+    L2 prefetch of eligible children. Then the treelet path's fallback takes
+    the group design."""
+    import chip_smoke
+    r = np.random.default_rng(13)
+    o = r.uniform([-16, 0.3, -10], [16, 5, 10], (N_RAYS, 3)).astype(np.float32)
+    d = r.normal(size=(N_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = Rays(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                torch.full((N_RAYS,), 1e-4, device=dev),
+                torch.full((N_RAYS,), 1e9, device=dev))
+    sc = tscenes.san_miguel_stand_in(64, 64, target_tris=20000).build(dev)
+    table = sc.geom.wide
+    assert traversal8.launch_variant(table) == "global"
+    K1 = traversal8.intersect_wide_cuda
+    run = chip_smoke.k1_global_runner(K1, traversal8)
+    for name, rr, kw in chip_smoke.k1_edge_batches(table, rays, 65536, seed=3):
+        errs = chip_smoke.check_edge_batch(name, table, rr, kw, K1, traversal8, run)
+        assert max(errs.values()) == 0.0, name
+    # the stream's work area: the counter set its next launch takes is zero
+    for work, count_set in traversal8._group_work.values():
+        half = traversal8.GROUP_WORK // 2
+        assert not work[count_set * half:(count_set + 1) * half].any()
+    before = dict(K1.launches_by_design)
+    pix = torch.arange(4096, dtype=torch.int32, device=dev)
+    cam = ttracer.gen_camera_rays(sc, pix, 0, 0, 64, 64)[0]
+    cam = Rays(*(x.contiguous() for x in cam))
+    traversal8.intersect_treelet_exact(sc.geom, cam, coherent=True)
+    assert K1.launches_by_design["group"] == before["group"] + 1
+    assert K1.launches_by_design["thread"] == before["thread"]
+    torch.cuda.synchronize()
+
+
 def _card_and_cpu(tracer_cls, scene_fn, size, passes, **kw):
     """The same tracer run on the card and on the CPU: (card image, CPU
     image, K1 launches on the card)."""
@@ -649,9 +693,12 @@ def test_sharded_world_of_one_on_gpu(dev):
     """A world of one rank through NCCL (make_mesh without a process group:
     an in-process HashStore): ShardedPathTracer (the row film) and
     ShardedBDPT (the row film and splat parts) at 32x32, 2 passes, against
-    the unsharded tracers on the card, within 1e-5."""
+    the unsharded tracers on the card, within 1e-5: develop() (the parts
+    folded) against render(); the sharded render() is the film developed
+    without the parts, as the JAX package's (ROADMAP queue 3, item 7)."""
     import torch.distributed as dist
     from cudatracerlib_tpu_torch.models import bdpt as tbdpt
+    from cudatracerlib_tpu_torch.models import film as tfilm
     from cudatracerlib_tpu_torch.models import path as tpath
     from cudatracerlib_tpu_torch.parallel import render as prender
     try:
@@ -660,10 +707,16 @@ def test_sharded_world_of_one_on_gpu(dev):
         scene = tscenes.cornell_box(32, 32).build(dev)
         for sharded, single in ((prender.ShardedPathTracer, tpath.PathTracer),
                                 (prender.ShardedBDPT, tbdpt.BDPT)):
-            a = sharded(scene, 32, 32, mesh=mesh, max_depth=4).render(2).cpu().numpy()
-            b = single(scene, 32, 32, max_depth=4).render(2).cpu().numpy()
+            tr = sharded(scene, 32, 32, mesh=mesh, max_depth=4)
+            r = tr.render(2).cpu().numpy()
+            a = tr.develop().cpu().numpy()
+            single_tr = single(scene, 32, 32, max_depth=4)
+            b = single_tr.render(2).cpu().numpy()
             assert np.isfinite(a).all() and a.mean() > 0
             assert _rel(a, b) < 1e-5, sharded.__name__
+            no_splat = tfilm.develop(single_tr.film._replace(
+                splat=torch.zeros_like(single_tr.film.splat))).cpu().numpy()
+            assert _rel(r, no_splat) < 1e-5, sharded.__name__
     finally:
         dist.destroy_process_group()
 

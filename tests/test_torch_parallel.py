@@ -22,6 +22,10 @@ the reduce_film fallback), depth 3.
   24, asserted on the single-device grids): the sharded pass restores the
   single-device row order of the gathered photon rows (gather_exact), so
   the same photons survive and the images agree as above.
+- The sharded tracer classes' render() (the film developed without the
+  splat parts, as the JAX package's) and develop() (parts folded) against
+  the JAX tracers', within 0.5%; the light tracer's render() is black on
+  both sides.
 - Adaptive radii: the per-pixel r2 after 2 passes equals the single-device
   tracer's (tests/test_parallel.py's case for JAX), and after one pass
   the image and r2 match the JAX ShardedPPMTracer's at
@@ -205,6 +209,26 @@ def test_tracer_classes_match_single_device(ranks2):
     for name, single in (("ShardedPathTracer", tpath.PathTracer(scene, N, N, max_depth=DEPTH)),
                          ("ShardedLightTracer", tlt.LightTracer(scene, N, N, max_depth=DEPTH))):
         _close(ranks2[name]["img"], single.render(2).numpy())
+
+
+@pytest.mark.parametrize("name", ["ShardedPathTracer", "ShardedLightTracer"])
+def test_tracer_render_matches_jax_sharded(ranks2, jax_mesh, name):
+    """render() and develop() of the port's sharded tracer (2 gloo ranks, 2
+    passes) against the JAX one's on 2 virtual devices: render() develops
+    the film without the splat parts, as the JAX TracerBase.render does
+    (ROADMAP queue 3, item 7), so the light tracer's is black on both
+    sides; develop() folds them. Images within 0.5% mean relative error."""
+    jtr = getattr(jpr, name)(jscenes.cornell_box(N, N).build(), N, N, mesh=jax_mesh,
+                             max_depth=DEPTH)
+    jrender = np.asarray(jtr.render(2))
+    jdevelop = np.asarray(jtr.develop() if hasattr(jtr, "develop")
+                          else jfilm.develop(jtr.film))
+    got = ranks2[name]
+    if name == "ShardedLightTracer":
+        assert not jrender.any() and not got["render"].any()
+    else:
+        assert _rel(got["render"], jrender) < 0.005
+    assert _rel(got["img"], jdevelop) < 0.005 and jdevelop.mean() > 0
 
 
 def test_ppm_adaptive_radii_match_jax_sharded(ranks2, jax_mesh):

@@ -20,6 +20,9 @@ devices with ``make_mesh(2)``, one compilation per family.
 - BDPT against the port's single-device pass within 1e-6 relative (rtol
   1e-6, atol 1e-6 of the image's maximum): splat parts and row film, the
   per-pass all-reduce, and the ShardedBDPT class over 2 passes.
+- The ShardedBDPT and ShardedVCM classes' render() (the film developed
+  without the splat parts, as the JAX package's) and develop() (parts
+  folded) against the JAX tracers', within 0.5%.
 - VCM against the port's single-device pass by the image mean within 1e-3
   (tests/test_parallel.py's VCM case allows as much: the shard-major photon
   order re-associates the merge sums), with splat parts, with the per-pass
@@ -121,6 +124,23 @@ def test_vcm_matches_jax_sharded(ranks2, jax_box):
     single, _ = tvcm.vcm_pass(sc, tfilm.new_film(N, N, "cpu"), 0, N, N, DEPTH,
                               tpath.scene_active_types(sc), radius)
     assert 10 * _rel(got["rgb"], np.asarray(film.rgb)) < _rel(got["rgb"], single.rgb.numpy())
+
+
+@pytest.mark.parametrize("name", ["ShardedBDPT", "ShardedVCM"])
+def test_tracer_render_matches_jax_sharded(ranks2, jax_box, name):
+    """render() and develop() of the port's sharded tracer (2 gloo ranks, 2
+    passes) against the JAX one's on 2 virtual devices: render() develops
+    the film without the splat parts, as the JAX TracerBase.render does
+    (ROADMAP queue 3, item 7); develop() folds them. Images within 0.5%
+    mean relative error, and render() lacks the splats (darker)."""
+    _, mesh = jax_box
+    jtr = getattr(jpr, name)(jscenes.cornell_box(N, N).build(), N, N, mesh=mesh,
+                             max_depth=DEPTH)
+    jrender, jdevelop = np.asarray(jtr.render(2)), np.asarray(jtr.develop())
+    got = ranks2[name]
+    assert _rel(got["render"], jrender) < 0.005
+    assert _rel(got["img"], jdevelop) < 0.005
+    assert got["render"].mean() < got["img"].mean()
 
 
 def test_vcm_cells_overflow_at_the_larger_radius():
