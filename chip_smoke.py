@@ -296,11 +296,11 @@ K1_VARIANTS = (None, "global", "stride", "smem_stack")
 # K3's designs held to its plain version on the San Miguel slots: the kept
 # kernel (None) and the three of utils/schedule_probe.K3_DESIGNS
 K3_DESIGNS = (None, "cluster", "split", "walk")
-# K1's global variant: PR 1's one thread per ray, the group design as the
-# render paths run it, and the probe's group designs with 8, 16 and 32
-# lanes a live ray, without and with ("p") an L2 prefetch of each node
-# step's eligible children (k1_global_runner)
-K1_GLOBAL_DESIGNS = ("thread", "group", "g8", "g16", "g32", "g8p", "g16p", "g32p")
+# K1's global variant: one thread per ray, the group design as the
+# render paths run it (16 lanes a live ray), and the probe's group designs
+# (utils/schedule_probe.GROUP_DESIGNS: 8 or 32 lanes, or 16 with an L2
+# prefetch of each node step's eligible children; k1_global_runner)
+K1_GLOBAL_DESIGNS = ("thread", "group", "g8", "g32", "g16p")
 # the lanes of the edge batch with one live lane
 K1_EDGE_BIG = 1 << 20
 SM_HALF = 131072
@@ -446,7 +446,7 @@ L3_CHUNK = 131072
 L3_SECONDS = 60.0       # parse, build and one pass
 # the traversal kernels' names in a profile, one entry per K2
 # instantiation (template argument: V)
-KERNEL_RE = re.compile(r"traverse8(?:_shared)?_kernel"
+KERNEL_RE = re.compile(r"traverse8(?:_shared|_group)?_kernel"
                        r"|top_visits(?:_shared)?_kernel(?:<\d+>)?"
                        r"|treelet_hits_kernel|traverse_pool_kernel")
 # the kernels in a mangled SASS function name, and their template arguments
@@ -596,11 +596,12 @@ class RowFetches:
     is then what the call must read of its table: each distinct node row's
     boxes and links and each distinct leaf row's triangles, once. A call
     on a large table reads a small part of it (a fallback batch's few live
-    rays), so the whole table would overstate its bound."""
+    rays), so the whole table would overstate its bound. With `lanes` (a
+    (B,) bool mask) only those lanes' fetches count."""
 
-    def __init__(self):
+    def __init__(self, lanes=None):
         from cudatracerlib_tpu_torch.ops import traversal8
-        self.t8, self.seen = traversal8, None
+        self.t8, self.seen, self.lanes = traversal8, None, lanes
 
     def __enter__(self):
         self.t8.on_fetch = self._log
@@ -613,6 +614,8 @@ class RowFetches:
         if self.seen is None:
             self.seen = torch.zeros(table.shape[0], dtype=torch.int64,
                                     device=table.device)
+        if self.lanes is not None:
+            is_node, is_leaf = is_node & self.lanes, is_leaf & self.lanes
         self.seen[rows[is_node].long()] = self.t8.NODE_STEP_BYTES
         self.seen[rows[is_leaf].long()] = self.t8.LEAF_STEP_BYTES
 
@@ -621,14 +624,27 @@ class RowFetches:
         return 0 if self.seen is None else int(self.seen.sum())
 
 
-def trav_bound(table_bytes, B, steps, mixed, mb, traversal8):
-    """bound_ms of one traversal launch: the table rows it fetches once
-    (table_bytes, RowFetches), the rays in (o, d, tmin, tmax; the any-hit
-    mask when mixed) and the hits out (t, tri, u, v, steps, flags); the
-    measured steps times a node step's operations (the cheaper step kind,
-    so the bound stays a lower bound)."""
-    n_bytes = table_bytes + B * (32 + int(mixed)) + B * 21
-    return mb.bound_ms(n_bytes, steps * traversal8.NODE_STEP_FLOPS)
+def trav_bound(table_bytes, B, steps, mixed, mb, traversal8, live=None,
+               roots=False):
+    """bound_ms of one K1 launch over B lanes, `live` of them live
+    (traversal8.live_lanes; all B when None): the table rows the live lanes
+    fetch, once (table_bytes, RowFetches); every lane's tmin and tmax in,
+    and its root with `roots`; a live lane's o and d in, and its any-hit
+    flag when mixed; every lane's hits out (t, tri, u, v, steps, flags);
+    the live lanes' steps (`steps` less the one step of each dead lane)
+    times a node step's operations (the cheaper step kind, so the bound
+    stays a lower bound). A dead lane's outputs follow from its tmax, so
+    the function needs nothing else of it."""
+    live = B if live is None else live
+    n_bytes = table_bytes + B * (8 + 4 * int(roots) + 21) + live * (24 + int(mixed))
+    return mb.bound_ms(n_bytes, (steps - (B - live)) * traversal8.NODE_STEP_FLOPS)
+
+
+def live_mask(rays, kw, traversal8):
+    """(B,) bool: the live lanes (traversal8.live_lanes) of a K1 call's
+    rays and arguments."""
+    return traversal8.live_lanes(rays, kw.get("max_iters", traversal8.MAX_ITERS),
+                                 kw.get("roots"))
 
 
 def check_pool(scene_name, table, rays, amask, K1, K4, traversal8, Rays, seed):
@@ -732,6 +748,7 @@ def k1_on_calls(label, calls, K1, traversal8, mb):
     for i, (table, rays, kw) in enumerate(calls):
         mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
         B = rays.o.shape[0]
+        live = int(live_mask(rays, kw, traversal8).sum())
 
         def run(variant, kw):
             h, st, fl = K1(table, rays, with_iters=True, **kw)
@@ -748,7 +765,8 @@ def k1_on_calls(label, calls, K1, traversal8, mb):
             res = check_variants(
                 "K1", run, plain, {mode: kw}, (None,), timed=(mode,), plain_reps=1,
                 bound=lambda steps, nb: trav_bound(nb, B, steps, mode == "mixed",
-                                                   mb, traversal8),
+                                                   mb, traversal8, live,
+                                                   "roots" in kw),
                 pass_of=label, call=i, rays=B)[mode, None]
         r = out.setdefault(mode, dict(launches=0, rays=0, live_rays=0, err=0.0,
                                       ms=0.0, device_ms=0.0, plain_ms=0.0,
@@ -810,9 +828,7 @@ def k1_edge_batches(table, rays, n_big, seed=0):
 
 def k1_global_runner(K1, traversal8):
     """run_design(design, table, rays, kw, counts=False) -> (hit, steps,
-    flags, work): K1's global variant in `design` ("thread", "group"; "g8",
-    "g16", "g32": the probe's group design with that many lanes a live ray,
-    and with a trailing "p" its L2 prefetch of eligible children). With
+    flags, work): K1's global variant in `design` (K1_GLOBAL_DESIGNS). With
     `counts` a group design runs on a new work area and returns it, to read
     its counters; else (timed runs) on the stream's, as the render paths
     do, and work is None."""
@@ -828,8 +844,7 @@ def k1_global_runner(K1, traversal8):
             res = K1(table, rays, with_iters=True, _variant="global",
                      _design="group", _scratch=work, **kw)
         else:
-            res = probe.traverse8_group(table, rays, int(design[1:].rstrip("p")),
-                                        design.endswith("p"), with_iters=True,
+            res = probe.traverse8_group(table, rays, design, with_iters=True,
                                         _scratch=work, **kw)
         return (*res, work)
     return run_design
@@ -881,12 +896,16 @@ def check_edge_batch(name, table, rays, kw, K1, traversal8, run_design):
 # every K1 global call k1_global_call held, for the lines at the end of
 # the run (their chain floors need P1, measured in phase 8)
 K1_GLOBAL_CALLS = []
+# the per-thread design's launches in each run of a main path that takes it
+# (the counts zeroed just before the run and read just after), for the
+# kernel table's traverse8_kernel row
+K1_THREAD_LAUNCHES = {}
 
 
 def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
                    plain_ms=None, nbytes=None, sweep=False):
     """One call of K1's global variant (table, rays, kw; kw's `_design` is
-    the design its call site runs, "thread" without one) in PR 1's
+    the design its call site runs, "thread" without one) in the
     per-thread design and the group design, and with `sweep` in every
     design of K1_GLOBAL_DESIGNS, each against the plain version (`ref`,
     (t, tri, u, v, steps, flags), taken here when not given, with its time
@@ -898,23 +917,22 @@ def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
     readings; the rest once. Records the call's lanes, live lanes
     (tmin <= tmax), the mean, p99 and largest steps over the live lanes
     and the times in K1_GLOBAL_CALLS; returns check_variants's result for
-    the call site's design, with the times by design. The first call of
-    each label sweeps every design."""
+    the call site's design, with the times by design."""
     mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
     serving = kw.get("_design", "thread")
     kw = plain_kw(kw)
     B = rays.o.shape[0]
+    live = live_mask(rays, kw, traversal8)
     if ref is None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with RowFetches() as fetched:
+        with RowFetches(lanes=live) as fetched:
             h, st, fl = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
             torch.cuda.synchronize()
         plain_ms, nbytes, ref = (time.perf_counter() - t0) * 1e3, fetched.nbytes, \
             (*h, st, fl)
     steps_ref = ref[-2]
-    want_live = int(traversal8.live_lanes(rays, roots=kw.get("roots")).sum())
-    sweep = sweep or not any(c["call_of"] == label for c in K1_GLOBAL_CALLS)
+    want_live = int(live.sum())
     designs = K1_GLOBAL_DESIGNS if sweep else ("thread", "group")
     err = 0.0
     for design in designs:
@@ -932,14 +950,14 @@ def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
         times.setdefault(design, []).append(
             device_ms(lambda: run_design(design, table, rays, kw), reps=3))
     steps = int(steps_ref.sum())
-    bound = trav_bound(nbytes, B, steps, mode == "mixed", mb, traversal8)
+    bound = trav_bound(nbytes, B, steps, mode == "mixed", mb, traversal8, want_live,
+                       "roots" in kw)
     if min(min(v) for v in times.values()) < bound[0]:
         fail(f"K1 global on {label} took {times} ms of device time, under its "
              f"bound {bound[0]} ms")
-    live = rays.tmin <= rays.tmax
     ls = steps_ref[live].double()
     K1_GLOBAL_CALLS.append(dict(
-        call_of=label, mode=mode, serving=serving, lanes=B, live=int(live.sum()),
+        call_of=label, mode=mode, serving=serving, lanes=B, live=want_live,
         roots="roots" in kw, steps=steps,
         live_steps_mean=float(ls.mean()) if ls.numel() else None,
         live_steps_p99=float(torch.quantile(ls, 0.99)) if ls.numel() else None,
@@ -2164,7 +2182,8 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
     sleeping kernel, median of 3), the plain version's time (one
     synchronised run) and the bound (the table rows the plain run fetched,
     RowFetches, once; the rays with their roots in, the outputs out; steps
-    times a node step's operations), which no call's device time may beat.
+    times a node step's operations; K1's by trav_bound, over its live
+    lanes), which no call's device time may beat.
     A K1 call on the global variant also goes through k1_global_call (both
     designs; device_ms_by_design sums their times). Emits one line per
     kernel; returns {kernel: dict}."""
@@ -2181,7 +2200,7 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
                                                       **plain_kw(kw))
             flat = lambda r: (*r[0], r[1], r[2])
             steps_of = lambda r: r[1]
-            io_bytes = B * (32 + int(mode == "mixed")) + B * 21
+            lanes = live_mask(rays, kw, traversal8)
             variant = traversal8.launch_variant(table)
         elif kind == "K2":
             top, _, V = args
@@ -2190,6 +2209,7 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
             flat = lambda r: (*r[0], *r[1:])
             steps_of = lambda r: r[5]
             io_bytes = B * 33 + B * (29 + 8 * V)
+            lanes = None
             variant = traversal8.launch_variant(top)
         else:
             slabs, _, t_prune, keys, order, V = args
@@ -2199,11 +2219,12 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
             flat = lambda r: (*r[0], *r[1:])
             steps_of = lambda r: r[1]
             io_bytes = B * 33 + B * V * 29
+            lanes = None
             variant = "global"
         got = run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with RowFetches() as fetched:
+        with RowFetches(lanes=lanes) as fetched:
             ref = plain()
             torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
@@ -2211,8 +2232,12 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
         if not ok:
             fail(f"{kind} disagrees with its plain version on {label} ({mode}, {kw.keys()})")
         steps = int(steps_of(got).sum())
-        bound = mb.bound_ms(fetched.nbytes + io_bytes + extra,
-                            steps * traversal8.NODE_STEP_FLOPS)
+        if kind == "K1":
+            bound = trav_bound(fetched.nbytes, B, steps, mode == "mixed", mb, traversal8,
+                               int(lanes.sum()), "roots" in kw)
+        else:
+            bound = mb.bound_ms(fetched.nbytes + io_bytes + extra,
+                                steps * traversal8.NODE_STEP_FLOPS)
         r = out.setdefault(kind, dict(launches=0, rays=0, live_rays=0, with_roots=0,
                                       by_mode={}, variants={}, err=0.0, steps=0,
                                       ms=0.0, device_ms=0.0, plain_ms=0.0,
@@ -2285,6 +2310,7 @@ def instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmo
             finite(img, "instanced golden")
         rels.append(float(np.abs(imgs[0] - imgs[1]).mean() / max(imgs[1].mean(), 1e-9)))
     c = counts()
+    K1_THREAD_LAUNCHES["instanced golden"] = c["K1_by_design"]["thread"]
     g_rel = golden_rel(imgs[0], "instanced_48_pt.npz")
     emit(phase="inst_golden", size=48, max_depth=4, passes=INST_GOLDEN_PASSES,
          golden_rel_err=g_rel, golden_limit=0.02, card_vs_cpu_rel_err=max(rels),
@@ -2378,6 +2404,7 @@ def instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmo
         r0 = instanced.host_reads
         secs, rays_n = timed_passes(tr, INST_PASSES)
         c = counts()
+        K1_THREAD_LAUNCHES[f"bench instanced PT ({mode})"] = c["K1_by_design"]["thread"]
         img = filmmod.develop(tr.film).cpu().numpy()
         finite(img, f"bench instanced ({mode})")
         capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
@@ -2457,6 +2484,7 @@ def instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmo
     r0 = instanced.host_reads
     secs, rays_n = timed_passes(tr, GRID_PASSES)
     c = counts()
+    K1_THREAD_LAUNCHES["grid PT"] = c["K1_by_design"]["thread"]
     reads = instanced.host_reads - r0
     dropped = int(instanced.dropped_visits)
     img = filmmod.develop(tr.film).cpu().numpy()
@@ -2855,6 +2883,7 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
         capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
         if capped or overflowed or c["plain"] or c["K4"]:
             fail(f"{what}: capped {capped}, overflowed {overflowed}, counts {c}")
+        K1_THREAD_LAUNCHES[f"loader {what}"] = c["K1_by_design"]["thread"]
         return tr, img, dict(seconds_per_pass=statistics.median(secs), pass_seconds=secs,
                              live_rays=int(sum(rays_n)),
                              mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
@@ -2896,6 +2925,7 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
             fail(f"the loaded Cornell AOV {mode} is not finite and non-zero")
         aov[mode] = dict(seconds=secs[0], launches=c["K1"],
                          mrays_per_s=LOADER_SIZE ** 2 / secs[0] / 1e6)
+        K1_THREAD_LAUNCHES[f"loader cornell.xml AOV {mode}"] = c["K1_by_design"]["thread"]
         if c["K1"] != 1 or c["K1_by_variant"][variant] != 1 or c["K2_by_v"].get(3) \
                 or c["plain"]:
             fail(f"the loaded Cornell AOV took the wrong kernels: {c}")
@@ -3444,10 +3474,11 @@ def main():
         def plain(kw):
             h, st, fl = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
             return (*h, st, fl), st, fl
+        live = int(live_mask(rays, {}, traversal8).sum())
         return check_variants(
             "K1", run, plain, modes_, variants,
             bound=lambda steps, nb: trav_bound(nb, rays.o.shape[0], steps,
-                                               True, mb, traversal8),
+                                               True, mb, traversal8, live),
             scene=label, rays=rays.o.shape[0], rows=table.shape[0],
             shared_bytes=table.shape[0] * traversal8.ROW_BYTES,
             rule=traversal8.launch_variant(table))
@@ -3915,10 +3946,12 @@ def main():
                 # visits did not overflow has tmax -1 and takes one step
                 fb = Rays(sm_rays.o, sm_rays.d, sm_rays.tmin,
                           torch.where(tk[1], tk[0].t, -1.0))
+                # (the probe's group designs timed here alone, at V=3)
                 kernel_ms["K1_fallback", V] = k1_global_call(
                     f"san_miguel_fallback_V{V}", wide, fb,
                     dict(any_mask=sm_mask, _design=traversal8.FALLBACK_DESIGN),
-                    traversal8, mb, k1_run_design)
+                    traversal8, mb, k1_run_design,
+                    sweep=V == traversal8.V_INCOHERENT)
                 # K4 on the same batch: its per-lane refill against K1's
                 # one thread per ray, identical on every field
                 k4_fallback[V] = check_pool(f"san_miguel_fallback_V{V}", wide, fb,
@@ -3953,9 +3986,11 @@ def main():
         t128 = pathmod.PathTracer(sc, 128, 128, max_depth=5)
         imgs.append(t128.render(4).cpu().numpy())
         counts.append(dict(k1=K1.launches, k2=K2.launches, k3=K3.launches,
+                           k1_by_design=dict(K1.launches_by_design),
                            k2_by_v=dict(K2.launches_by_v),
                            k3_by_v=dict(K3.launches_by_v), plain=plain_calls(),
                            ovf=[int(x) for x in t128._ovf_dev.tolist()]))
+    K1_THREAD_LAUNCHES["San Miguel 128 K1 alone"] = counts[1]["k1_by_design"]["thread"]
     rel = float(np.abs(imgs[0] - imgs[1]).mean() / max(imgs[1].mean(), 1e-6))
     emit(phase="sm_image", size=128, max_depth=5, passes=4, rel_err=rel,
          limit=1e-3, treelet_run=counts[0], k1_only_run=counts[1],
@@ -4005,6 +4040,35 @@ def main():
             or sm_by_variant["K1"]["global"] != K1.launches
             or K1.launches_by_design["group"] != K1.launches):
         fail(f"San Miguel launches by variant: {sm_by_variant}")
+
+    # one more pass recorded: each of its K1 fallback calls (chunk by chunk,
+    # the camera rays, four bounces merged with the last shadow rays, the
+    # shadow flush) in both designs, so that the design this path takes is
+    # backed by its own batches' live lanes and times
+    per_chunk = tr.max_depth + 1
+    pt_calls = record_k1(tr.do_pass, traversal8, Rays)
+    if len(pt_calls) != tr._n_chunks * per_chunk:
+        fail(f"a San Miguel pass made {len(pt_calls)} K1 calls, not "
+             f"{tr._n_chunks} x {per_chunk}")
+    pt_fallback = {}
+    for i, (table, rays, kw) in enumerate(pt_calls):
+        res = k1_global_call(f"san_miguel_pt_chunk{i // per_chunk}_trace{i % per_chunk}",
+                             table, rays, kw, traversal8, mb, k1_run_design)
+        c = K1_GLOBAL_CALLS[-1]
+        r = pt_fallback.setdefault(f"trace{i % per_chunk}", dict(
+            calls=0, mode=c["mode"], lanes=0, live=0, live_steps_max=0,
+            bound_ms=0.0, device_ms={"thread": 0.0, "group": 0.0}))
+        r["calls"] += 1
+        r["lanes"] += c["lanes"]
+        r["live"] += c["live"]
+        r["live_steps_max"] = max(r["live_steps_max"], c["live_steps_max"])
+        r["bound_ms"] += c["bound_ms"]
+        for design in r["device_ms"]:
+            r["device_ms"][design] += res["designs"][design]
+    emit(phase="sm_pt_fallback", calls=len(pt_calls), by_trace=pt_fallback,
+         device_ms={d: sum(r["device_ms"][d] for r in pt_fallback.values())
+                    for d in ("thread", "group")})
+    del pt_calls
 
     if PROFILE:
         profile_pass(tr, "san_miguel_stand_in")
@@ -4151,12 +4215,13 @@ def main():
              fallback_by_v={f"V{V}": dict(brief(kernel_ms["K1_fallback", V]),
                                           designs=kernel_ms["K1_fallback", V]["designs"])
                             for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)},
-             by_tracer=sm_by_tracer("K1", "K1_fallback")),
+             by_tracer=dict(sm_by_tracer("K1", "K1_fallback"),
+                            san_miguel_pt=pt_fallback)),
         vrow("traverse8_kernel", "traversal8.cu",
              "cudatracerlib_tpu/ops/traversal_pl.py:188",
-             loader_res["loader_cornell"]["launches"]["K1_by_design"]["thread"],
+             sum(K1_THREAD_LAUNCHES.values()),
              max_err(k1_sm, None), k1_sm["mixed", None], variant="global",
-             design="thread",
+             design="thread", launches_by_run=dict(K1_THREAD_LAUNCHES),
              fallback_by_v={f"V{V}": dict(
                  device_ms=kernel_ms["K1_fallback", V]["designs"]["thread"])
                  for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)},

@@ -29,6 +29,10 @@
 //   shared memory, every row from device memory (the schedule's own cost).
 // Their chunk size, fewest visits of a staged segment and a stage-only
 // switch are given at run time, so that one call can time other choices.
+// K1's global variant's group design (traverse8_group_kernel, 16 lanes a
+// live ray) is measured against the same kernel with 8 or 32 lanes a ray,
+// and with 16 lanes and an L2 prefetch of each node step's eligible
+// children (L2Prefetch).
 // All compute what the kept kernels compute, bit for bit.
 
 #include <cooperative_groups.h>
@@ -56,6 +60,24 @@ struct SharedStack {
 
   __device__ __forceinline__ int& operator[](int k) const {
     return base[k * kPersistThreads];
+  }
+};
+
+// The group design's hint that asks L2 for the row an eligible child's
+// link points to (a node: its boxes and links, 224 bytes; a leaf: its
+// triangles, 480 bytes), so that a later step that descends there finds
+// it on chip.
+struct L2Prefetch {
+  static __device__ __forceinline__ void child(const float* __restrict__ table,
+                                               int n_rows, int link) {
+    const int row = min(max(link >= 0 ? link : -2 - link, 0), n_rows - 1);
+    const float* p = table + (size_t)row * 128;
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 32));
+    if (link < 0) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 64));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 96));
+    }
   }
 };
 
@@ -421,29 +443,23 @@ extern "C" int ctl_probe_traverse8(
                        steps_out, flags_out);
 }
 
-// ctl_traverse8's arguments for K1's global variant in the group design
-// with `lanes` (8, 16 or 32) lanes a live ray, and with `prefetch` a node
-// step's L2 prefetch of its eligible children's rows, in place of the
-// variant; work: the design's work area (kWork + n_rays int32), counting
-// in its set `set`. Returns a CUDA error code, or -1 for another lane
-// count.
+// ctl_traverse8's arguments for K1's global variant in the group design,
+// with `design` in place of the variant: 0, 8 lanes a live ray; 1, 32
+// lanes; 2, 16 lanes (as kept) and L2Prefetch. work: the design's work
+// area (kWork + n_rays int32), counting in its set `set`. Returns a CUDA
+// error code, or -1 for another design or set.
 extern "C" int ctl_probe_traverse8_group(
     const float* table, int n_rows, const float* o, const float* d,
     const float* tmin, const float* tmax, const int* roots,
     const uint8_t* any_mask, int n_rays, int any_hit, int stack_depth,
     int max_iters, float* t_out, int* tri_out, float* u_out, float* v_out,
-    int* steps_out, uint8_t* flags_out, int* work, int set, int lanes,
-    int prefetch, void* stream) {
-  if ((lanes != 8 && lanes != 16 && lanes != 32) || set < 0 || set > 1) {
-    return -1;
-  }
+    int* steps_out, uint8_t* flags_out, int* work, int set, int design,
+    void* stream) {
+  if (design < 0 || design > 2 || set < 0 || set > 1) return -1;
   if (n_rays <= 0) return (int)cudaGetLastError();
-  auto launch = lanes == 8    ? (prefetch ? launch_group<8, true>
-                                          : launch_group<8, false>)
-                : lanes == 16 ? (prefetch ? launch_group<16, true>
-                                          : launch_group<16, false>)
-                              : (prefetch ? launch_group<32, true>
-                                          : launch_group<32, false>);
+  auto launch = design == 0   ? launch_group<8>
+                : design == 1 ? launch_group<32>
+                              : launch_group<16, L2Prefetch>;
   return launch(reinterpret_cast<const float4*>(table), n_rows, o, d, tmin,
                 tmax, roots, any_mask, n_rays, any_hit, stack_depth,
                 max_iters, t_out, tri_out, u_out, v_out, steps_out,

@@ -40,19 +40,20 @@
 //
 // What bounds them on this card (H100 80GB HBM3, 700.00 W; PERF.md):
 // - the fallback: the chain of its slowest live ray, one dependent row
-//   fetch a step from a table twice the L2. PR 1's per-thread design took
+//   fetch a step from a table twice the L2. The per-thread design took
 //   0.8-3.0x the chain floor (the largest live steps times P1's 1.3 us a
-//   dependent row): 0.29 ms for a 262,144-lane batch with 13,236 live
+//   dependent row): 0.28 ms for a 262,144-lane batch with 13,236 live
 //   rays of up to 129 steps, most of it one thread issuing a node's 14 or
 //   a leaf's 30 LDG.128 and 8 slab or 12 Moller-Trumbore tests one after
-//   the other. The group design takes 0.12 ms there (0.089 against 0.14
-//   at 985 live rays, 0.12-0.13 against 0.29-0.30 on 1,048,576 camera
-//   lanes): its step is a few coalesced loads, one test a lane and 3-4
-//   shuffle rounds, and the dead lanes cost a read of tmin and tmax. It
-//   costs ~3 us more a launch than the per-thread design where no lane is
-//   live (classify, wait, drain); 16 lanes a ray beat 8 and 32 on most
-//   batches, and an L2 prefetch of each node step's eligible children did
-//   not pay (csrc/schedule_probe.cu).
+//   the other. The group design takes 0.12 ms there (0.093 against 0.14
+//   at 985 live rays, 0.12-0.13 against 0.30 on 1,048,576 camera lanes,
+//   4.0 against 8.1 ms over the 48 fallback calls of a San Miguel PT
+//   pass): its step is a few coalesced loads, one test a lane and 3-4
+//   shuffle rounds, and the dead lanes cost a read of tmin and tmax.
+//   Where no lane is live it costs 1-4 us more a launch than the
+//   per-thread design (classify, wait, drain). 16 lanes a ray beat 8 and
+//   32, and an L2 prefetch of each node step's eligible children did not
+//   pay (csrc/schedule_probe.cu).
 // - dense tables: the instruction stream under divergence. A warp runs its
 //   node-step lanes and its leaf-step lanes one after the other and waits
 //   for its slowest ray; with a Cornell-class table in L1 the global and
@@ -89,10 +90,9 @@ constexpr int kInput = 0, kTail = 32, kHead = 64, kClassified = 96;
 constexpr int kSet = 128, kWork = 256;
 // rays a warp claims at a time to classify, kChunk / 32 a lane
 constexpr int kChunk = 256;
-// lanes a live ray of the group design, and whether a node step prefetches
-// its eligible children's rows into L2
+// lanes a live ray of the group design (csrc/schedule_probe.cu times 8 and
+// 32)
 constexpr int kGroupLanes = 16;
-constexpr bool kGroupPrefetch = false;
 
 // Ray i from its root to its hit, from the row source `Rows` on `stack`.
 template <class Rows, class Stack>
@@ -210,20 +210,11 @@ __device__ __forceinline__ void key_min(float& t, int& k, float ot, int ok) {
   }
 }
 
-// Asks L2 for the row a link points to (a node child: its boxes and links,
-// 224 bytes; a leaf: its triangles, 480 bytes), so that a later step that
-// descends there finds it on chip.
-__device__ __forceinline__ void prefetch_row(const float* __restrict__ table,
-                                             int n_rows, int link) {
-  const int row = min(max(link >= 0 ? link : -2 - link, 0), n_rows - 1);
-  const float* p = table + (size_t)row * 128;
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 32));
-  if (link < 0) {
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 64));
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + 96));
-  }
-}
+// What a node step does with each eligible child's link besides taking or
+// stacking it: nothing here (csrc/schedule_probe.cu times an L2 prefetch).
+struct NoHint {
+  static __device__ __forceinline__ void child(const float*, int, int) {}
+};
 
 // The (t, index) key least over the lanes `span` apart and closer within
 // a group of G lanes (span a power of two, below G).
@@ -243,8 +234,10 @@ __device__ __forceinline__ void group_key_min(unsigned gmask, int span,
 // traverse() of bvh8_traverse.cuh, each step's row shared by the group.
 // - node step: lane gl tests child gl & 7 (lanes 8 and up repeat lanes
 //   0-7), and the group takes the least (tn, child) key among the eligible
-//   children with tn < inf, as step()'s strict-< scan does;
-// - leaf step: lane gl tests triangle gl & 15 (G = 8: gl and gl + 8), and
+//   children with tn < inf, as step()'s strict-< scan does; Hint::child
+//   sees each eligible child's link;
+// - leaf step: lane gl tests triangles gl % kTri, gl % kTri + kTri, ...
+//   below 12 (kTri = min(G, 16): lanes 16 and up repeat lanes 0-15), and
 //   the group takes the least (t, triangle) key, step()'s scan again;
 // - the ring stack is spread over the group: entry p in lane p % G, slot
 //   p / G of its registers; every lane keeps the top, the fill, the step
@@ -252,12 +245,13 @@ __device__ __forceinline__ void group_key_min(unsigned gmask, int span,
 // Each lane reads only the words of its child or triangle, so a node
 // step's 8 lanes read the 224 bytes of boxes and links in 7 coalesced
 // loads, a leaf step's 12 the 480 bytes of triangles in 10.
-template <int G, bool kPrefetch>
+template <int G, class Hint>
 __device__ __forceinline__ void group_traverse(
     const float* __restrict__ table, int n_rows, const Ray& r, int cur,
     bool anyh, int stack_depth, int max_iters, unsigned gmask, int gl,
     Best& b, int& steps, uint8_t& flags) {
   constexpr int kSlots = kMaxStack / G;
+  constexpr int kTri = G < 16 ? G : 16;
   const float kInf = __int_as_float(0x7f800000);
   int stk[kSlots] = {};
   int pos = 0, n = 0;
@@ -277,7 +271,7 @@ __device__ __forceinline__ void group_traverse(
       int link;
       child_test(row, j, r, b.t, tn, tf, link);
       const bool elig = (tn <= tf) && link != kDone && ((cur >> j) & 1);
-      if (kPrefetch && elig && gl < 8) prefetch_row(table, n_rows, link);
+      if (elig && gl < 8) Hint::child(table, n_rows, link);
       const unsigned eb = __ballot_sync(gmask, elig);
       float best_t = elig && tn < kInf ? tn : kInf;
       int best_j = elig && tn < kInf ? j : 8;
@@ -306,20 +300,17 @@ __device__ __forceinline__ void group_traverse(
     } else {
       float hit_t = kInf, hu = 0.0f, hv = 0.0f;
       int hit_m = 16, hid = -1;
-      const int m = G >= 16 ? (gl & 15) : gl;
-      float t, u, v;
-      int id;
-      if (m < 12 && tri_test(row, m, r, b.t, t, u, v, id)) {
-        hit_t = t, hit_m = m, hu = u, hv = v, hid = id;
-      }
-      if (G == 8 && m < 4 && tri_test(row, m + 8, r, b.t, t, u, v, id) &&
-          t < hit_t) {
-        hit_t = t, hit_m = m + 8, hu = u, hv = v, hid = id;
+      for (int m = gl % kTri; m < 12; m += kTri) {
+        float t, u, v;
+        int id;
+        if (tri_test(row, m, r, b.t, t, u, v, id) && t < hit_t) {
+          hit_t = t, hit_m = m, hu = u, hv = v, hid = id;
+        }
       }
       float best_t = hit_t;
       int best_m = hit_m;
-      group_key_min<G>(gmask, G >= 16 ? 8 : 4, best_t, best_m);
-      const int src = G >= 16 ? (best_m & 15) : (best_m & 7);
+      group_key_min<G>(gmask, kTri / 2, best_t, best_m);
+      const int src = best_m % kTri;
       hid = __shfl_sync(gmask, hid, src, G);
       hu = __shfl_sync(gmask, hu, src, G);
       hv = __shfl_sync(gmask, hv, src, G);
@@ -380,7 +371,7 @@ __device__ __forceinline__ int load_acquire(const int* p) {
 //    launch ends whatever the grid's residency.
 // counts: this launch's counter set (zero); next: the other set, zeroed
 // here for the next launch.
-template <int G, bool kPrefetch>
+template <int G, class Hint>
 __global__ void __launch_bounds__(kThreads)
 traverse8_group_kernel(CTL_K1_PARAMS, int* __restrict__ work,
                        int* __restrict__ next, int* __restrict__ queue) {
@@ -455,7 +446,7 @@ traverse8_group_kernel(CTL_K1_PARAMS, int* __restrict__ work,
     Best b{tmax[ray], -1, 0.0f, 0.0f};
     int steps = 0;
     uint8_t flags = 0;
-    group_traverse<G, kPrefetch>(
+    group_traverse<G, Hint>(
         reinterpret_cast<const float*>(table), n_rows, r,
         ((roots != nullptr ? roots[ray] : 0) << 8) | 0xFF, anyh, stack_depth,
         max_iters, gmask, gl, b, steps, flags);
@@ -470,11 +461,12 @@ traverse8_group_kernel(CTL_K1_PARAMS, int* __restrict__ work,
   }
 }
 
-// Launches the group design with G lanes a ray on a persistent grid: as
+// Launches the group design with G lanes a ray (and Hint) on a persistent
+// grid: as
 // many 128-thread blocks as fit on every SM at once (kept for each
 // device), no more than one thread a ray needs, counting in `work`'s
 // counter set `set` (0 or 1), which must be zero.
-template <int G, bool kPrefetch>
+template <int G, class Hint = NoHint>
 int launch_group(const float4* table, int n_rows, const float* o,
                  const float* d, const float* tmin, const float* tmax,
                  const int* roots, const uint8_t* any_mask, int n_rays,
@@ -489,11 +481,11 @@ int launch_group(const float4* table, int n_rows, const float* o,
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, traverse8_group_kernel<G, kPrefetch>, kThreads, 0);
+        &per_sm, traverse8_group_kernel<G, Hint>, kThreads, 0);
     grid[dev] = per_sm * sms > 0 ? per_sm * sms : 1;
   }
   const int need = (n_rays + kThreads - 1) / kThreads;
-  traverse8_group_kernel<G, kPrefetch>
+  traverse8_group_kernel<G, Hint>
       <<<need < grid[dev] ? need : grid[dev], kThreads, 0, s>>>(
       table, n_rows, o, d, tmin, tmax, roots, any_mask, n_rays, any_hit,
       stack_depth, max_iters, t_out, tri_out, u_out, v_out, steps_out,
@@ -530,7 +522,7 @@ extern "C" int ctl_traverse8(const float* table, int n_rows, const float* o,
     return (int)cudaGetLastError();
   }
   if (variant >= 2) {
-    return launch_group<kGroupLanes, kGroupPrefetch>(
+    return launch_group<kGroupLanes>(
         t4, n_rows, o, d, tmin, tmax, roots, any_mask, n_rays, any_hit,
         stack_depth, max_iters, t_out, tri_out, u_out, v_out, steps_out,
         flags_out, scratch, variant - 2, s);

@@ -65,14 +65,13 @@ SHARED_THREADS = 512
 VARIANTS = {"global": 0, "shared": 1}
 # the designs of K1's global variant: "thread", one thread per ray; "group",
 # dead lanes written without a row read and live rays drained from a queue
-# by groups of GROUP_LANES lanes (csrc/traversal8.cu); the C entry's codes
+# by groups of 16 lanes (csrc/traversal8.cu); the C entry's codes
 # for the group design counting in set 0 or 1 of its work area: GROUP_WORK
 # int32 words of two counter sets (a launch counts in one, zero, and zeroes
 # the other; set 0's counters at GROUP_COUNTERS: rays claimed in chunks,
 # live rays, queue claims, rays classified), then one queue slot per ray
 GLOBAL_DESIGNS = ("thread", "group")
 GROUP_CODE = 2
-GROUP_LANES = 16
 GROUP_WORK = 256
 GROUP_COUNTERS = (0, 32, 64, 96)
 # the design K1's global variant takes on the flat treelet path's fallback

@@ -11,10 +11,10 @@ change one thing:
 - ``"smem_stack"``: each thread's ring stack in shared memory after the
   table.
 
-``traverse8_group`` runs K1's global variant in the group design with 8,
-16 or 32 lanes a live ray, with or without an L2 prefetch of each node
-step's eligible children (the kept kernel takes ``GROUP_LANES`` of
-``ops/traversal8.py`` and no prefetch), so that one call can time them.
+``traverse8_group`` runs K1's global variant in the group design with 8
+or 32 lanes a live ray, or with the kept 16 and an L2 prefetch of each
+node step's eligible children (``GROUP_DESIGNS``), so that one call can
+time them against the kept kernel.
 
 K3's stage each treelet slab on chip for the visits that share it, with
 K3's per-slot code: a persistent grid of 512-thread blocks, one per SM,
@@ -49,9 +49,10 @@ from ..ops.traversal import Rays
 from ..scene.treelet import VID_ROOT_BITS
 
 DESIGNS = {"stride": 0, "smem_stack": 1}
-# the lanes a live ray the group design of K1's global variant is built
-# for; the kept kernel takes traversal8.GROUP_LANES
-GROUP_LANES = (8, 16, 32)
+# the group design of K1's global variant as measured against the kept
+# one (16 lanes a live ray): 8 or 32 lanes, or 16 with an L2 prefetch of
+# each node step's eligible children
+GROUP_DESIGNS = {"g8": 0, "g32": 1, "g16p": 2}
 K3_DESIGNS = {"cluster": 0, "split": 1, "walk": 2}
 CLUSTER_MAX = 8    # the largest cluster the cluster design is built for
 # the K3 designs' chunk of sorted slots and fewest visits of a staged
@@ -84,18 +85,16 @@ def traverse8(table, rays: Rays, design: str, any_hit: bool = False,
     return traversal8._wide_result(err, out, with_iters)
 
 
-def traverse8_group(table, rays: Rays, lanes: int, prefetch: bool = False,
-                    any_hit: bool = False,
+def traverse8_group(table, rays: Rays, design: str, any_hit: bool = False,
                     stack_depth: int = traversal8.STACK_DEPTH,
                     max_iters: int = traversal8.MAX_ITERS, roots=None,
                     with_iters: bool = False, any_mask=None, _scratch=None):
-    """K1's global variant in the group design with `lanes` (``GROUP_LANES``)
-    lanes a live ray, and with `prefetch` each node step's L2 prefetch of
-    its eligible children's rows: the outputs of ``intersect_wide_cuda``,
-    on the stream's work area (``traversal8.stream_group_work``) or on
-    `_scratch`, a new one (``traversal8.group_work``)."""
-    if lanes not in GROUP_LANES:
-        raise ValueError(f"no group of {lanes} lanes: one of {GROUP_LANES}")
+    """K1's global variant in the group design `design` (``GROUP_DESIGNS``):
+    the outputs of ``intersect_wide_cuda``, on the stream's work area
+    (``traversal8.stream_group_work``) or on `_scratch`, a new one
+    (``traversal8.group_work``)."""
+    if design not in GROUP_DESIGNS:
+        raise ValueError(f"no group design {design!r}: one of {list(GROUP_DESIGNS)}")
     args, out = traversal8._wide_args(table, rays, any_hit, stack_depth,
                                       max_iters, roots, any_mask)
     B = rays.o.shape[0]
@@ -107,9 +106,9 @@ def traverse8_group(table, rays: Rays, lanes: int, prefetch: bool = False,
                             (traversal8.GROUP_WORK + B,), table.device)
     fn = _lib().ctl_probe_traverse8_group
     fn.argtypes = traversal8._WIDE_ARGTYPES + [ctypes.c_void_p] \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*args, traversal8._ptr(work), count_set, lanes, int(bool(prefetch)),
+    err = fn(*args, traversal8._ptr(work), count_set, GROUP_DESIGNS[design],
              traversal8._stream(table.device))
     return traversal8._wide_result(err, out, with_iters)
 

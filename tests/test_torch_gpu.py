@@ -238,15 +238,15 @@ def test_table_variants_match_plain_on_gpu(dev):
 def test_k1_global_design_matches_plain_on_gpu(dev):
     """K1's global variant in both designs (one thread per ray; dead lanes
     written without a row read and live rays from a queue, one group of
-    lanes each: 32 as kept, 8 and 16 through utils/schedule_probe.py)
+    lanes each: 16 as kept, 8 and 32 through utils/schedule_probe.py)
     against the plain version, closest / any-hit / mixed, on the
     20,000-triangle San Miguel table (global by the size rule), on
     chip_smoke.py's edge batches: every lane dead, one live lane in 65,536,
     NaN tmin or tmax, tmin = tmax = 0, a 2-entry stack that overflows, a
     5-step and a 0-step cap, one ray, per-lane roots with half the lanes
     dead. The group design's live count equals the plain model's
-    (traversal8.live_lanes); the probe's designs run with and without the
-    L2 prefetch of eligible children. Then the treelet path's fallback takes
+    (traversal8.live_lanes); the probe also runs 16 lanes with an L2
+    prefetch of eligible children. Then the treelet path's fallback takes
     the group design."""
     import chip_smoke
     r = np.random.default_rng(13)

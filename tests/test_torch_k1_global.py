@@ -172,19 +172,19 @@ def test_live_model(what):
 
 def test_design_argument_checks(sm):
     """`_design` is checked before the tensors' device; the group design's
-    names; the probe's lane counts; CPU tensors never reach a kernel."""
+    names; the probe's group designs; CPU tensors never reach a kernel."""
     rays = Rays(torch.from_numpy(sm["o"]), torch.from_numpy(sm["d"]),
                 torch.full((N_RAYS,), 1e-4), torch.full((N_RAYS,), 1e9))
     with pytest.raises(ValueError, match="no design 'warp'"):
         traversal8.intersect_wide_cuda(sm["table"], rays, _design="warp")
     with pytest.raises(ValueError, match="CUDA tensor"):
         traversal8.intersect_wide_cuda(sm["table"], rays, _design="group")
-    with pytest.raises(ValueError, match="no group of 12 lanes"):
-        schedule_probe.traverse8_group(sm["table"], rays, 12)
+    with pytest.raises(ValueError, match="no group design 'g12'"):
+        schedule_probe.traverse8_group(sm["table"], rays, "g12")
     assert traversal8.GLOBAL_DESIGNS == ("thread", "group")
     assert traversal8.FALLBACK_DESIGN == "group"
     assert set(traversal8.intersect_wide_cuda.launches_by_design) == {"thread", "group"}
-    assert traversal8.GROUP_LANES in schedule_probe.GROUP_LANES
+    assert list(schedule_probe.GROUP_DESIGNS) == ["g8", "g32", "g16p"]
     work = traversal8.group_work(5, "cpu")
     assert work.dtype == torch.int32 and work.shape == (traversal8.GROUP_WORK + 5,)
     assert not work.any()   # a new work area's counters start at zero
