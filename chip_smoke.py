@@ -40,16 +40,21 @@ failure exits non-zero, and nothing falls back to the CPU:
    kernels are built with -fmad=false, so both round op for op); each
    variant timed by the median of 5 synchronised runs and, mixed, by its
    device time (CUDA events queued behind a sleeping kernel, so the host's
-   launch cost falls outside). K4 on the same rays in the same
-   modes: identical to K1 and to the plain version, and again on the rays
-   shuffled (results un-shuffled after); timed as K1's variants;
+   launch cost falls outside). pool_vs_k1 on the same rays (below);
 3. PathTracer on Cornell 32^2, depth 4, 16 passes against
    tests/goldens/cornell_32_pt.npz (mean relative error < 0.02);
 4. the Cornell headline: PathTracer on Cornell 512^2, max_depth 6, chunks
-   of 65,536 lanes, 4 passes, through K1 alone, every launch shared;
-4a. veach-mis (2,164 triangles, 331 rows): K1's variants, and K4 against K1
-   and the plain version, on 65,536 camera rays plus 65,536 random rays, as
-   in phase 2; the shared variant's prologue from the device times of both
+   of 65,536 lanes, 4 passes, through K1 alone, every launch shared; then
+   pool_vs_k1 on every K1 call of one more pass;
+4a. veach-mis (2,164 triangles, 331 rows): K1's variants, and pool_vs_k1,
+   on 65,536 camera rays plus 65,536 random rays, as in phase 2;
+   pool_vs_k1 on tools/microbench_pool.py's four wavefronts (131,072
+   camera, bounce, bounce with 40% at tmax 0, shadow rays; and the cut
+   bounce set with those 40% at tmax -1, dead), each with the utilization
+   of K4's schedule model (schedule_probe.pool_model) beside K4's count,
+   and the bounce set again at 1,048,576 rays,
+   and on K1's edge batches (one live lane in 65,536) through every K4
+   design; the shared variant's prologue from the device times of both
    variants on one ray and on one dead ray per thread of a full grid;
 4b. the veach anchor: veach_mis_anchor(48, 48), depth 8, rr_depth 4, NEE,
    256 spp as 16 passes of spp_per_pass=16, through K1; RMSE against the
@@ -59,7 +64,8 @@ failure exits non-zero, and nothing falls back to the CPU:
 4c. the veach-mis headline: 512^2, depth 5, chunks of 65,536 lanes, NEE
    with MIS, 8 passes after a warm-up pass, counts zeroed around them: K1
    (all shared) and nothing else, 0 plain calls, 0 capped or overflowed
-   rays, a finite non-black film;
+   rays, a finite non-black film; then pool_vs_k1 on every K1 call of
+   one more pass;
 4d-4f. the light-path slice (light_path_phases): the PrimTracer headline
    (Cornell 512^2, shading normals), the BDPT and light-tracer headlines
    (the glass Cornell box 256^2, depth 6) with K1's launches per pass by
@@ -124,11 +130,9 @@ failure exits non-zero, and nothing falls back to the CPU:
    against the model, visits per staged segment, the share of valid
    visits left unstaged); K1 on the exact path's
    fallback batch (tmax -1 on every ray whose visits did not overflow,
-   mixed) identical to its plain version and timed, and K4 on the same
-   batch against K1 and the plain version as in phase 2 (K4 is on no
-   render path; this sizes up its per-lane refill where few lanes of a
-   warp are live), the two-phase result identical to the plain two-phase
-   result,
+   mixed) identical to its plain version and timed, and pool_vs_k1 on
+   the same batch (rows from device memory; K1's group design there too),
+   the two-phase result identical to the plain two-phase result,
    and the exact treelet path (K2 + K3 + K1 fallback) held to K1 on the
    unsplit table: t identical on every closest-hit lane, tri identical
    except on lanes where two triangles tie in t (counted and printed),
@@ -207,8 +211,9 @@ L1-L3. (loader_phases) Mitsuba files written to a temporary directory and
    K1 launch each, the variant the size rule picks for its 612 rows), the
    PT at 512^2, depth 6, chunks of 65,536, a warm-up and 4 timed passes,
    its mean within L1_MEAN_GAP of phase 4's, every K1 call of one pass held
-   to the plain version; at 32^2 the tables' rows equal on the card and
-   the CPU and the PT within CARD_CPU_LIMIT of the CPU pass by pass. L2:
+   to the plain version and put through pool_vs_k1; at 32^2 the tables'
+   rows equal on the card and the CPU and the PT within CARD_CPU_LIMIT of
+   the CPU pass by pass. L2:
    materials.xml, a 4 x 4 grid of spheres, one per BSDF type (with the
    twosided, coating, rough coating and blend adapters), a blackbody area
    light and a sun-and-sky map that must equal preetham_sky's; every type
@@ -246,12 +251,34 @@ S. (parallel_phases) multi-device rendering on a world of one rank
    --devices 1 (the PNGs within one level, a non-zero time in its log),
    and --devices 2, which must raise on one card.
 
+pool_vs_k1 (phases 2, 4, 4a, 4c, 5 and L1) holds K1 as the size rule picks
+it, K1's group design on a global table, K4 (csrc/traversal_pool.cu, both
+row sources) and the probe's K4 designs (thresholds of 1, 8 and 16 idle
+lanes, 1 or 2 fetches an iteration, and K4's first design) to the plain
+version on the same rays, every field identical, in closest, any-hit and
+mixed mode, and once on the rays shuffled; a recorded pass's calls in
+their own modes. Each design runs
+with with_util: K1's slots must equal the static schedule's of the plain
+steps; a counting kernel's lane steps must equal the steps' sum, its
+slots be a multiple of 32 and no fewer, its rays all classified, its live
+rays the plain model's (all for the first design) and the next launch's
+counters zero. One line per set (or pass), mode and design: device ms
+(CUDA events behind a sleeping kernel, twice a design, in order and
+back), slots, utilization (steps / slots), lanes, live lanes, the bound
+(trav_bound), and the card's name and power limit; pool_vs_k1_summary
+sums the natural modes' device ms by design.
+
 The kernel table comes next: one row for each variant of K1 and K2, for
-K3 and each of the probe's K3 designs, and for K4 and P1-P3, with its
+K3 and each of the probe's K3 designs, for K4's two row sources and the
+probe's K4 designs, and for P1-P3, with its
 launches on its own path (the global variant of K2 and the K3 designs
 take none on the main path, nor does K4), its time and its plain
-version's time (K1 shared on veach-mis, K1 global on the San Miguel
-fallback batch, K2 and K3 at V=3, K4 on veach-mis; the other shapes under
+version's time (K1 shared on veach-mis, with its utilization there and
+on Cornell from pool_vs_k1, K1 global on the San Miguel
+fallback batch, K2 and K3 at V=3, K4 on veach-mis (shared rows, and the
+probe's designs) and on the San Miguel fallback batch at V=3 (global
+rows), with K4's utilization, threshold and every set under by_set; the
+other shapes under
 by_scene, by_tracer (K1 shared: one pass of each tracer of 4d-4q, summed by
 mode, the adaptive and Sobol' passes among them; K1 global, K2 and K3:
 WavefrontPT's, the FastTracer's and the GameTracer's launches per pass
@@ -303,6 +330,22 @@ K3_DESIGNS = (None, "cluster", "split", "walk")
 K1_GLOBAL_DESIGNS = ("thread", "group", "g8", "g32", "g16p")
 # the lanes of the edge batch with one live lane
 K1_EDGE_BIG = 1 << 20
+# pool_vs_k1's designs: K1 as the size rule picks it ("k1"; its slots from
+# its static schedule), K1's group design on a global table ("k1_group"),
+# K4 ("k4") and the probe's K4 designs (utils/schedule_probe.POOL_DESIGNS:
+# thresholds of 1, 8 and 16 idle lanes, 1 or 2 fetches an iteration, and
+# K4's first design)
+POOL_DESIGNS = ("k1", "k1_group", "k4", "f1", "f8", "f16", "r1", "r2", "first")
+# pool_vs_k1's veach-mis wavefronts (tools/microbench_pool.py:60-100): rays,
+# and the share of bounce lanes cut to tmax 0 (live) or -1 (dead)
+POOL_RAYS = 1 << 17
+POOL_CUT = 0.4
+# the bounce set again at 8 rays a resident lane of a shared-table launch
+# (131,072 rays are ~2), where a refill has more to recover than the tail
+POOL_RAYS_BIG = 1 << 20
+# the edge batch with one live lane on a shared table (pool_vs_k1's
+# veach-mis edges; the San Miguel ones take K1_EDGE_BIG)
+POOL_EDGE_BIG = 1 << 16
 SM_HALF = 131072
 VEACH_HALF = 65536
 # the film sizes of the veach-mis and San Miguel headlines
@@ -448,11 +491,12 @@ L3_SECONDS = 60.0       # parse, build and one pass
 # instantiation (template argument: V)
 KERNEL_RE = re.compile(r"traverse8(?:_shared|_group)?_kernel"
                        r"|top_visits(?:_shared)?_kernel(?:<\d+>)?"
-                       r"|treelet_hits_kernel|traverse_pool_kernel")
+                       r"|treelet_hits_kernel|traverse_pool(?:_shared)?_kernel")
 # the kernels in a mangled SASS function name, and their template arguments
 SASS_NAME_RE = re.compile(r"(traverse8_shared_kernel|traverse8_kernel"
                           r"|top_visits_shared_kernel|top_visits_kernel"
-                          r"|treelet_hits_kernel|traverse_pool_kernel)"
+                          r"|treelet_hits_kernel|traverse_pool_shared_kernel"
+                          r"|traverse_pool_kernel)"
                           r"(I(?:L[bi]\d+E)+E)?")
 # K3's probe designs in a mangled name: the blocks of a cluster and where
 # the staged slab lives
@@ -647,47 +691,270 @@ def live_mask(rays, kw, traversal8):
                                  kw.get("roots"))
 
 
-def check_pool(scene_name, table, rays, amask, K1, K4, traversal8, Rays, seed):
-    """K4 against K1 and the plain version in the three modes, then on the
-    rays shuffled and un-shuffled after; every field must be identical.
-    Emits one line per mode; returns {mode: (err, k4 ms, k1 ms, plain ms,
-    steps)}."""
+# every pool_vs_k1 reading: one record per set or pass, mode and design,
+# for the summary and the kernel table at the end
+POOL_VS_K1 = []
+
+
+def pool_runner(K1, K4, traversal8):
+    """run(design, table, rays, kw, counts=False) -> (hit, steps, flags,
+    slots, work): a pool_vs_k1 design (POOL_DESIGNS) with with_util. With
+    `counts` a design whose kernel counts its own slots runs on a new work
+    area and returns it, to read its counters; else (timed runs) on the
+    stream's, and work is None."""
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
+
+    def run(design, table, rays, kw, counts=False):
+        kw = plain_kw(kw)
+        queue = design == "k1_group"
+        work = (traversal8.group_work(rays.o.shape[0] if queue else 0, table.device)
+                if counts and design != "k1" else None)
+        if design == "k1":
+            res = K1(table, rays, with_iters=True, with_util=True, **kw)
+        elif queue:
+            res = K1(table, rays, with_iters=True, with_util=True, _variant="global",
+                     _design="group", _scratch=work, **kw)
+        elif design == "k4":
+            res = K4(table, rays, with_iters=True, with_util=True, _scratch=work, **kw)
+        else:
+            res = probe.traverse_pool(table, rays, design, with_iters=True,
+                                      with_util=True, _scratch=work, **kw)
+        return (*res, work)
+    return run
+
+
+def pool_timed(design, table, rays, kw, K1, K4, traversal8):
+    """A call of `design` as a render path would make it (no step sums, no
+    slots, the stream's work area), for timing."""
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
+    kw = plain_kw(kw)
+    if design == "k1":
+        return lambda: K1(table, rays, **kw)
+    if design == "k1_group":
+        return lambda: K1(table, rays, _variant="global", _design="group", **kw)
+    if design == "k4":
+        return lambda: K4(table, rays, **kw)
+    return lambda: probe.traverse_pool(table, rays, design, **kw)
+
+
+def check_pool_design(what, design, got, ref, want_live, traversal8):
+    """One pool_vs_k1 design's run against the plain version's `ref` (hit,
+    steps, flags, slots): every field identical; K1's slots the plain
+    version's (its static schedule); a counting kernel's lane steps equal
+    to the steps' sum, its slots a multiple of 32 and no fewer, the rays it
+    classified all of them, its live rays the plain model's (every ray
+    for the first design, which steps the dead ones) and the next launch's
+    counters left zero. Returns (max abs err, slots, lane steps)."""
+    h, st, fl, slots, work = got
+    ok, err = same((*h, st, fl), (*ref[0], ref[1], ref[2]))
+    steps = int(ref[1].sum())
+    active = counts = None
+    if work is None:
+        good = int(slots) == int(ref[3])
+    else:
+        active = int(traversal8.work_util(work)[1])
+        counts = [int(work[k]) for k in traversal8.GROUP_COUNTERS]
+        B = st.shape[0]
+        good = (active == steps and int(slots) % 32 == 0 and int(slots) >= steps
+                and int(slots) == int(traversal8.work_util(work)[0])
+                and counts[3] == B
+                and counts[1] == (B if design == "first" else want_live)
+                and not left_counting(work, traversal8))
+    if not (ok and good):
+        fail(f"{design} on {what}: identical {ok}, slots {int(slots)} "
+             f"(plain model {int(ref[3])}), lane steps {active} against "
+             f"{steps} steps, counters {counts}, live {want_live}")
+    return err, int(slots), active if active is not None else steps
+
+
+def pool_vs_k1(label, table, rays, modes, K1, K4, traversal8, mb, card,
+               shuffle_seed=None, timed=(), reps=10, quiet=False):
+    """pool_vs_k1 on one set of rays: each design of POOL_DESIGNS that the
+    table takes ("k1_group" on a global table only) in each mode of
+    `modes` ({mode: kw}) against the plain version (check_pool_design),
+    and with `shuffle_seed` once more on the rays shuffled (the first mode;
+    results un-shuffled). Device time (device_ms, `reps` launches) twice a
+    design, in the order of POOL_DESIGNS and back; the host time of the
+    modes in `timed` (CUDA-synchronised median of 5) and the plain
+    version's there. Emits one line per mode and design unless `quiet`;
+    returns {(mode, design): dict(lanes, live, steps, slots, util,
+    device_ms, ms, plain_ms, bound_ms, err)}."""
     B = rays.o.shape[0]
-    dev = table.device
-    perm = torch.from_numpy(np.random.default_rng(seed).permutation(B)).to(dev)
-    inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(B, device=dev)
-    shuffled = Rays(*(x[perm].contiguous() for x in rays))
-    out = {}
-    modes = {"closest": ({}, {}), "any_hit": (dict(any_hit=True),) * 2,
-             "mixed": (dict(any_mask=amask), dict(any_mask=amask[perm]))}
-    for mode, (kw, kw_s) in modes.items():
-        h4, s4, f4 = K4(table, rays, with_iters=True, **kw)
-        h1, s1, f1 = K1(table, rays, with_iters=True, **kw)
-        hp, sp, fp = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
-        ok1, err1 = same((*h4, s4, f4), (*h1, s1, f1))
-        okp, errp = same((*h4, s4, f4), (*hp, sp, fp))
-        hs, ss, fs = K4(table, shuffled, with_iters=True, **kw_s)
-        oks, errs = same(tuple(None if x is None else x[inv]
-                               for x in (*hs, ss, fs)), (*h1, s1, f1))
-        ms = (cuda_median_ms(lambda: K4(table, rays, **kw)),
-              cuda_median_ms(lambda: K1(table, rays, **kw)),
-              cuda_median_ms(lambda: traversal8.intersect_wide(table, rays, **kw)))
-        dms = device_ms(lambda: K4(table, rays, **kw)) if mode == "mixed" else None
-        flagged = int((f4 != 0).sum())
-        emit(phase="kernel_vs_plain", scene=scene_name, kernel="K4", mode=mode,
-             rays=B, rows=table.shape[0], identical_to_k1=ok1,
-             identical_to_plain=okp, shuffled_identical=oks,
-             max_abs_err=max(err1, errp, errs), ms=ms[0], k1_ms=ms[1],
-             plain_ms=ms[2], device_ms=dms, steps=int(s4.sum()),
-             min_steps=int(s4.min()),
-             flagged=flagged, hit_rate=float((h4.tri >= 0).float().mean()))
-        if not (ok1 and okp and oks):
-            fail(f"K4 disagrees with K1 or the plain version ({scene_name}, {mode})")
-        if flagged:
-            fail(f"capped or overflowed rays in {scene_name} {mode}")
-        out[mode] = (max(err1, errp, errs), *ms, int(s4.sum()), dms)
+    run = pool_runner(K1, K4, traversal8)
+    designs = [d for d in POOL_DESIGNS
+               if d != "k1_group" or traversal8.launch_variant(table) == "global"]
+    out, refs = {}, {}
+    for mode, kw in modes.items():
+        live = live_mask(rays, kw, traversal8)
+        want_live = int(live.sum())
+        with RowFetches(lanes=live) as fetched:
+            ref = refs[mode] = traversal8.intersect_wide(
+                table, rays, with_iters=True, with_util=True, **plain_kw(kw))
+        steps = int(ref[1].sum())
+        plain_ms = (cuda_median_ms(lambda: traversal8.intersect_wide(
+            table, rays, **plain_kw(kw)), reps=3) if mode in timed else None)
+        bound = trav_bound(fetched.nbytes, B, steps, mode == "mixed", mb, traversal8,
+                           want_live, "roots" in kw)
+        res = {}
+        for design in designs:
+            err, slots, active = check_pool_design(
+                f"{label} ({mode})", design, run(design, table, rays, kw, counts=True),
+                ref, want_live, traversal8)
+            res[design] = dict(lanes=B, live=want_live, steps=steps, slots=slots,
+                               util=steps / slots if slots else None, err=err,
+                               bound_ms=bound[0], bound_by=bound[1], plain_ms=plain_ms,
+                               device_ms=[])
+        for design in designs + designs[::-1]:
+            res[design]["device_ms"].append(device_ms(
+                pool_timed(design, table, rays, kw, K1, K4, traversal8), reps=reps))
+        for design, r in res.items():
+            r["device_ms"] = statistics.median(r["device_ms"])
+            r["ms"] = (cuda_median_ms(pool_timed(design, table, rays, kw, K1, K4,
+                                                 traversal8)) if mode in timed else None)
+            if r["device_ms"] < r["bound_ms"]:
+                fail(f"{design} on {label} ({mode}) took {r['device_ms']} ms of device "
+                     f"time, under its bound {r['bound_ms']} ms")
+            out[mode, design] = r
+            if not quiet:
+                emit(phase="pool_vs_k1", set=label, mode=mode, design=design,
+                     identical=True, rows=table.shape[0],
+                     variant=traversal8.launch_variant(table), nvidia_smi=card, **r)
+    if shuffle_seed is not None:
+        mode, kw = next(iter(modes.items()))
+        dev = table.device
+        perm = torch.from_numpy(
+            np.random.default_rng(shuffle_seed).permutation(B)).to(dev)
+        shuffled = type(rays)(*(x[perm].contiguous() for x in rays))
+        kw_s = {k: (v[perm].contiguous() if isinstance(v, torch.Tensor) else v)
+                for k, v in kw.items()}
+        ref = refs[mode]
+        for design in designs:
+            h, st, fl = run(design, table, shuffled, kw_s)[:3]
+            un = [torch.empty_like(x).index_copy_(0, perm, x) for x in (*h[:4], st, fl)]
+            ok, _ = same(un, (*ref[0][:4], ref[1], ref[2]))
+            if not ok:
+                fail(f"{design} on {label}, shuffled ({mode}): not identical")
+        if not quiet:
+            emit(phase="pool_vs_k1", set=label, mode=mode, shuffled_identical=True,
+                 designs=designs)
     return out
+
+
+def pool_vs_k1_pass(label, calls, K1, K4, traversal8, mb, card):
+    """pool_vs_k1 on every recorded K1 call of one pass (record_k1), each in
+    its own mode (3 device-time launches a reading), summed by design:
+    one line per design with the pass's lanes, live lanes, steps, slots,
+    utilization, device ms and bound. Returns {design: dict}."""
+    total = {}
+    for table, rays, kw in calls:
+        mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
+        res = pool_vs_k1(label, table, rays, {mode: kw}, K1, K4, traversal8, mb, card,
+                         reps=3, quiet=True)
+        for (_, design), r in res.items():
+            t = total.setdefault(design, dict(calls=0, lanes=0, live=0, steps=0, slots=0,
+                                              device_ms=0.0, bound_ms=0.0,
+                                              bound_by=r["bound_by"], err=0.0))
+            t["calls"] += 1
+            for k in ("lanes", "live", "steps", "slots", "device_ms", "bound_ms"):
+                t[k] += r[k]
+            t["err"] = max(t["err"], r["err"])
+    variant = traversal8.launch_variant(calls[0][0])
+    for design, t in total.items():
+        t["util"] = t["steps"] / t["slots"] if t["slots"] else None
+        emit(phase="pool_vs_k1", set=label, mode="pass", design=design, identical=True,
+             rows=calls[0][0].shape[0], variant=variant, nvidia_smi=card, **t)
+        POOL_VS_K1.append(dict(set=label, mode="pass", design=design, variant=variant,
+                               **t))
+    return total
+
+
+def pool_sets(label, table, rays, amask, K1, K4, traversal8, mb, card, seed,
+              natural="closest", timed=(), model=False):
+    """pool_vs_k1 on one set of rays in the three modes (mixed: any-hit where
+    `amask`), its natural mode first (shuffled there); records every
+    reading in POOL_VS_K1. With `model` (a shared table) one more line: the
+    utilization of K4's schedule model (schedule_probe.pool_model, at the
+    kept threshold, on the resident warps of one shared-table block per SM)
+    from the plain version's steps in the natural mode, beside K4's count.
+    Returns pool_vs_k1's result."""
+    modes = {"closest": {}, "any_hit": dict(any_hit=True), "mixed": dict(any_mask=amask)}
+    modes = {natural: modes[natural], **modes}
+    res = pool_vs_k1(label, table, rays, modes, K1, K4, traversal8, mb, card,
+                     shuffle_seed=seed, timed=timed)
+    if model:
+        from cudatracerlib_tpu_torch.utils import schedule_probe as probe
+        steps = traversal8.intersect_wide(table, rays, with_iters=True,
+                                          **modes[natural])[1].cpu().numpy()
+        dead = (~traversal8.live_lanes(rays)).cpu().numpy()
+        warps = (torch.cuda.get_device_properties(table.device).multi_processor_count
+                 * traversal8.SHARED_THREADS // 32)
+        fetch_idle, rounds = traversal8.pool_schedule()
+        slots, active = probe.pool_model(steps, dead, warps, fetch_idle, rounds)
+        emit(phase="pool_model", set=label, mode=natural, warps=warps,
+             fetch_idle=fetch_idle, fetch_rounds=rounds, model_slots=slots,
+             model_util=active / slots, k4_util=res[natural, "k4"]["util"],
+             k1_util=res[natural, "k1"]["util"])
+    for (mode, design), r in res.items():
+        POOL_VS_K1.append(dict(
+            set=label, mode=mode, design=design, natural=mode == natural,
+            variant=traversal8.launch_variant(table),
+            **{k: v for k, v in r.items() if k not in ("ms", "plain_ms")}))
+    return res
+
+
+def veach_wavefronts(veach, table, K1, tracermod, Rays, B=POOL_RAYS):
+    """tools/microbench_pool.py's four veach-mis wavefronts, built with the
+    port: B camera rays of the first image rows (the image again and again
+    past 512^2); bounce rays from
+    the first hit plus 1e-3 along a random unit direction (numpy seed 7),
+    tmin 0 and tmax 1e30 (0 where the camera ray missed); the bounce rays
+    with POOL_CUT of the lanes at tmax 0 (live: they may descend the boxes
+    around their origin), as the tool cuts them, and again at tmax -1
+    (dead); shadow rays toward (0, 10, 0), tmin 0 and tmax the distance.
+    Returns {name: (rays, natural mode)}."""
+    dev = table.device
+    pix = torch.arange(B, dtype=torch.int32, device=dev) % (VEACH_SIZE * VEACH_SIZE)
+    cam = tracermod.gen_camera_rays(veach, pix, 0, 0, VEACH_SIZE, VEACH_SIZE)[0]
+    cam = Rays(*(x.contiguous() for x in cam))
+    h0 = K1(table, cam)
+    valid = h0.tri >= 0
+    p = cam.o + cam.d * torch.where(valid, h0.t, 1.0)[:, None]
+    rng = np.random.default_rng(7)
+    d = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)).to(dev)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    zero = torch.zeros(B, device=dev)
+    bounce = Rays(o=(p + d * 1e-3).contiguous(), d=d.contiguous(), tmin=zero,
+                  tmax=torch.where(valid, 1e30, 0.0).contiguous())
+    cut = torch.from_numpy(rng.random(B) < POOL_CUT).to(dev)
+    light = torch.tensor([0.0, 10.0, 0.0], device=dev)
+    dl = light[None, :] - p
+    dist = torch.linalg.norm(dl, dim=1)
+    dl = dl / torch.clamp(dist, min=1e-6)[:, None]
+    shadow = Rays(o=(p + dl * 1e-3).contiguous(), d=dl.contiguous(), tmin=zero,
+                  tmax=torch.where(valid, dist, 0.0).contiguous())
+    return {"camera": (cam, "closest"), "bounce": (bounce, "closest"),
+            "bounce_cut_tmax0": (bounce._replace(
+                tmax=torch.where(cut, 0.0, bounce.tmax).contiguous()), "closest"),
+            "bounce_cut_dead": (bounce._replace(
+                tmax=torch.where(cut, -1.0, bounce.tmax).contiguous()), "closest"),
+            "shadow": (shadow, "any_hit")}
+
+
+def pool_summary(card):
+    """One line: the natural-mode set readings and the recorded passes of
+    POOL_VS_K1, device ms and utilization by design, summed over them."""
+    rows = [r for r in POOL_VS_K1 if r.get("natural", r["mode"] == "pass")]
+    by_set = {}
+    for r in rows:
+        by_set.setdefault(r["set"], {})[r["design"]] = dict(
+            device_ms=r["device_ms"], util=r["util"], slots=r["slots"])
+    total = {}
+    for r in rows:
+        if r["design"] != "k1_group":
+            total[r["design"]] = total.get(r["design"], 0.0) + r["device_ms"]
+    emit(phase="pool_vs_k1_summary", nvidia_smi=card, by_set=by_set,
+         device_ms_summed=total, sets=sorted(by_set))
+    return total
 
 
 def profile_pass(tr, scene_name, **extra):
@@ -857,14 +1124,16 @@ def left_counting(work, traversal8):
     return bool(work[traversal8.GROUP_WORK // 2:traversal8.GROUP_WORK].any())
 
 
-def check_edge_batch(name, table, rays, kw, K1, traversal8, run_design):
-    """One edge batch (k1_edge_batches) in the three modes: each design
-    (run_design(design, table, rays, kw_) -> (hit, steps, flags, work)) on
-    every field against the plain version, the group design's live count
-    against the plain model (traversal8.live_lanes), every ray classified
-    and the counters left zero; the overflow and cap batches must overflow
-    and cap. Returns
-    {design: max_abs_err}."""
+def check_edge_batch(name, table, rays, kw, K1, traversal8, run_design,
+                     pool_run=None, k1_designs=K1_GLOBAL_DESIGNS):
+    """One edge batch (k1_edge_batches) in the three modes: each of K1's
+    global designs in `k1_designs` (run_design(design, table, rays, kw_) ->
+    (hit, steps, flags, work)) on every field against the plain version,
+    the group design's live count against the plain model
+    (traversal8.live_lanes), every ray classified and the counters left
+    zero; with `pool_run` (pool_runner) K4 and the probe's K4 designs too,
+    held as pool_vs_k1 holds them (check_pool_design); the overflow and cap
+    batches must overflow and cap. Returns {design: max_abs_err}."""
     B = rays.o.shape[0]
     amask = torch.arange(B, device=rays.o.device) % 3 == 0
     want_live = int(traversal8.live_lanes(rays, kw.get("max_iters", traversal8.MAX_ITERS),
@@ -872,13 +1141,14 @@ def check_edge_batch(name, table, rays, kw, K1, traversal8, run_design):
     errs = {}
     for mode, mkw in (("closest", {}), ("any_hit", dict(any_hit=True)),
                       ("mixed", dict(any_mask=amask))):
-        ref = traversal8.intersect_wide(table, rays, with_iters=True, **kw, **mkw)
+        ref = traversal8.intersect_wide(table, rays, with_iters=True, with_util=True,
+                                        **kw, **mkw)
         flags = ref[2]
         if name == "stack_overflow" and not bool((flags & 2).any()):
             fail(f"the {name} batch did not overflow ({mode})")
         if name == "step_cap" and not bool((flags & 1).any()):
             fail(f"the {name} batch did not cap ({mode})")
-        for design in K1_GLOBAL_DESIGNS:
+        for design in k1_designs:
             h, st, fl, work = run_design(design, table, rays, dict(kw, **mkw),
                                          counts=True)
             ok, err = same((*h, st, fl), (*ref[0], ref[1], ref[2]))
@@ -890,6 +1160,12 @@ def check_edge_batch(name, table, rays, kw, K1, traversal8, run_design):
                                                   or left_counting(work, traversal8))):
                 fail(f"K1 global ({design}) on the {name} edge batch ({mode}): "
                      f"identical {ok}, work counters {counts}, live {want_live}")
+        for design in (POOL_DESIGNS[2:] if pool_run else ()):
+            err = check_pool_design(f"the {name} edge batch ({mode})", design,
+                                    pool_run(design, table, rays, dict(kw, **mkw),
+                                             counts=True),
+                                    ref, want_live, traversal8)[0]
+            errs[design] = max(errs.get(design, 0.0), err)
     return errs
 
 
@@ -2949,6 +3225,8 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
                                  by_mode=k1_on_calls("loader_cornell_512", calls, K1,
                                                      traversal8, mb),
                                  seconds_per_pass=r["seconds_per_pass"])
+    # pool_vs_k1 on the same calls (global rows)
+    pool_vs_k1_pass("loader_cornell_512", calls, K1, K4, traversal8, mb, card)
     del tr, calls, scene
     small = write("cornell32.xml", cornell_xml(LOADER_SMALL, L1_DEPTH))
     rows = {d: mitsuba.load_mitsuba(small)[0].build(d).geom.wide.shape[0]
@@ -3538,6 +3816,11 @@ def main():
                               or "LDGSTS.E.BYPASS.128" not in ops)}[kind]
             if bad:
                 fail(f"{fn}: unexpected row loads {ops}")
+        # K4's two row sources must both be there to be checked
+        if src == "traversal_pool.cu" and not all(
+                any(fn.startswith(k + "<") for fn in loads)
+                for k in ("traverse_pool_shared_kernel", "traverse_pool_kernel")):
+            fail(f"K4's kernels missing from the SASS: {sorted(loads)}")
 
     # 2. K1 against its plain version at the Cornell path's ray count
     scene512 = example_scenes.cornell_box(512, 512).build(dev)
@@ -3551,7 +3834,9 @@ def main():
                 torch.full((N_RAYS,), 1e9, device=dev))
     amask = torch.from_numpy(rng.random(N_RAYS) < 0.5).to(dev)
     k1_cornell = k1_variants("cornell_box", table, rays, amask, K1_VARIANTS + ("group",))
-    check_pool("cornell_box", table, rays, amask, K1, K4, traversal8, Rays, 5)
+    # pool_vs_k1: K1, K4 and K4's probe designs on the same rays
+    k4_cornell = pool_sets("cornell_phase2", table, rays, amask, K1, K4, traversal8, mb,
+                           card, 5, natural="mixed")
 
     # 3. golden image on the card
     zero_counts()
@@ -3594,6 +3879,9 @@ def main():
         fail("the headline pass did not run through the kernel alone")
     if K1.launches_by_variant["shared"] != launches:
         fail(f"Cornell K1 launches not all shared: {K1.launches_by_variant}")
+    # pool_vs_k1 on every K1 call of one more pass
+    pool_vs_k1_pass("cornell_pt_512", record_k1(tr.do_pass, traversal8, Rays), K1, K4,
+                    traversal8, mb, card)
     del tr, scene512
 
     # 4a. veach-mis: K4 against K1 and the plain version on its table
@@ -3616,9 +3904,25 @@ def main():
          table_kb=vtable.numel() * 4 / 1024,
          bvh_seconds=veach.host["build_seconds"]["bvh"])
     k1_veach = k1_variants("veach_mis", vtable, v_rays, v_mask, K1_VARIANTS + ("group",))
-    k4_res = check_pool("veach_mis", vtable, v_rays, v_mask, K1, K4,
-                        traversal8, Rays, 6)
-    k4_bound = k1_veach["mixed", None]["bound"]   # K4 computes K1's function
+    # pool_vs_k1 on the same rays, on tools/microbench_pool.py's four
+    # wavefronts (and the cut bounce set's dead form), and on the edge batches
+    k4_veach = pool_sets("veach_phase4a", vtable, v_rays, v_mask, K1, K4, traversal8,
+                         mb, card, 6, natural="mixed", timed=("mixed",))
+    pool_run = pool_runner(K1, K4, traversal8)
+    for name, (rr, natural) in veach_wavefronts(veach, vtable, K1, tracermod,
+                                                Rays).items():
+        pool_sets(f"veach_{name}", vtable, rr, v_mask, K1, K4, traversal8, mb, card,
+                  11, natural=natural, model=True)
+    big = veach_wavefronts(veach, vtable, K1, tracermod, Rays, POOL_RAYS_BIG)["bounce"][0]
+    pool_sets("veach_bounce_1m", vtable, big,
+              torch.from_numpy(np.random.default_rng(12).random(POOL_RAYS_BIG) < 0.5).to(dev),
+              K1, K4, traversal8, mb, card, 12)
+    del big
+    for name, rr, kw in k1_edge_batches(vtable, v_rays, POOL_EDGE_BIG, seed=6):
+        errs = check_edge_batch(name, vtable, rr, kw, K1, traversal8, None, pool_run,
+                                k1_designs=())
+        emit(phase="pool_edge_batch", batch=name, rows=vtable.shape[0],
+             rays=rr.o.shape[0], kw=sorted(kw), identical=True, max_abs_err=errs)
     # the shared variant's prologue (staging the table), from its device
     # time against the global variant's: one ray (one block), and one dead
     # ray (tmax -1, one step) for every thread of a full grid
@@ -3696,6 +4000,8 @@ def main():
         fail("the veach-mis image is not finite and non-black")
     if capped or overflowed:
         fail(f"veach-mis: capped {capped} / overflowed {overflowed} rays")
+    pool_vs_k1_pass("veach_pt_512", record_k1(vtr.do_pass, traversal8, Rays), K1, K4,
+                    traversal8, mb, card)
     if PROFILE:
         profile_pass(vtr, "veach_mis", kernel="K1")
     del vtr
@@ -3780,7 +4086,8 @@ def main():
     # probe's, every field against the plain version
     t0 = time.perf_counter()
     for name, rr, kw in k1_edge_batches(wide, sm_rays, K1_EDGE_BIG, seed=5):
-        errs = check_edge_batch(name, wide, rr, kw, K1, traversal8, k1_run_design)
+        errs = check_edge_batch(name, wide, rr, kw, K1, traversal8, k1_run_design,
+                                pool_run)
         emit(phase="k1_edge_batch", batch=name, rays=rr.o.shape[0],
              live=int(traversal8.live_lanes(rr, kw.get("max_iters", traversal8.MAX_ITERS),
                                             kw.get("roots")).sum()),
@@ -3881,7 +4188,7 @@ def main():
         k3_splits[V] = split
         return res
 
-    k2_res, k3_res, k3_splits, k4_fallback = {}, {}, {}, {}
+    k2_res, k3_res, k3_splits, k4_sm = {}, {}, {}, {}
     for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
         def k2_run(variant, kw):
             if variant in probe.DESIGNS:
@@ -3952,10 +4259,11 @@ def main():
                     dict(any_mask=sm_mask, _design=traversal8.FALLBACK_DESIGN),
                     traversal8, mb, k1_run_design,
                     sweep=V == traversal8.V_INCOHERENT)
-                # K4 on the same batch: its per-lane refill against K1's
-                # one thread per ray, identical on every field
-                k4_fallback[V] = check_pool(f"san_miguel_fallback_V{V}", wide, fb,
-                                            sm_mask, K1, K4, traversal8, Rays, 7 + V)
+                # pool_vs_k1 on the same batch (global rows): K1 as the
+                # size rule picks it and its group design, K4, the probe's
+                k4_sm[V] = pool_sets(f"san_miguel_fallback_V{V}", wide, fb, sm_mask,
+                                     K1, K4, traversal8, mb, card, 7 + V,
+                                     natural="mixed", timed=("mixed",))
             emit(phase="sm_kernels_vs_plain", mode=mode, rays=B, V=V,
                  two_phase_identical=okt, max_abs_err=errt,
                  visits=int(vcnt.sum()), visits_kept=int(vcnt.clamp_max(V).sum()),
@@ -4195,14 +4503,16 @@ def main():
              "cudatracerlib_tpu/ops/traversal_pl.py:188", k1_shared_n,
              max(max_err(k1_cornell, None), max_err(k1_veach, None)),
              k1_veach["mixed", None], variant="shared",
+             util=k4_veach["mixed", "k1"]["util"],
              by_scene={sc: dict(launches=k1_by_variant[sc]["shared"],
                                 **brief(res["mixed", None]),
+                                util=pool["mixed", "k1"]["util"],
                                 global_variant=brief(res["mixed", "global"]),
                                 group_design=brief(res["mixed", "group"]),
                                 designs={d: brief(res["mixed", d])
                                          for d in probe.DESIGNS})
-                       for sc, res in (("cornell_box", k1_cornell),
-                                       ("veach_mis", k1_veach))},
+                       for sc, res, pool in (("cornell_box", k1_cornell, k4_cornell),
+                                             ("veach_mis", k1_veach, k4_veach))},
              by_tracer={name: dict(launches=k1_by_variant[name]["shared"],
                                    one_pass=rec)
                         for name, rec in light_path.items()}),
@@ -4263,6 +4573,33 @@ def main():
         kernel_row["launches"] += n_par
         kernel_row["by_tracer"]["parallel_san_miguel"] = dict(
             launches=n_par, held=par["held"]["pt_san_miguel"].get(kind))
+    # K4's rows: each row source on its main shape (veach-mis, San Miguel's
+    # fallback batch at V=3, mixed), the probe's K4 designs on veach-mis;
+    # every natural-mode set and recorded pass of pool_vs_k1 under by_set
+    pool_totals = pool_summary(card)
+    f_kept, r_kept = traversal8.pool_schedule()
+
+    def pool_row(name, src, design, main, variant=None):
+        recs = [r for r in POOL_VS_K1 if r["design"] == design
+                and r.get("natural", r["mode"] == "pass")
+                and (variant is None or r["variant"] == variant)]
+        return row(name, src, "cudatracerlib_tpu/ops/traversal_pl.py:298", 0,
+                   max(r["err"] for r in POOL_VS_K1 if r["design"] == design),
+                   main["ms"], main["plain_ms"], (main["bound_ms"], main["bound_by"]),
+                   device_ms=main["device_ms"], util=main["util"], on_path=False,
+                   design="kept" if design == "k4" else design,
+                   fetch_idle=f_kept if design == "k4" else None,
+                   fetch_rounds=r_kept if design == "k4" else None,
+                   device_ms_summed=pool_totals.get(design),
+                   by_set={r["set"]: dict(mode=r["mode"], device_ms=r["device_ms"],
+                                          util=r["util"], bound_ms=r["bound_ms"])
+                           for r in recs})
+    k4_rows = [pool_row(f"traverse_pool_shared_kernel<{f_kept},{r_kept}>",
+                        "traversal_pool.cu", "k4", k4_veach["mixed", "k4"], "shared"),
+               pool_row(f"traverse_pool_kernel<{f_kept},{r_kept},1>", "traversal_pool.cu",
+                        "k4", k4_sm[traversal8.V_INCOHERENT]["mixed", "k4"], "global"),
+               *(pool_row(f"probe_pool<{d}>", "schedule_probe.cu", d,
+                          k4_veach["mixed", d]) for d in POOL_DESIGNS[3:])]
     emit(kernels=[
         *k1_rows,
         k2_shared,
@@ -4270,16 +4607,7 @@ def main():
         k3_kept,
         *(k3_row(f"probe_treelet_kernel<{d}>", "schedule_probe.cu", d)
           for d in probe.K3_DESIGNS),
-        row("traverse_pool_kernel", "traversal_pool.cu",
-            "cudatracerlib_tpu/ops/traversal_pl.py:298", 0,
-            max(k4_res["mixed"][0], *(r["mixed"][0] for r in k4_fallback.values())),
-            k4_res["mixed"][1], k4_res["mixed"][3], k4_bound,
-            device_ms=k4_res["mixed"][5], on_path=False,
-            fallback_by_v={f"V{V}": dict(
-                ms=r["mixed"][1], k1_ms=r["mixed"][2], plain_ms=r["mixed"][3],
-                device_ms=r["mixed"][5],
-                k1_device_ms=kernel_ms["K1_fallback", V]["device_ms"])
-                for V, r in k4_fallback.items()}),
+        *k4_rows,
         row("chase_rows_kernel", "microbench.cu",
             "tools/microbench_r2.py:89", mb_launches["P1"], *mb_row(p1)),
         row("gather_rows_thread_kernel", "microbench.cu",

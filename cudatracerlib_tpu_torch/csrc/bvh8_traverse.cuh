@@ -47,15 +47,15 @@
 // step and traverse are templates over where a row comes from; a source
 // gives a row's base pointer (row) and its swizzle:
 // - the global source (GlobalRows) reads the table in device memory through
-//   L1/L2, one LDG.E.128.CONSTANT per float4. K3, K4 and the global
-//   variants of K1 and K2 use it;
+//   L1/L2, one LDG.E.128.CONSTANT per float4. K3 and the global variants
+//   of K1, K2 and K4 use it;
 // - the shared source (SharedRows) reads the block's copy of the table in
 //   shared memory, staged by stage_rows with 16-byte cp.async copies
 //   (LDGSTS.E.BYPASS.128) and swizzled: float4 k of row i at i * 32 +
 //   (k ^ (i & 31)), so that the lanes of a quarter-warp reading one column
 //   of rows that differ in i & 7 fall on different banks. Its node and leaf
 //   steps compile to LDS.128 (43 per kernel, no generic LD; chip_smoke.py
-//   checks the SASS). The shared variants of K1 and K2 use it.
+//   checks the SASS). The shared variants of K1, K2 and K4 use it.
 // csrc/schedule_probe.cu adds the sources of K3's rejected designs (a slab
 // over a cluster's shared memory; a slab split between shared and device
 // memory).
@@ -340,6 +340,21 @@ __device__ __forceinline__ void traverse(const float4* __restrict__ table,
   traverse<GlobalRows>(table, n_rows, n_real, r, cur, anyh, stack_depth,
                        max_iters, b, steps, flags, visit, stack);
 }
+
+// The parameters of a K1 or K4 kernel (traversal8.cu, traversal_pool.cu), and
+// the per-ray arguments of K1's trace_ray from them (the table given).
+#define CTL_K1_PARAMS                                                         \
+  const float4 *__restrict__ table, int n_rows, const float *__restrict__ o,  \
+      const float *__restrict__ d, const float *__restrict__ tmin,            \
+      const float *__restrict__ tmax, const int *__restrict__ roots,          \
+      const uint8_t *__restrict__ any_mask, int n_rays, int any_hit,          \
+      int stack_depth, int max_iters, float *__restrict__ t_out,              \
+      int *__restrict__ tri_out, float *__restrict__ u_out,                   \
+      float *__restrict__ v_out, int *__restrict__ steps_out,                 \
+      uint8_t *__restrict__ flags_out
+#define CTL_K1_ARGS(TABLE)                                                    \
+  TABLE, n_rows, o, d, tmin, tmax, roots, any_mask, any_hit, stack_depth,     \
+      max_iters, t_out, tri_out, u_out, v_out, steps_out, flags_out
 
 // ---- the shared-table variants of K1 and K2 --------------------------------
 

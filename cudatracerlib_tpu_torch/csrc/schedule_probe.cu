@@ -33,11 +33,18 @@
 // live ray) is measured against the same kernel with 8 or 32 lanes a ray,
 // and with 16 lanes and an L2 prefetch of each node step's eligible
 // children (L2Prefetch).
+// K4 (traversal_pool.cu, one threshold of idle lanes before a warp claims
+// rays, one bound on its fetches an iteration) is measured against the
+// same kernel at thresholds 1, 8 and 16, with 1 or 2 fetches, and
+// against its first design: a refill at every step, dead rays stepped, rows
+// through L1/L2 on every table, a memset of the queue counter before each
+// launch.
 // All compute what the kept kernels compute, bit for bit.
 
 #include <cooperative_groups.h>
 
 #include "traversal8.cu"
+#include "traversal_pool.cu"
 #include "traversal_tt.cu"
 
 // The start of a block's dynamic shared memory, where K3's probe designs
@@ -446,8 +453,8 @@ extern "C" int ctl_probe_traverse8(
 // ctl_traverse8's arguments for K1's global variant in the group design,
 // with `design` in place of the variant: 0, 8 lanes a live ray; 1, 32
 // lanes; 2, 16 lanes (as kept) and L2Prefetch. work: the design's work
-// area (kWork + n_rays int32), counting in its set `set`. Returns a CUDA
-// error code, or -1 for another design or set.
+// area (warp_queue.cuh; kWork + n_rays int32), counting in its set `set`.
+// Returns a CUDA error code, or -1 for another design or set.
 extern "C" int ctl_probe_traverse8_group(
     const float* table, int n_rows, const float* o, const float* d,
     const float* tmin, const float* tmax, const int* roots,
@@ -464,6 +471,43 @@ extern "C" int ctl_probe_traverse8_group(
                 tmax, roots, any_mask, n_rays, any_hit, stack_depth,
                 max_iters, t_out, tri_out, u_out, v_out, steps_out,
                 flags_out, work, set, (cudaStream_t)stream);
+}
+
+// ctl_traverse_pool's arguments, with `design` after the variant: 1, 8 or
+// 16, K4 with that threshold of idle lanes (kFetchRounds fetches); 101 or
+// 102, K4's threshold with 1 or 2 fetches an iteration; 0, K4's first
+// design (the threshold 1, dead rays stepped, rows from device memory
+// whatever the variant, and a memset of the set's queue counter before
+// the launch, as the first design zeroed its counter). Returns a CUDA
+// error code, or -1 for another design, variant or set.
+extern "C" int ctl_probe_traverse_pool(
+    const float* table, int n_rows, const float* o, const float* d,
+    const float* tmin, const float* tmax, const int* roots,
+    const uint8_t* any_mask, int n_rays, int any_hit, int stack_depth,
+    int max_iters, float* t_out, int* tri_out, float* u_out, float* v_out,
+    int* steps_out, uint8_t* flags_out, int* work, int set, int variant,
+    int design, void* stream) {
+  if (variant < 0 || variant > 1 || set < 0 || set > 1) return -1;
+  if (design != 0 && design != 1 && design != 8 && design != 16 &&
+      design != 101 && design != 102) {
+    return -1;
+  }
+  if (n_rays <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (design == 0) {
+    cudaMemsetAsync(work + kSet * set + kInput, 0, sizeof(int), s);
+    variant = 0;
+  }
+  auto launch = design == 0     ? launch_pool<1, 1, kStepDead>
+                : design == 1   ? launch_pool<1>
+                : design == 8   ? launch_pool<8>
+                : design == 16  ? launch_pool<16>
+                : design == 101 ? launch_pool<kFetchIdle, 1>
+                                : launch_pool<kFetchIdle, 2>;
+  return launch(variant, reinterpret_cast<const float4*>(table), n_rows, o, d,
+                tmin, tmax, roots, any_mask, n_rays, any_hit, stack_depth,
+                max_iters, t_out, tri_out, u_out, v_out, steps_out,
+                flags_out, work, set, s);
 }
 
 // ctl_top_visits's arguments, with `design` in place of the variant.

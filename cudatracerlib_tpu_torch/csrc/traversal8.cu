@@ -79,15 +79,8 @@ namespace {
 
 using namespace ctl;
 
-// The group design's work area, int32, kept by the caller from launch to
-// launch on one stream: two sets of four counters, kSet words apart, each
-// counter on its own 128-byte line (the input rays claimed, the live
-// queue's tail and head, the rays classified), then one queue slot per ray
-// from word kWork. Launches on the stream take the sets in turn: a launch
-// counts in one set, which the caller gives it zeroed, and zeroes the
-// other for the next launch, so no launch needs a memset.
-constexpr int kInput = 0, kTail = 32, kHead = 64, kClassified = 96;
-constexpr int kSet = 128, kWork = 256;
+// The group design's work area is warp_queue.cuh's: two counter sets that
+// launches on a stream take in turn, then one live queue slot per ray.
 // rays a warp claims at a time to classify, kChunk / 32 a lane
 constexpr int kChunk = 256;
 // lanes a live ray of the group design (csrc/schedule_probe.cu times 8 and
@@ -121,19 +114,6 @@ __device__ __forceinline__ void trace_ray(
   steps_out[i] = steps;
   flags_out[i] = flags;
 }
-
-#define CTL_K1_PARAMS                                                         \
-  const float4 *__restrict__ table, int n_rows, const float *__restrict__ o,  \
-      const float *__restrict__ d, const float *__restrict__ tmin,            \
-      const float *__restrict__ tmax, const int *__restrict__ roots,          \
-      const uint8_t *__restrict__ any_mask, int n_rays, int any_hit,          \
-      int stack_depth, int max_iters, float *__restrict__ t_out,              \
-      int *__restrict__ tri_out, float *__restrict__ u_out,                   \
-      float *__restrict__ v_out, int *__restrict__ steps_out,                 \
-      uint8_t *__restrict__ flags_out
-#define CTL_K1_ARGS(TABLE)                                                    \
-  TABLE, n_rows, o, d, tmin, tmax, roots, any_mask, any_hit, stack_depth,     \
-      max_iters, t_out, tri_out, u_out, v_out, steps_out, flags_out
 
 // The global variant: one thread per ray, rows from device memory.
 __global__ void __launch_bounds__(kThreads) traverse8_kernel(CTL_K1_PARAMS) {
@@ -351,9 +331,9 @@ __device__ __forceinline__ int load_acquire(const int* p) {
   return v;
 }
 
-// The global variant's group design: a persistent grid; work = the
-// launch's int32 area (four counters, zeroed, each on its own 128-byte
-// line, then n_rays queue slots).
+// The global variant's group design: a persistent grid; work = this
+// launch's counter set of the int32 work area (warp_queue.cuh, zeroed),
+// queue = the area's n_rays queue slots.
 // 1. Whole warps claim kChunk rays at a time from the input counter (a
 //    warp that reads it past the end claims nothing) and classify them 32
 //    at a time. A dead lane, !(tmin <= tmax) with a
@@ -369,14 +349,20 @@ __device__ __forceinline__ int load_acquire(const int* p) {
 //    and runs each to its end (group_traverse), writing its results by ray
 //    id. A warp waits only for rays that running warps have claimed, so the
 //    launch ends whatever the grid's residency.
-// counts: this launch's counter set (zero); next: the other set, zeroed
-// here for the next launch.
+// 3. Each warp adds its lane slots and lane steps to the set (add_counts).
+// next: the other set, zeroed here for the next launch.
 template <int G, class Hint>
 __global__ void __launch_bounds__(kThreads)
 traverse8_group_kernel(CTL_K1_PARAMS, int* __restrict__ work,
                        int* __restrict__ next, int* __restrict__ queue) {
   const int lane = threadIdx.x & 31;
-  if (blockIdx.x == 0 && threadIdx.x < 4) next[32 * threadIdx.x] = 0;
+  zero_set(next);
+  // lane slots and lane steps (add_counts): a classifying pass of 32 rays
+  // is one warp iteration whose dead rays each run their one step; the
+  // group phase's steps run one a group a warp iteration, so its warp
+  // iterations are the most steps any group of the warp ran
+  long long slots = 0, active = 0;
+  int group_steps = 0;
   for (;;) {  // warp-uniform
     int base = n_rays;
     if (lane == 0 && __ldcg(work + kInput) < n_rays) {
@@ -407,6 +393,11 @@ traverse8_group_kernel(CTL_K1_PARAMS, int* __restrict__ work,
         v_out[i] = 0.0f;
         steps_out[i] = 1;
         flags_out[i] = 0;
+      }
+      const unsigned dead = __ballot_sync(kFullMask, i < n_rays && !live);
+      if (dead != 0u) {
+        slots += 32;
+        active += __popc(dead);
       }
       const unsigned lv = __ballot_sync(kFullMask, live);
       if (lv != 0u) {
@@ -458,7 +449,11 @@ traverse8_group_kernel(CTL_K1_PARAMS, int* __restrict__ work,
       steps_out[ray] = steps;
       flags_out[ray] = flags;
     }
+    group_steps += steps;
   }
+  const int warp_iters = __reduce_max_sync(kFullMask, group_steps);
+  active += __reduce_add_sync(kFullMask, gl == 0 ? group_steps : 0);
+  add_counts(work, 0, 0, slots + 32LL * warp_iters, active);
 }
 
 // Launches the group design with G lanes a ray (and Hint) on a persistent

@@ -15,7 +15,9 @@ one traversal, with the same per-ray semantics, step counts and flags:
   queue).
 - ``intersect_wide_pool_cuda``: the wrapper of K4, ``csrc/traversal_pool.cu``,
   which replaces the TPU kernel ``traversal_pl.py::_traverse_kernel_pool``:
-  persistent warps that take rays from a global queue. It computes exactly
+  persistent warps whose lanes take the next ray of a global queue when
+  enough of them are idle, dead lanes written at fetch, rows from shared
+  memory where the table fits (``launch_variant``). It computes exactly
   K1's function and only schedules rays differently, so its plain version
   is ``intersect_wide`` itself. CUDA tensors only.
 - ``intersect_wide``: the plain PyTorch version of both, a lockstep batch
@@ -36,6 +38,17 @@ finds it full (flag bit 1); a ray still running after ``max_iters`` steps
 keeps its best hit so far (flag bit 0). One step fetches one 512-byte row,
 so a ray's step count is also its count of rows read. These are per-ray
 counts, not the TPU kernel's lockstep iterations.
+
+``with_util`` (with ``with_iters``) adds the lane-utilization count of the
+JAX kernels: ``slots``, an int64 scalar, the lane slots the launch issued
+(32 for each warp iteration of its traversal loop); the utilization is
+``steps.sum() / slots``, the JAX ``act_sum / rows`` (its ``act_sum`` counts
+the active lane steps, which ``steps`` sums). K1's shared variant and its
+per-thread design run each warp on 32 consecutive rays to the end of the
+slowest, so their slots are ``static_slots(steps)``, and so are the plain
+version's; K4 and K1's group design hand rays out inside the launch, and
+their kernels count the slots and the lane steps (which equal
+``steps.sum()``).
 """
 from __future__ import annotations
 
@@ -66,14 +79,20 @@ VARIANTS = {"global": 0, "shared": 1}
 # the designs of K1's global variant: "thread", one thread per ray; "group",
 # dead lanes written without a row read and live rays drained from a queue
 # by groups of 16 lanes (csrc/traversal8.cu); the C entry's codes
-# for the group design counting in set 0 or 1 of its work area: GROUP_WORK
-# int32 words of two counter sets (a launch counts in one, zero, and zeroes
-# the other; set 0's counters at GROUP_COUNTERS: rays claimed in chunks,
-# live rays, queue claims, rays classified), then one queue slot per ray
+# for the group design counting in set 0 or 1 of its work area
 GLOBAL_DESIGNS = ("thread", "group")
 GROUP_CODE = 2
-GROUP_WORK = 256
+# the work area of the launches that hand out rays inside the launch (K1's
+# group design, K4; csrc/warp_queue.cuh): GROUP_WORK int32 words of two
+# counter sets (a launch counts in one, zero, and zeroes the other), then,
+# for the group design, one queue slot per ray. Set 0's counters: at
+# GROUP_COUNTERS, int32, the rays claimed, the live rays, the group
+# design's queue claims, the rays classified (written dead or taken live);
+# at UTIL_COUNTERS, int64 over two words each, the lane slots issued and
+# the lane steps run in them
+GROUP_WORK = 384
 GROUP_COUNTERS = (0, 32, 64, 96)
+UTIL_COUNTERS = (128, 160)
 # the design K1's global variant takes on the flat treelet path's fallback
 # batch, whose lanes are dead but for the few whose visits overflowed (tens
 # to thousands of a batch). The instanced visits' fallback (per-lane roots)
@@ -293,16 +312,26 @@ def any_lanes(B: int, any_hit: bool, any_mask: Tensor, device) -> Tensor:
     return torch.zeros(B, dtype=torch.bool, device=device)
 
 
+def static_slots(steps: Tensor) -> Tensor:
+    """The lane slots of K1's static schedule, int64: each warp runs 32
+    consecutive rays (the last group padded) to the end of its slowest, so
+    32 times the sum over 32-ray groups of the largest of `steps`."""
+    s = torch.nn.functional.pad(steps, (0, -steps.shape[0] % 32))
+    return s.view(-1, 32).amax(1).sum(dtype=torch.int64) * 32
+
+
 def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
                    stack_depth: int = STACK_DEPTH,
                    max_iters: int = MAX_ITERS, roots: Tensor = None,
-                   with_iters: bool = False, any_mask: Tensor = None):
+                   with_iters: bool = False, any_mask: Tensor = None,
+                   with_util: bool = False):
     """Plain PyTorch traversal of the (R, 128) fat-row table.
 
     any_mask: optional (B,) bool giving per-lane any-hit semantics (lanes
     True stop at their first leaf hit), so one call traces a mixed
     closest+shadow wavefront. Returns a Hit, or with with_iters
-    (hit, steps (B,) int32, flags (B,) uint8)."""
+    (hit, steps (B,) int32, flags (B,) uint8), and with with_util too the
+    slots of K1's static schedule (``static_slots``)."""
     _check_args(any_hit, stack_depth, any_mask)
     if table.is_cuda:
         intersect_wide.cuda_calls += 1
@@ -314,6 +343,8 @@ def intersect_wide(table: Tensor, rays: Rays, any_hit: bool = False,
     hit, steps, flags, _ = _lockstep(
         table, rays, cur, rays.tmax, any_lanes(B, any_hit, any_mask, dev),
         stack_depth, max_iters)
+    if with_iters and with_util:
+        return hit, steps, flags, static_slots(steps)
     if with_iters:
         return hit, steps, flags
     return hit
@@ -415,25 +446,36 @@ def _check_design(design):
 
 
 def group_work(B: int, dev) -> Tensor:
-    """A new work area of the group design for B rays, its counters zero."""
+    """A new work area with B queue slots (the group design's for B rays;
+    K4 takes B = 0), its counters zero."""
     return torch.zeros(GROUP_WORK + B, dtype=torch.int32, device=dev)
 
 
-# the group design's work area of each (device, stream) and the counter set
-# its next launch takes: launches on a stream take the sets in turn, each
-# zeroing the other's, so no launch needs a memset; a new area (zeros, set
-# 0), at the next power of two of rays, when a batch outgrows it
+def work_util(work: Tensor, count_set: int = 0) -> Tensor:
+    """(2,) int64 view of a work area's counter set `count_set`: the lane
+    slots its launch issued and the lane steps run in them."""
+    base = count_set * GROUP_WORK // 2
+    return torch.stack([work[base + w:base + w + 2].view(torch.int64)[0]
+                        for w in UTIL_COUNTERS])
+
+
+# the work area of each (device, stream) and the counter set its next
+# launch takes: launches on a stream (the group design's and K4's) take the
+# sets in turn, each zeroing the other's, so no launch needs a memset; a
+# new area (zeros, set 0), at the next power of two of queue slots, when a
+# batch outgrows it
 _group_work = {}
 
 
-def stream_group_work(B: int, dev):
-    """(work area, counter set) for the group design's next launch of B
-    rays on `dev`'s current stream (no rays launch nothing and take no
-    set)."""
+def stream_group_work(B: int, dev, queue: bool = True):
+    """(work area, counter set) for the next launch of B rays on `dev`'s
+    current stream: the group design's (`queue`: B queue slots) or K4's
+    (no slots). No rays launch nothing and take no set."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     work, count_set = _group_work.get(key, (None, 0))
-    if work is None or work.numel() < GROUP_WORK + B:
-        work, count_set = group_work(1 << max(B - 1, 1).bit_length(), dev), 0
+    slots = B if queue else 0
+    if work is None or work.numel() < GROUP_WORK + slots:
+        work, count_set = group_work(1 << max(slots - 1, 1).bit_length(), dev), 0
     _group_work[key] = (work, 1 - count_set if B > 0 else count_set)
     return work, count_set
 
@@ -471,14 +513,37 @@ def _wide_args(table: Tensor, rays: Rays, any_hit, stack_depth, max_iters,
     return args, out
 
 
-def _wide_result(err: int, out, with_iters: bool):
+def _wide_result(err: int, out, with_iters: bool, slots: Tensor = None):
+    """The outputs of a K1 or K4 launch: the hit, with `with_iters` its
+    steps and flags, and `slots` when given and with_iters."""
     if err != 0:
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
     t, tri, u, v, steps, flags = out
     hit = Hit(t=t, tri=tri, u=u, v=v)
+    if with_iters and slots is not None:
+        return hit, steps, flags, slots
     if with_iters:
         return hit, steps, flags
     return hit
+
+
+def _work_area(B: int, dev, queue: bool, scratch: Tensor = None):
+    """(work area, counter set) of a group-design or K4 launch: the
+    stream's (``stream_group_work``), or `scratch`, a new one
+    (``group_work``: B queue slots with `queue`, none without), counting in
+    set 0."""
+    if scratch is None:
+        return stream_group_work(B, dev, queue)
+    _require(scratch, "_scratch", torch.int32,
+             (GROUP_WORK + (B if queue else 0),), dev)
+    return scratch, 0
+
+
+def _kernel_slots(work: Tensor, count_set: int, wanted: bool):
+    """The slots counter of a launch counting in `count_set` of `work`,
+    copied out before a later launch on the stream zeroes it, when
+    `wanted` (with_util and with_iters), else None."""
+    return work_util(work, count_set)[0] if wanted else None
 
 
 def _stream(dev):
@@ -489,10 +554,13 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
                         stack_depth: int = STACK_DEPTH,
                         max_iters: int = MAX_ITERS, roots: Tensor = None,
                         with_iters: bool = False, any_mask: Tensor = None,
-                        _variant: str = None, _design: str = None,
-                        _scratch: Tensor = None):
+                        with_util: bool = False, _variant: str = None,
+                        _design: str = None, _scratch: Tensor = None):
     """Launch K1 (``csrc/traversal8.cu``) on the current stream: the same
-    signature, results, step counts and flags as ``intersect_wide``.
+    signature, results, step counts and flags as ``intersect_wide``. With
+    `with_util` (and with_iters) the slots come from the steps
+    (``static_slots``: the shared variant and the per-thread design run 32
+    consecutive rays a warp), or from the group design's own count.
 
     Takes CUDA tensors only: (R, 128) float32 table; rays o, d (B, 3) and
     tmin, tmax (B,) float32; roots (B,) int32; any_mask (B,) bool. Raises on
@@ -516,13 +584,8 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
     design = (_design or "thread") if variant == "global" else None
     code = VARIANTS[variant]
     if design == "group":
-        B = rays.o.shape[0]
-        if _scratch is None:
-            counter, count_set = stream_group_work(B, table.device)
-        else:
-            _require(_scratch, "_scratch", torch.int32, (GROUP_WORK + B,),
-                     table.device)
-            counter, count_set = _scratch, 0
+        counter, count_set = _work_area(rays.o.shape[0], table.device, True,
+                                        _scratch)
         code = GROUP_CODE + count_set
     else:
         counter = queue_counter(variant, table.device)
@@ -530,8 +593,11 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
     fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    res = _wide_result(fn(*args, _ptr(counter), code, _stream(table.device)),
-                       out, with_iters)
+    err = fn(*args, _ptr(counter), code, _stream(table.device))
+    wanted = with_util and with_iters
+    slots = (_kernel_slots(counter, count_set, wanted) if design == "group"
+             else static_slots(out[4]) if wanted else None)
+    res = _wide_result(err, out, with_iters, slots)
     intersect_wide_cuda.launches += 1
     intersect_wide_cuda.launches_by_variant[variant] += 1
     intersect_wide_cuda.launches_by_mode[launch_mode(any_hit, any_mask)] += 1
@@ -558,20 +624,30 @@ intersect_wide_cuda.launches_by_design = dict.fromkeys(GLOBAL_DESIGNS, 0)
 def intersect_wide_pool_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
                              stack_depth: int = STACK_DEPTH,
                              max_iters: int = MAX_ITERS, roots: Tensor = None,
-                             with_iters: bool = False, any_mask: Tensor = None):
+                             with_iters: bool = False, any_mask: Tensor = None,
+                             with_util: bool = False, _variant: str = None,
+                             _scratch: Tensor = None):
     """Launch K4 (``csrc/traversal_pool.cu``) on the current stream: K1's
     signature, checks and outputs, bit for bit, for any order of the rays.
-    Its queue counter is an int32 scratch tensor allocated here; the C entry
-    zeroes it on the stream before the launch. Each launch adds one to
-    ``intersect_wide_pool_cuda.launches``."""
+    Rows come from shared memory where the table fits (``launch_variant``;
+    `_variant` forces one). The queue counter is in the stream's work area
+    (``stream_group_work``: no memset and no scratch tensor a launch), or
+    in `_scratch`, a new one (``group_work(0, dev)``), whose
+    ``GROUP_COUNTERS`` and ``work_util`` then read. With `with_util` (and
+    with_iters) the kernel's own count of its lane slots is returned.
+    Each launch adds one to ``intersect_wide_pool_cuda.launches``."""
     args, out = _wide_args(table, rays, any_hit, stack_depth, max_iters, roots,
                            any_mask)
-    counter = torch.empty(1, dtype=torch.int32, device=table.device)
+    variant = launch_variant(table, _variant)
+    work, count_set = _work_area(rays.o.shape[0], table.device, False, _scratch)
     fn = cuda_build.load_library("traversal_pool.cu").ctl_traverse_pool
-    fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p] * 2
+    fn.argtypes = _WIDE_ARGTYPES + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    res = _wide_result(fn(*args, _ptr(counter), _stream(table.device)), out,
-                       with_iters)
+    err = fn(*args, _ptr(work), count_set, VARIANTS[variant],
+             _stream(table.device))
+    res = _wide_result(err, out, with_iters,
+                       _kernel_slots(work, count_set, with_util and with_iters))
     intersect_wide_pool_cuda.launches += 1
     return res
 
@@ -579,18 +655,33 @@ def intersect_wide_pool_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
 intersect_wide_pool_cuda.launches = 0
 
 
+def pool_schedule() -> tuple:
+    """(the idle lanes a warp of K4 waits for before it claims rays, the
+    fetches a lane makes in one iteration while it draws dead rays):
+    ``kFetchIdle`` and ``kFetchRounds`` of ``csrc/traversal_pool.cu`` (builds
+    the library)."""
+    fn = cuda_build.load_library("traversal_pool.cu").ctl_pool_schedule
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 2)()
+    fn(out)
+    return out[0], out[1]
+
+
 def intersect_wide_pool(table: Tensor, rays: Rays, any_hit: bool = False,
                         stack_depth: int = STACK_DEPTH,
                         max_iters: int = MAX_ITERS, roots: Tensor = None,
-                        with_iters: bool = False, any_mask: Tensor = None):
+                        with_iters: bool = False, any_mask: Tensor = None,
+                        with_util: bool = False):
     """The pool traversal (JAX ``traversal_pl.intersect_pallas_pool``): K4
     for a CUDA table; for a CPU table its plain version, which is
-    ``intersect_wide`` (K4 computes K1's function). Same signature and
+    ``intersect_wide`` (K4 computes K1's function; its slots with
+    `with_util` are then K1's static schedule's). Same signature and
     outputs as ``intersect_wide``."""
     fn = _wide_fn(table, pool=True)
     return fn(table, rays, any_hit=any_hit, stack_depth=stack_depth,
               max_iters=max_iters, roots=roots, with_iters=with_iters,
-              any_mask=any_mask)
+              any_mask=any_mask, with_util=with_util)
 
 
 V_COHERENT = 6     # treelet visit budget of camera rays

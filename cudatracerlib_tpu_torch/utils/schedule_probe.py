@@ -16,6 +16,14 @@ or 32 lanes a live ray, or with the kept 16 and an L2 prefetch of each
 node step's eligible children (``GROUP_DESIGNS``), so that one call can
 time them against the kept kernel.
 
+``traverse_pool`` runs K4 with another threshold of idle lanes before a
+warp claims rays (1, 8 or 16; K4 keeps one), or with another bound on a
+lane's fetches in one iteration while it draws dead rays (1 or 2), or in
+K4's first design: a
+refill at every step, dead rays stepped, rows from device memory on every
+table, a memset of the queue counter before each launch
+(``POOL_DESIGNS``). ``pool_model`` is the plain model of K4's lane slots.
+
 K3's stage each treelet slab on chip for the visits that share it, with
 K3's per-slot code: a persistent grid of 512-thread blocks, one per SM,
 walks chunks of the sorted slots and stages the slab of each treelet
@@ -31,8 +39,9 @@ arguments of ``treelet_hits``):
 - ``"walk"``: the split design's schedule with nothing staged and no
   shared memory (the schedule's own cost).
 
-``traverse8``, ``top_visits`` and ``treelet_hits`` take the arguments and
-return the outputs of ``ops.traversal8.intersect_wide_cuda``,
+``traverse8``, ``traverse_pool``, ``top_visits`` and ``treelet_hits``
+take the arguments and return the outputs of
+``ops.traversal8.intersect_wide_cuda``, ``intersect_wide_pool_cuda``,
 ``ops.traversal_tt.top_visits_cuda`` and ``treelet_hits_cuda``, bit for
 bit alike; ``chip_smoke.py`` holds them to the plain versions and times
 them beside the kept variants on the same rays. CUDA tensors only; the
@@ -42,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..ops import cuda_build, traversal8, traversal_tt
@@ -53,6 +63,9 @@ DESIGNS = {"stride": 0, "smem_stack": 1}
 # one (16 lanes a live ray): 8 or 32 lanes, or 16 with an L2 prefetch of
 # each node step's eligible children
 GROUP_DESIGNS = {"g8": 0, "g32": 1, "g16p": 2}
+# K4 at a threshold of 1, 8 or 16 idle lanes; at its own threshold with 1
+# or 2 fetches an iteration; and its first design (the C entry's codes)
+POOL_DESIGNS = {"first": 0, "f1": 1, "f8": 8, "f16": 16, "r1": 101, "r2": 102}
 K3_DESIGNS = {"cluster": 0, "split": 1, "walk": 2}
 CLUSTER_MAX = 8    # the largest cluster the cluster design is built for
 # the K3 designs' chunk of sorted slots and fewest visits of a staged
@@ -88,7 +101,8 @@ def traverse8(table, rays: Rays, design: str, any_hit: bool = False,
 def traverse8_group(table, rays: Rays, design: str, any_hit: bool = False,
                     stack_depth: int = traversal8.STACK_DEPTH,
                     max_iters: int = traversal8.MAX_ITERS, roots=None,
-                    with_iters: bool = False, any_mask=None, _scratch=None):
+                    with_iters: bool = False, any_mask=None,
+                    with_util: bool = False, _scratch=None):
     """K1's global variant in the group design `design` (``GROUP_DESIGNS``):
     the outputs of ``intersect_wide_cuda``, on the stream's work area
     (``traversal8.stream_group_work``) or on `_scratch`, a new one
@@ -97,20 +111,87 @@ def traverse8_group(table, rays: Rays, design: str, any_hit: bool = False,
         raise ValueError(f"no group design {design!r}: one of {list(GROUP_DESIGNS)}")
     args, out = traversal8._wide_args(table, rays, any_hit, stack_depth,
                                       max_iters, roots, any_mask)
-    B = rays.o.shape[0]
-    if _scratch is None:
-        work, count_set = traversal8.stream_group_work(B, table.device)
-    else:
-        work, count_set = _scratch, 0
-        traversal8._require(work, "_scratch", torch.int32,
-                            (traversal8.GROUP_WORK + B,), table.device)
+    work, count_set = traversal8._work_area(rays.o.shape[0], table.device,
+                                            True, _scratch)
     fn = _lib().ctl_probe_traverse8_group
     fn.argtypes = traversal8._WIDE_ARGTYPES + [ctypes.c_void_p] \
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(*args, traversal8._ptr(work), count_set, GROUP_DESIGNS[design],
              traversal8._stream(table.device))
-    return traversal8._wide_result(err, out, with_iters)
+    return traversal8._wide_result(
+        err, out, with_iters,
+        traversal8._kernel_slots(work, count_set, with_util and with_iters))
+
+
+def traverse_pool(table, rays: Rays, design: str, any_hit: bool = False,
+                  stack_depth: int = traversal8.STACK_DEPTH,
+                  max_iters: int = traversal8.MAX_ITERS, roots=None,
+                  with_iters: bool = False, any_mask=None,
+                  with_util: bool = False, _scratch=None):
+    """K4 in the design `design` (``POOL_DESIGNS``): the outputs of
+    ``intersect_wide_pool_cuda``, rows from the variant the table's size
+    picks (its first design: from device memory), on the stream's work area
+    or on `_scratch`, a new one (``traversal8.group_work(0, dev)``)."""
+    if design not in POOL_DESIGNS:
+        raise ValueError(f"no K4 design {design!r}: one of {list(POOL_DESIGNS)}")
+    args, out = traversal8._wide_args(table, rays, any_hit, stack_depth,
+                                      max_iters, roots, any_mask)
+    work, count_set = traversal8._work_area(rays.o.shape[0], table.device,
+                                            False, _scratch)
+    fn = _lib().ctl_probe_traverse_pool
+    fn.argtypes = traversal8._WIDE_ARGTYPES + [ctypes.c_void_p] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*args, traversal8._ptr(work), count_set,
+             traversal8.VARIANTS[traversal8.launch_variant(table)],
+             POOL_DESIGNS[design], traversal8._stream(table.device))
+    return traversal8._wide_result(
+        err, out, with_iters,
+        traversal8._kernel_slots(work, count_set, with_util and with_iters))
+
+
+def pool_model(steps, dead, warps: int, fetch_idle: int, rounds: int = 4,
+               skip_dead: bool = True):
+    """Plain model of K4's lane slots (csrc/traversal_pool.cu) from each
+    ray's steps and dead flag (numpy arrays in queue order): `warps`
+    resident warps of 32 lanes step in lock step and claim rays from one
+    queue in warp order; a warp with at least `fetch_idle` idle lanes
+    claims one ray an idle lane, up to `rounds` times while it draws dead
+    rays (with `skip_dead`; each such round is 32 slots whose dead rays run
+    their one step), and each iteration that steps a lane is 32 slots.
+    The card's order of claims differs; the model says what the queue and
+    the threshold can recover on a batch. Returns (slots, lane steps)."""
+    steps = np.asarray(steps, np.int64)
+    dead = np.asarray(dead, bool) & skip_dead
+    n = len(steps)
+    rem = np.zeros((warps, 32), np.int64)
+    done = np.zeros(warps, bool)
+    q = slots = active = 0
+    while not done.all():
+        for w in np.flatnonzero(~done):
+            r = rem[w]
+            idle = np.flatnonzero(r == 0)
+            if q < n and len(idle) >= fetch_idle:
+                for _ in range(rounds):
+                    k = min(len(idle), n - q)
+                    ids = np.arange(q, q + k)
+                    q += k
+                    live = ids[~dead[ids]]
+                    r[idle[:len(live)]] = steps[live]
+                    idle = idle[len(live):]
+                    if k == len(live):
+                        break
+                    slots += 32
+                    active += k - len(live)
+            run = r > 0
+            if not run.any():
+                done[w] = q >= n
+                continue
+            slots += 32
+            active += int(run.sum())
+            r[run] -= 1
+    return slots, active
 
 
 def top_visits(top, rays: Rays, V: int, design: str, any_hit: bool = False,

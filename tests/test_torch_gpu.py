@@ -150,10 +150,19 @@ def test_path_without_nee_on_gpu(dev):
 
 @pytest.mark.gpu
 def test_pool_kernel_matches_k1_on_gpu(dev):
-    """K4 against K1 and the plain version on veach-mis camera rays and
-    random rays, closest / any-hit / mixed, and on the rays shuffled."""
+    """K4 and the probe's K4 designs (thresholds 1, 8 and 16 idle lanes;
+    K4's first design) against K1 and the plain version on veach-mis camera
+    rays and random rays, a third of them dead (tmax -1), closest / any-hit
+    / mixed, from both row sources (the table in shared memory by the size
+    rule, and forced from device memory), and on the rays shuffled; each
+    launch's lane steps (work_util) equal the steps' sum, its slots a
+    multiple of 32 and no fewer, the rays it classified all of them and
+    its live rays the plain model's (all of them for the first design, which
+    steps the dead ones); K1's slots are the static schedule's."""
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
     sc = tscenes.veach_mis(64, 64).build(dev)
     table = sc.geom.wide
+    assert traversal8.launch_variant(table) == "shared"
     pix = torch.arange(4096, dtype=torch.int32, device=dev)
     cam = ttracer.gen_camera_rays(sc, pix, 0, 0, 64, 64)[0]
     r = np.random.default_rng(3)
@@ -161,23 +170,46 @@ def test_pool_kernel_matches_k1_on_gpu(dev):
     d = r.normal(size=(N_RAYS, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     B = 4096 + N_RAYS
+    tmax = torch.where(torch.from_numpy(r.random(B) < 1 / 3).to(dev), -1.0, 1e30)
     rays = Rays(torch.cat([cam.o, torch.from_numpy(o).to(dev)]),
                 torch.cat([cam.d, torch.from_numpy(d).to(dev)]),
-                torch.full((B,), 1e-4, device=dev), torch.full((B,), 1e30, device=dev))
+                torch.full((B,), 1e-4, device=dev), tmax.contiguous())
+    live = int(traversal8.live_lanes(rays).sum())
     amask = torch.from_numpy(r.random(B) < 0.5).to(dev)
     perm = torch.from_numpy(r.permutation(B)).to(dev)
     shuffled = Rays(*(x[perm].contiguous() for x in rays))
+    K4 = traversal8.intersect_wide_pool_cuda
+
+    def designs():
+        for variant in (None, "global"):
+            yield f"k4 {variant}", lambda rr, kw, work=None, v=variant: K4(
+                table, rr, with_iters=True, with_util=True, _variant=v,
+                _scratch=work, **kw)
+        for design in probe.POOL_DESIGNS:
+            yield design, lambda rr, kw, work=None, d=design: probe.traverse_pool(
+                table, rr, d, with_iters=True, with_util=True, _scratch=work, **kw)
     for kw, kw_s in (({}, {}), (dict(any_hit=True), dict(any_hit=True)),
                      (dict(any_mask=amask), dict(any_mask=amask[perm]))):
-        k4 = traversal8.intersect_wide_pool_cuda(table, rays, with_iters=True, **kw)
-        k1 = traversal8.intersect_wide_cuda(table, rays, with_iters=True, **kw)
-        p = traversal8.intersect_wide(table, rays, with_iters=True, **kw)
-        _equal((*k4[0], k4[1], k4[2]), (*k1[0], k1[1], k1[2]))
-        _equal((*k4[0], k4[1], k4[2]), (*p[0], p[1], p[2]))
-        ks = traversal8.intersect_wide_pool_cuda(table, shuffled, with_iters=True, **kw_s)
-        un = [None if x is None else torch.empty_like(x).index_copy_(0, perm, x)
-              for x in (*ks[0], ks[1], ks[2])]
-        _equal(un, (*k1[0], k1[1], k1[2]))
+        k1 = traversal8.intersect_wide_cuda(table, rays, with_iters=True,
+                                            with_util=True, **kw)
+        p = traversal8.intersect_wide(table, rays, with_iters=True, with_util=True, **kw)
+        _equal((*k1[0], k1[1], k1[2], k1[3]), (*p[0], p[1], p[2], p[3]))
+        steps = int(p[1].sum())
+        for name, run in designs():
+            work = traversal8.group_work(0, dev)
+            k4 = run(rays, kw, work)
+            _equal((*k4[0], k4[1], k4[2]), (*p[0], p[1], p[2]))
+            slots, active = traversal8.work_util(work).tolist()
+            counts = [int(work[k]) for k in traversal8.GROUP_COUNTERS]
+            assert active == steps and int(k4[3]) == slots, name
+            assert slots % 32 == 0 and slots >= steps, name
+            assert counts[3] == B and counts[1] == (B if name == "first" else live), name
+            assert not work[traversal8.GROUP_WORK // 2:].any(), name
+            ks = run(shuffled, kw_s)
+            un = [None if x is None else torch.empty_like(x).index_copy_(0, perm, x)
+                  for x in (*ks[0], ks[1], ks[2])]
+            _equal(un, (*p[0], p[1], p[2]))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
