@@ -3,7 +3,9 @@ each against its plain PyTorch version, and run the Cornell, veach-mis and
 San Miguel path-tracing passes, the PrimTracer, BDPT, light-tracer and VCM
 passes, the PPM and volumetric path-tracing passes in fog, the
 non-perspective sensors, the regenerating wavefront path tracer, the
-FastTracer and the game tracer on San Miguel, the adaptive block sampler
+FastTracer and the game tracer on San Miguel, the path tracer on a
+4.8M-triangle San Miguel stand-in (K2's split variant), the adaptive
+block sampler
 with the image pipeline and the Sobol' sampler on veach-mis, the alpha,
 bump, parallax, BSSRDF and spectral scenes, two-level instanced scenes
 (their BLAS visits on K1, or K2, K3 and the K1 fallback, with per-lane
@@ -27,9 +29,10 @@ failure exits non-zero, and nothing falls back to the CPU:
    spills; from cuobjdump's SASS, each traversal kernel's 128-bit loads:
    the shared variants of K1 and K2 must read rows with LDS (no generic
    LD), the global kernels with LDG, and the probe's K3 designs that stage
-   a slab must stage with LDGSTS and hold at least one step's row loads
-   (K3's LDG count) as LDS or generic LD (through a cluster's shared
-   windows);
+   a slab, and K2's split variant (top_visits_split_kernel at V = 3 and
+   6, both required), must stage with LDGSTS and hold at least one step's
+   row loads (K3's LDG count) as LDS or generic LD (through a cluster's
+   shared windows, or where a row may lie in either memory);
 2. K1's variants against its plain version on the Cornell 512^2 table with
    131,072+513 rays inside the box: the shared variant (the one the size
    rule picks), the global variant forced, and the two designs of
@@ -168,9 +171,30 @@ failure exits non-zero, and nothing falls back to the CPU:
    and occupied cells, peak memory; one frame profiled; both traversals of
    a recorded frame held kernel by kernel to the plain versions; the game
    tracer on Cornell 32^2 against the CPU, frame by frame;
+7d. (sm48_phases) the San Miguel stand-in at 4,800,000 triangles, built on
+   the card (its top table of 998-999 rows is past one block's shared
+   memory: K2's split variant):
+   PathTracer 1024^2, depth 5,
+   chunks of 131,072, a warm-up and 2 timed passes (s/pass, live Mrays/s),
+   every K2 launch the split variant at both V, K3, every K1 launch the
+   group design, no K4, no plain call, nothing capped; every K2 call of
+   one more pass held (hold_k2_call) in the split variant as kept, the
+   probe's cluster design at n = 4 and 2n = 8 blocks and the probe's
+   global design (one thread per ray), identical to
+   the plain version, each timed twice (k2_split_call lines after P1,
+   with each design's chain floor and floor_ratio, and
+   k2_designs_summary: the sums over the pass, the spread of two readings,
+   the fastest design); one traversal of 262,144 rays through the treelet
+   path against K1 alone on the 1,057,031-row table (hit/no-hit and t
+   within 1e-3);
 8. P1-P3 (utils/microbench.py) timed at their full sizes, with the counts
    zeroed around the run; the output of every timed configuration must
-   equal its plain version's on the same inputs.
+   equal its plain version's on the same inputs. P1 runs each mode of read
+   (thread, shared, group of 16 lanes, cluster of 2, 4 and 8 blocks, bulk
+   copy) that fits each table, reading the whole row, and each mode but
+   bulk reading a node step's 14 float4, at 1,024 chains and at one chain
+   a warp on every SM, and reports ns per dependent row as the slope
+   between 256 and 512 steps (p1_ns_per_row).
 9a. (instanced_phases) the instanced golden: PathTracer on the JAX tests'
    instanced scene (five nodes sharing one sphere: six instances, the
    dense route, K1 with per-lane roots) at 48^2, depth 4, 8 passes against
@@ -268,11 +292,21 @@ back), slots, utilization (steps / slots), lanes, live lanes, the bound
 (trav_bound), and the card's name and power limit; pool_vs_k1_summary
 sums the natural modes' device ms by design.
 
-The kernel table comes next: one row for each variant of K1 and K2, for
-K3 and each of the probe's K3 designs, for K4's two row sources and the
+Each k1_global_call line's chain floor is its largest live steps times
+P1's ns per dependent row for a node step's read (14 float4) in the
+design's mode of read (thread or group), one chain a warp, the lowest over
+the measured tables of at most the call's rows: a traversal keeps its hot
+rows in the nearest cache, so the floor takes the table that caches best
+and stays a lower bound. floor_ratio is each design's device ms over its
+floor (under 1: the design beat the floor; the run does not fail on it).
+
+The kernel table comes next: one row for each variant of K1 and K2 and
+for the probe's K2 global design, for K3 and each of the probe's K3 designs, for K4's two row sources and the
 probe's K4 designs, and for P1-P3, with its
-launches on its own path (the global variant of K2 and the K3 designs
-take none on the main path, nor does K4), its time and its plain
+launches on its own path (the probe's K2 and K3 designs take none on the
+main path, nor does K4; K2's split variant on the
+4.8M pass, every call of one pass summed; P1 in each mode), its time and
+its plain
 version's time (K1 shared on veach-mis, with its utilization there and
 on Cornell from pool_vs_k1, K1 global on the San Miguel
 fallback batch, K2 and K3 at V=3, K4 on veach-mis (shared rows, and the
@@ -300,6 +334,7 @@ the device record.
 import json
 import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -490,11 +525,11 @@ L3_SECONDS = 60.0       # parse, build and one pass
 # the traversal kernels' names in a profile, one entry per K2
 # instantiation (template argument: V)
 KERNEL_RE = re.compile(r"traverse8(?:_shared|_group)?_kernel"
-                       r"|top_visits(?:_shared)?_kernel(?:<\d+>)?"
+                       r"|top_visits(?:_shared|_split)?_kernel(?:<\d+>)?"
                        r"|treelet_hits_kernel|traverse_pool(?:_shared)?_kernel")
 # the kernels in a mangled SASS function name, and their template arguments
 SASS_NAME_RE = re.compile(r"(traverse8_shared_kernel|traverse8_kernel"
-                          r"|top_visits_shared_kernel|top_visits_kernel"
+                          r"|top_visits_shared_kernel|top_visits_split_kernel"
                           r"|treelet_hits_kernel|traverse_pool_shared_kernel"
                           r"|traverse_pool_kernel)"
                           r"(I(?:L[bi]\d+E)+E)?")
@@ -641,11 +676,14 @@ class RowFetches:
     boxes and links and each distinct leaf row's triangles, once. A call
     on a large table reads a small part of it (a fallback batch's few live
     rays), so the whole table would overstate its bound. With `lanes` (a
-    (B,) bool mask) only those lanes' fetches count."""
+    (B,) bool mask) only those lanes' fetches count. With `split_rows`,
+    `near_far` lists each distinct pair (row reads below split_rows, row
+    reads of the rest) of a lane."""
 
-    def __init__(self, lanes=None):
+    def __init__(self, lanes=None, split_rows=None):
         from cudatracerlib_tpu_torch.ops import traversal8
         self.t8, self.seen, self.lanes = traversal8, None, lanes
+        self.split_rows, self.reads = split_rows, None
 
     def __enter__(self):
         self.t8.on_fetch = self._log
@@ -662,10 +700,22 @@ class RowFetches:
             is_node, is_leaf = is_node & self.lanes, is_leaf & self.lanes
         self.seen[rows[is_node].long()] = self.t8.NODE_STEP_BYTES
         self.seen[rows[is_leaf].long()] = self.t8.LEAF_STEP_BYTES
+        if self.split_rows is not None:
+            if self.reads is None:
+                self.reads = torch.zeros((rows.shape[0], 2), dtype=torch.int32,
+                                         device=rows.device)
+            far = (rows >= self.split_rows).long()
+            self.reads[torch.arange(rows.shape[0], device=rows.device), far] += \
+                (is_node | is_leaf).to(torch.int32)
 
     @property
     def nbytes(self):
         return 0 if self.seen is None else int(self.seen.sum())
+
+    @property
+    def near_far(self):
+        return [] if self.reads is None else \
+            [tuple(p) for p in torch.unique(self.reads, dim=0).tolist()]
 
 
 def trav_bound(table_bytes, B, steps, mixed, mb, traversal8, live=None,
@@ -1233,7 +1283,8 @@ def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
              f"bound {bound[0]} ms")
     ls = steps_ref[live].double()
     K1_GLOBAL_CALLS.append(dict(
-        call_of=label, mode=mode, serving=serving, lanes=B, live=want_live,
+        call_of=label, mode=mode, serving=serving, rows=table.shape[0], lanes=B,
+        live=want_live,
         roots="roots" in kw, steps=steps,
         live_steps_mean=float(ls.mean()) if ls.numel() else None,
         live_steps_p99=float(torch.quantile(ls, 0.99)) if ls.numel() else None,
@@ -1246,17 +1297,44 @@ def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
                 designs=med)
 
 
-def k1_global_lines(ns_per_row):
-    """One line per call in K1_GLOBAL_CALLS, with its chain floor: the
-    largest live steps times P1's ns per dependent row, both from this
-    run; returns the lines."""
+def chain_floor(p1, design, rows, steps, mb, blocks=None):
+    """(floor ms, the P1 entry): `steps` dependent rows (a call's largest
+    live step count) at the ns per dependent row of the P1 reading that
+    `design` is held to (mb.floor_entry: a node step's read in its mode of
+    read, one chain a warp, the lowest over the measured tables of at most
+    `rows` rows); (None, None) when P1 did not measure that mode."""
+    e = mb.floor_entry(p1, design, rows, blocks)
+    if e is None:
+        return None, None
+    return steps * max(e["ns_per_dependent_row"], 0.0) / 1e6, e
+
+
+def floor_fields(times, floors):
+    """{design: device ms over its chain floor} (the median of a design's
+    readings) for the designs with a floor."""
+    return {d: statistics.median(v) / floors[d][0] for d, v in times.items()
+            if floors.get(d, (None,))[0]}
+
+
+def k1_global_lines(p1, mb):
+    """One line per call in K1_GLOBAL_CALLS, with each design's chain
+    floor: the largest live steps times the ns per dependent row of P1's
+    node-step reading in the design's mode of read (thread: one thread a
+    row through L1/L2; group: 16 lanes a row), one chain a warp, the lowest
+    over the measured tables of at most the call's rows, both from this
+    run; and
+    floor_ratio, each design's device ms over its floor (under 1: the
+    design beat the reading, PERF.md names it). Returns the lines."""
     lines = []
     for c in K1_GLOBAL_CALLS:
-        floor = c["live_steps_max"] * ns_per_row / 1e6
+        floors = {d: chain_floor(p1, d, c["rows"], c["live_steps_max"], mb)
+                  for d in ("thread", "group")}
         med = {d: statistics.median(v) for d, v in c["device_ms"].items()}
-        line = dict(c, chain_floor_ms=floor, ns_per_dependent_row=ns_per_row,
-                    thread_over_floor=med["thread"] / floor if floor else None,
-                    group_over_floor=med["group"] / floor if floor else None,
+        line = dict(c, chain_floor_ms={d: f[0] for d, f in floors.items()},
+                    ns_per_dependent_row={d: f[1] and f[1]["ns_per_dependent_row"]
+                                          for d, f in floors.items()},
+                    floor_rows={d: f[1] and f[1]["rows"] for d, f in floors.items()},
+                    floor_ratio=floor_fields(c["device_ms"], floors),
                     thread_over_group=med["thread"] / med["group"])
         emit(phase="k1_global_call", **line)
         lines.append(line)
@@ -2319,6 +2397,257 @@ def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
     return {"game": out}
 
 
+# 7d: the San Miguel stand-in at 4x phase 7's triangles (its top table
+# over 454 rows: K2's split variant), config 3's path tracer settings
+SM48_TRIS = 4_800_000
+SM48_DEPTH = 5
+SM48_CHUNK = 131072
+SM48_PASSES = 2
+SM48_K1_LIMIT = 1e-3     # hit/no-hit and t against K1 alone
+SPLIT_ROWS = 453         # the rows K2's split variant stages (cluster_rows.cuh)
+# every K2 call of one 4.8M pass held in each design (hold_k2_call), for
+# the lines after P1 (their chain floors)
+SM48_K2_CALLS = []
+
+
+def k2_designs(top, probe):
+    """(n, {design: (K2 keyword arguments, or the probe's design and
+    blocks)}): the K2 designs held on a top table past one block's shared
+    memory: the split variant as kept (rows 0-452 on chip, the rest through
+    L1/L2), the probe's cluster design at slab_variant's n blocks and at 2n
+    (up to 8), and the probe's global design (one thread per ray)."""
+    n = probe.slab_variant(top.shape[0], torch.cuda.get_device_properties(
+        top.device).shared_memory_per_block_optin)
+    designs = {"split": dict(_variant="split"), "cluster": ("cluster", n)}
+    if 2 * n <= probe.CLUSTER_MAX:
+        designs["cluster_2n"] = ("cluster", 2 * n)
+    designs["global"] = ("global",)
+    return n, designs
+
+
+def hold_k2_call(label, top, rays, V, kw, K2, probe, traversal8, traversal_tt, mb):
+    """One recorded K2 call (top, rays, V, kw) in every design of
+    k2_designs against the plain version (RowFetches for its bound): every
+    field identical (hits, visit lists, counts, min-dropped t, steps,
+    flags), no lane flagged. Device times (CUDA events behind a sleeping
+    kernel, median of 3) of each design twice, in order and back; the kept
+    design's synchronised median; the bound (the top rows fetched once, the
+    rays in, the outputs out; steps x a node step's operations), which no
+    reading may beat; each lane's row reads on the rows the split variant
+    stages and on the rest (RowFetches' near_far, for its chain floor).
+    Appends the call's record to SM48_K2_CALLS."""
+    n, designs = k2_designs(top, probe)
+    B = rays.o.shape[0]
+    mode = traversal8.launch_mode(kw.get("any_hit", False), kw.get("any_mask"))
+
+    def run(design):
+        how = designs[design]
+        r = (K2(top, rays, V, **how, **kw) if isinstance(how, dict)
+             else probe.top_visits(top, rays, V, *how, **kw))
+        return (*r[0], *r[1:])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RowFetches(split_rows=SPLIT_ROWS) as fetched:
+        r = traversal_tt.top_visits(top, rays, V, **kw)
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = (*r[0], *r[1:])
+    err = 0.0
+    for design in designs:
+        ok, e = same(run(design), ref)
+        if not ok:
+            fail(f"K2 ({design}) disagrees with its plain version on {label} ({mode})")
+        err = max(err, e)
+    steps_t, flags = ref[-2], ref[-1]
+    if int((flags != 0).sum()):
+        fail(f"capped or overflowed K2 lanes on {label}")
+    times = {}
+    for design in (*designs, *reversed(designs)):
+        times.setdefault(design, []).append(device_ms(lambda: run(design), reps=3))
+    steps = int(steps_t.sum())
+    bound = mb.bound_ms(fetched.nbytes + B * 33 + B * (29 + 8 * V)
+                        + (B * 4 if "roots" in kw else 0),
+                        steps * traversal8.NODE_STEP_FLOPS)
+    if min(min(v) for v in times.values()) < bound[0]:
+        fail(f"K2 on {label} took {times} ms of device time, under its bound "
+             f"{bound[0]} ms")
+    SM48_K2_CALLS.append(dict(
+        call_of=label, V=V, mode=mode, rays=B, rows=top.shape[0], blocks=n,
+        steps=steps, steps_max=int(steps_t.max()), near_far=fetched.near_far,
+        max_abs_err=err,
+        device_ms=times, ms=cuda_median_ms(lambda: run("split"), reps=3),
+        plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1]))
+
+
+def k2_call_lines(p1, mb, card):
+    """One line per call in SM48_K2_CALLS, with each design's chain floor
+    and floor_ratio; then the sums over the pass by design. A floor is P1's
+    node-step reading in the design's mode of read (mb.floor_entry: one
+    chain a warp, the lowest over the tables measured up to the top's
+    size): the cluster design's over its blocks and the global design's
+    thread reads times the call's largest steps; the kept split variant's
+    shared reading for a lane's reads of its staged rows and thread reading
+    for the rest, the most over the lanes (mb.split_floor). Returns the
+    sums."""
+    sums = {}
+    for c in SM48_K2_CALLS:
+        blocks = dict(cluster=c["blocks"], cluster_2n=2 * c["blocks"])
+        floors = {d: mb.split_floor(p1, c["rows"], c["near_far"]) if d == "split"
+                  else chain_floor(p1, d.replace("_2n", ""), c["rows"], c["steps_max"],
+                                   mb, blocks.get(d))
+                  for d in c["device_ms"]}
+        emit(phase="k2_split_call", nvidia_smi=card,
+             chain_floor_ms={d: f[0] for d, f in floors.items()},
+             ns_per_dependent_row={d: f[1] and (
+                 [e["ns_per_dependent_row"] for e in f[1]] if d == "split"
+                 else f[1]["ns_per_dependent_row"]) for d, f in floors.items()},
+             floor_ratio=floor_fields(c["device_ms"], floors),
+             **{k: v for k, v in c.items() if k != "near_far"},
+             lanes_near_far_max=[max(x) for x in zip(*c["near_far"])])
+        for d, v in c["device_ms"].items():
+            r = sums.setdefault(d, dict(readings=[0.0] * len(v), device_ms=0.0,
+                                        chain_floor_ms=0.0))
+            r["readings"] = [a + b for a, b in zip(r["readings"], v)]
+            r["device_ms"] += statistics.median(v)
+            r["chain_floor_ms"] += floors[d][0] or 0.0
+    for r in sums.values():
+        r["floor_ratio"] = r["device_ms"] / r["chain_floor_ms"] \
+            if r["chain_floor_ms"] else None
+        r["spread_ms"] = max(r["readings"]) - min(r["readings"])
+    kept = sums.get("split")
+    best = min(sums, key=lambda d: sums[d]["device_ms"]) if sums else None
+    emit(phase="k2_designs_summary", nvidia_smi=card, calls=len(SM48_K2_CALLS),
+         by_design=sums, fastest=best, kept="split",
+         kept_margin_ms=None if kept is None else min(
+             r["device_ms"] - kept["device_ms"] for d, r in sums.items()
+             if d != "split"),
+         bound_ms=sum(c["bound_ms"] for c in SM48_K2_CALLS),
+         plain_ms=sum(c["plain_ms"] for c in SM48_K2_CALLS),
+         ms=sum(c["ms"] for c in SM48_K2_CALLS))
+    return sums
+
+
+def sm48_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmod,
+                tracermod, filmmod, example_scenes, traversal8, traversal_tt, probe,
+                mb, Rays):
+    """7d. The San Miguel stand-in at 4,800,000 triangles (its top table
+    past one block's shared memory), built on the card (build seconds),
+    PathTracer 1024^2, depth 5, chunks of 131,072 (config 3's settings): a
+    warm-up pass and SM48_PASSES timed passes (s/pass, live Mrays/s), the
+    counts zeroed around them: every K2 launch the split variant, at both
+    V, K3, every K1 launch the global variant's group design (the
+    fallback), no K4, no plain call, no ray capped or overflowed, a finite
+    non-black film. Every K2 call of one more pass recorded and held in
+    each K2 design (hold_k2_call). One traversal (131,072 camera rays and
+    131,072 random rays from the courtyard, closest hit) through the
+    treelet path against K1 alone on the unsplit table: hit/no-hit and t
+    within SM48_K1_LIMIT. Returns the launches per pass and the timings."""
+    t0 = time.perf_counter()
+    sm = example_scenes.san_miguel_stand_in(SM_SIZE, SM_SIZE, target_tris=SM48_TRIS)
+    gen_s = time.perf_counter() - t0
+    scene = sm.build(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0 - gen_s
+    del sm
+    geom = scene.geom
+    top, wide = geom.tt_top, geom.wide
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    variant, n = traversal_tt.top_variant(top.shape[0], limit), \
+        probe.slab_variant(top.shape[0], limit)
+    emit(phase="sm48_build", nvidia_smi=card, tris=scene.num_tris, rows=wide.shape[0],
+         table_mb=wide.numel() * 4 / 2**20, top_rows=top.shape[0],
+         treelets=geom.tt_slabs.shape[0], slab_rows=geom.tt_slabs.shape[1],
+         slabs_mb=geom.tt_slabs.numel() * 4 / 2**20, k2_variant=variant,
+         cluster_blocks=n, generate_seconds=gen_s, build_seconds=build_s,
+         bvh_seconds=scene.host["build_seconds"]["bvh"],
+         treelet_seconds=scene.host["build_seconds"]["treelet"])
+    if variant != "split":
+        fail(f"the 4.8M stand-in's {top.shape[0]}-row top took K2's {variant} variant")
+
+    tr = pathmod.PathTracer(scene, SM_SIZE, SM_SIZE, max_depth=SM48_DEPTH,
+                            chunk_size=SM48_CHUNK)
+    tr.do_pass()
+    torch.cuda.synchronize()
+    zero_counts()
+    secs, rays_n = timed_passes(tr, SM48_PASSES)
+    c = dict(K1=K1.launches, K2=K2.launches, K3=K3.launches, K4=K4.launches,
+             plain=plain_calls(), K1_by_variant=dict(K1.launches_by_variant),
+             K1_by_design=dict(K1.launches_by_design),
+             K2_by_variant=dict(K2.launches_by_variant),
+             K2_by_v=dict(K2.launches_by_v), K3_by_v=dict(K3.launches_by_v))
+    img = filmmod.develop(tr.film).cpu().numpy()
+    capped, overflowed = (int(x) for x in tr._ovf_dev.tolist())
+    emit(phase="headline", scene="san_miguel_stand_in_4.8M", nvidia_smi=card,
+         tris=scene.num_tris, size=SM_SIZE, max_depth=SM48_DEPTH,
+         chunk_size=SM48_CHUNK, passes=SM48_PASSES,
+         seconds_per_pass=statistics.median(secs), pass_seconds=secs,
+         live_rays=int(sum(rays_n)), mrays_per_s=sum(rays_n) / sum(secs) / 1e6,
+         steps=int(tr._iters_dev), capped=capped, overflowed=overflowed,
+         launches=c, mean_radiance=float(img.mean()),
+         finite=bool(np.isfinite(img).all()))
+    if not np.isfinite(img).all() or not img.mean() > 0.0:
+        fail("the 4.8M San Miguel image is not finite and non-black")
+    if capped or overflowed:
+        fail(f"4.8M San Miguel: capped {capped} / overflowed {overflowed} rays")
+    if (min(*c["K2_by_v"].values(), *c["K3_by_v"].values(), c["K1"]) <= 0
+            or c["K4"] or c["plain"]
+            or c["K2_by_variant"]["split"] != c["K2"]
+            or c["K1_by_variant"]["global"] != c["K1"]
+            or c["K1_by_design"]["group"] != c["K1"]):
+        fail(f"the 4.8M San Miguel passes took the wrong kernels: {c}")
+
+    # one more pass recorded: every K2 call held in each design
+    calls = [(args, kw) for kind, args, kw
+             in record_kernels(tr.do_pass, traversal8, traversal_tt, Rays)
+             if kind == "K2"]
+    per_pass = c["K2"] // SM48_PASSES
+    if len(calls) != per_pass:
+        fail(f"a 4.8M pass made {len(calls)} K2 calls, not {per_pass}")
+    t1 = time.perf_counter()
+    for i, ((top_, rays, V), kw) in enumerate(calls):
+        hold_k2_call(f"sm48_pt_call{i}", top_, rays, V, kw, K2, probe, traversal8,
+                     traversal_tt, mb)
+    emit(phase="sm48_k2_held", calls=len(calls), seconds=time.perf_counter() - t1,
+         max_abs_err=max(r["max_abs_err"] for r in SM48_K2_CALLS),
+         host_peak_rss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+         device_peak_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    del calls, tr
+
+    # one traversal through the treelet path against K1 alone
+    half = SM48_CHUNK
+    pix = (torch.arange(half, dtype=torch.int32, device=dev) * 8) % (SM_SIZE * SM_SIZE)
+    cam = tracermod.gen_camera_rays(scene, pix, 0, 0, SM_SIZE, SM_SIZE)[0]
+    rng = np.random.default_rng(48)
+    o = np.stack([rng.uniform(-16, 16, half), rng.uniform(0.3, 5.0, half),
+                  rng.uniform(-10, 10, half)], 1).astype(np.float32)
+    d = rng.normal(size=(half, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    B = 2 * half
+    rays = Rays(o=torch.cat([cam.o, torch.from_numpy(o).to(dev)]),
+                d=torch.cat([cam.d, torch.from_numpy(d).to(dev)]),
+                tmin=torch.full((B,), 1e-4, device=dev),
+                tmax=torch.full((B,), 1e30, device=dev))
+    ex = traversal8.intersect_scene(geom, rays, coherent=True)
+    k1 = K1(wide, rays)
+    hit_ex, hit_k1 = ex.tri >= 0, k1.tri >= 0
+    both = hit_ex & hit_k1
+    mismatch = float((hit_ex != hit_k1).float().mean())
+    rel = float(((ex.t - k1.t).abs() / k1.t.abs())[both].mean()) if bool(both.any()) else 0.0
+    emit(phase="sm48_vs_k1", rays=B, hits=int(both.sum()),
+         hit_mismatch_share=mismatch, t_mean_rel_err=rel,
+         t_identical=int((ex.t == k1.t)[both].sum()),
+         tri_differ=int((ex.tri != k1.tri)[both].sum()), limit=SM48_K1_LIMIT)
+    if not (mismatch <= SM48_K1_LIMIT and rel <= SM48_K1_LIMIT):
+        fail(f"the 4.8M treelet path against K1 alone: hit mismatch {mismatch}, "
+             f"t {rel}")
+    return dict(counts_per_pass={k: (v // SM48_PASSES if isinstance(v, int) else
+                                     {kk: vv // SM48_PASSES for kk, vv in v.items()})
+                                 for k, v in c.items()},
+                seconds_per_pass=statistics.median(secs),
+                mrays_per_s=sum(rays_n) / sum(secs) / 1e6, top_rows=top.shape[0],
+                rows=wide.shape[0], blocks=n, build_seconds=build_s)
+
+
 def inst_scene(host, schema, sensors, shapes, tf, size, n_spheres=5):
     """tests/test_instancing.py `_scene`: a floor, an emissive light and
     five nodes sharing one 12x24 sphere (six instances: the dense route)."""
@@ -2486,7 +2815,7 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
             steps_of = lambda r: r[5]
             io_bytes = B * 33 + B * (29 + 8 * V)
             lanes = None
-            variant = traversal8.launch_variant(top)
+            variant = traversal_tt.launch_top_variant(top)
         else:
             slabs, _, t_prune, keys, order, V = args
             run = lambda: K3(slabs, rays, t_prune, keys, order, V, **kw)
@@ -3804,7 +4133,8 @@ def main():
                          if op.startswith("LDG."))
         for fn, ops in loads.items():
             kind = ("shared" if "_shared_" in fn else
-                    "staged" if fn.startswith("probe_treelet") else "global")
+                    "staged" if fn.startswith(("probe_treelet", "top_visits_split"))
+                    else "global")
             lds = sum(n for op, n in ops.items() if op.startswith("LDS"))
             ldg = sum(n for op, n in ops.items() if op.startswith("LDG."))
             generic = sum(n for op, n in ops.items() if op.startswith("LD."))
@@ -3816,6 +4146,12 @@ def main():
                               or "LDGSTS.E.BYPASS.128" not in ops)}[kind]
             if bad:
                 fail(f"{fn}: unexpected row loads {ops}")
+        # K2's split variant's kernel at both V must be there
+        if src == "traversal_tt.cu":
+            want = {f"top_visits_split_kernel<{V}>" for V in (3, 6)}
+            if not want <= set(loads):
+                fail(f"K2's split variant's kernels missing from the SASS: "
+                     f"{sorted(want - set(loads))}")
         # K4's two row sources must both be there to be checked
         if src == "traversal_pool.cu" and not all(
                 any(fn.startswith(k + "<") for fn in loads)
@@ -4191,7 +4527,7 @@ def main():
     k2_res, k3_res, k3_splits, k4_sm = {}, {}, {}, {}
     for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT):
         def k2_run(variant, kw):
-            if variant in probe.DESIGNS:
+            if variant in probe.TOP_DESIGNS:
                 r = probe.top_visits(top, sm_rays, V, variant, **kw)
             else:
                 r = K2(top, sm_rays, V, _variant=variant, **kw)
@@ -4209,7 +4545,7 @@ def main():
                 steps * traversal8.NODE_STEP_FLOPS),
             scene="san_miguel_stand_in", V=V, rays=B, rows=top.shape[0],
             shared_bytes=top.shape[0] * traversal8.ROW_BYTES,
-            rule=traversal8.launch_variant(top))
+            rule=traversal_tt.launch_top_variant(top))
         k2_out = {mode: K2(top, sm_rays, V, **kw) for mode, kw in sm_modes.items()}
         k3_res[V] = k3_designs(V, {mode: traversal_tt.visit_slots(
             k2[0], k2[1], k2[3], n_tt, traversal8.any_lanes(
@@ -4391,19 +4727,30 @@ def main():
                                 gamemod, hashgrid, filmmod, example_scenes, traversal8,
                                 traversal_tt, mb))
 
+    # 7d. the San Miguel stand-in at 4.8M triangles: K2's split variant
+    sm48 = sm48_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmod,
+                       tracermod, filmmod, example_scenes, traversal8, traversal_tt,
+                       probe, mb, Rays)
+
     # 8. P1-P3 at full size, each held to its plain version on its inputs
     torch.cuda.synchronize()
     zero_counts()
+    mb.chase_rows_cuda.launches_by_mode = dict.fromkeys(mb.CHASE_MODES, 0)
     res = mb.measure(dev)
     mb_launches = dict(P1=mb.chase_rows_cuda.launches,
                        P2=mb.gather_rows_cuda.launches + mb.loop_only_cuda.launches,
                        P3=mb.queue_fetch_cuda.launches)
+    p1_by_mode = dict(mb.chase_rows_cuda.launches_by_mode)
     emit(phase="microbench", nvidia_smi=card, launches=mb_launches,
-         max_abs_err=mb.max_abs_err(res), **res)
-    if min(mb_launches.values()) <= 0:
-        fail(f"a microbenchmark kernel did not launch: {mb_launches}")
+         p1_launches_by_mode=p1_by_mode, max_abs_err=mb.max_abs_err(res), **res)
+    emit(phase="p1_ns_per_row", nvidia_smi=card, readings={
+        f"{e['rows']} {e['mode']}{'' if not e['param'] else e['param']} "
+        f"{e['occupancy']} w{e['words']}": e["ns_per_dependent_row"] for e in res["P1"]})
+    if min(mb_launches.values()) <= 0 or min(p1_by_mode.values()) <= 0:
+        fail(f"a microbenchmark kernel did not launch: {mb_launches}, {p1_by_mode}")
     if mb.max_abs_err(res) != 0:
         fail("a microbenchmark kernel disagrees with its plain version")
+    k2_sums = k2_call_lines(res["P1"], mb, card)
 
     # 9a-9e. two-level instancing: the golden, bench.py's instanced scene
     # (K2 with per-lane roots, K3, the K1 fallback), the 530-instance grid
@@ -4482,13 +4829,16 @@ def main():
                     if design == "cluster" else None,
                     by_tracer=sm_by_tracer("K3", "K3") if design is None else None)
 
-    def k2_row(name, variant):
+    def k2_row(name, variant, src="traversal_tt.cu"):
+        """K2 on phase 7's 240-row top at V=3, both budgets under by_v: the
+        kept shared variant (variant None) with its launches on the main
+        path, a design of the probe (src schedule_probe.cu) with none."""
         by_v = {f"V{V}": dict(launches=launches["K2", V] if variant is None else 0,
                               **brief(k2_res[V]["mixed", variant]))
                 for V in (traversal8.V_COHERENT, traversal8.V_INCOHERENT)}
-        return vrow(name, "traversal_tt.cu",
+        return vrow(name, src,
                     "cudatracerlib_tpu/ops/traversal_tt.py:185",
-                    sm_by_variant["K2"][variant or "shared"],
+                    sm_by_variant["K2"][variant or "shared"] if variant is None else 0,
                     max(max_err(k2_res[V], variant) for V in k2_res),
                     k2_res[traversal8.V_INCOHERENT]["mixed", variant],
                     variant=variant or "shared", by_v=by_v,
@@ -4540,8 +4890,26 @@ def main():
         return (entry["max_abs_err"], entry["ms"], entry["plain_ms"],
                 (entry["bound_ms"], entry["bound_by"]))
 
-    p1 = next(e for e in res["P1"] if e["rows"] == mb.ROW_TABLE_ROWS
-              and e["memory"] == "global")
+    def p1_entry(mode, param=None, rows=mb.ROW_TABLE_ROWS, occupancy="chains"):
+        return next(e for e in res["P1"] if e["rows"] == rows and e["mode"] == mode
+                    and (param is None or e["param"] == param)
+                    and e["occupancy"] == occupancy and e["words"] == mb.ROW_WORDS)
+    p1 = p1_entry("thread")
+
+    def p1_row(name, mode, param=None):
+        """P1 in `mode` at the kernel table's row shape (veach-mis's 331
+        rows, 1,024 chains, whole rows; the plain version's time is the
+        thread row's: one function, one shape), its ns per dependent row at
+        every size, occupancy and read width under by_size."""
+        e = p1_entry(mode, param)
+        return row(name, "microbench.cu", "tools/microbench_r2.py:89",
+                   p1_by_mode[mode], e["max_abs_err"], e["ms"], p1["plain_ms"],
+                   (e["bound_ms"], e["bound_by"]), mode=mode, param=param,
+                   ns_per_dependent_row=e["ns_per_dependent_row"],
+                   by_size={f"{x['rows']} {x['occupancy']} w{x['words']}":
+                            x["ns_per_dependent_row"]
+                            for x in res["P1"] if x["mode"] == mode
+                            and (param is None or x["param"] == param)})
     p2 = next(e for e in res["P2"] if e["rows"] == mb.ROW_TABLE_ROWS
               and e["layout"] == "thread")
     p3 = next(e for e in res["P3"] if e["items"] == mb.ROW_QUEUE_ITEMS)
@@ -4556,9 +4924,26 @@ def main():
     lc = loader_res["loader_cornell"]
     k1_rows[0 if lc["variant"] == "shared" else 2]["by_tracer"]["loader_cornell"] = lc
     # every K1 global call held, with its chain floor from this run's P1
-    k1_global = k1_global_lines(p1["ns_per_dependent_fetch"])
+    k1_global = k1_global_lines(res["P1"], mb)
     k1_rows[1]["calls"] = len(k1_global)
     k2_shared = k2_row("top_visits_shared_kernel", None)
+    # K2's split variant on the 4.8M pass: every K2 call of one pass
+    # summed (each a main-path launch: sm48's launches per pass)
+    big = max(SM48_K2_CALLS, key=lambda c: c["bound_ms"])
+    k2_split = row(
+        "top_visits_split_kernel<V>", "traversal_tt.cu",
+        "cudatracerlib_tpu/ops/traversal_tt.py:185",
+        sm48["counts_per_pass"]["K2_by_variant"]["split"] * SM48_PASSES,
+        max(c["max_abs_err"] for c in SM48_K2_CALLS),
+        sum(c["ms"] for c in SM48_K2_CALLS), sum(c["plain_ms"] for c in SM48_K2_CALLS),
+        (sum(c["bound_ms"] for c in SM48_K2_CALLS), big["bound_by"]),
+        device_ms=k2_sums["split"]["device_ms"], variant="split",
+        cluster_blocks=sm48["blocks"], top_rows=sm48["top_rows"],
+        calls=len(SM48_K2_CALLS),
+        launches_per_pass=sm48["counts_per_pass"]["K2_by_v"],
+        chain_floor_ms=k2_sums["split"]["chain_floor_ms"],
+        floor_ratio=k2_sums["split"]["floor_ratio"], designs=k2_sums,
+        seconds_per_pass=sm48["seconds_per_pass"], mrays_per_s=sm48["mrays_per_s"])
     k3_kept = k3_row("treelet_hits_kernel", "traversal_tt.cu", None)
     for kind, kernel_row in (("K1", k1_rows[1]), ("K2", k2_shared), ("K3", k3_kept)):
         # the instanced visits' K1 fallback runs one thread per ray
@@ -4603,13 +4988,18 @@ def main():
     emit(kernels=[
         *k1_rows,
         k2_shared,
-        k2_row("top_visits_kernel", "global"),
+        k2_split,
+        dict(k2_row("probe_top_global_kernel<V>", "global", "schedule_probe.cu"),
+             sm48=k2_sums.get("global")),
         k3_kept,
         *(k3_row(f"probe_treelet_kernel<{d}>", "schedule_probe.cu", d)
           for d in probe.K3_DESIGNS),
         *k4_rows,
-        row("chase_rows_kernel", "microbench.cu",
-            "tools/microbench_r2.py:89", mb_launches["P1"], *mb_row(p1)),
+        p1_row("chase_rows_kernel", "thread"),
+        p1_row("chase_rows_shared_kernel", "shared"),
+        p1_row("chase_rows_group_kernel<16>", "group", 16),
+        p1_row("chase_rows_cluster_kernel<2>", "cluster", 2),
+        p1_row("chase_rows_bulk_kernel", "bulk"),
         row("gather_rows_thread_kernel", "microbench.cu",
             "tools/microbench_r2c.py:46", mb_launches["P2"], *mb_row(p2)),
         row("queue_fetch_kernel", "microbench.cu",

@@ -20,15 +20,26 @@
 // slab of each long enough treelet segment:
 // - design 0, "cluster": the slab spread over a cluster of n = 1, 2, 4 or
 //   8 blocks (utils/schedule_probe.slab_variant: 2 for 512-row slabs), row
-//   i in block i % n, read through the cluster's distributed shared memory;
+//   i in block i % n, read through the cluster's distributed shared memory
+//   (cluster_rows.cuh's ClusterStage);
 // - design 1, "split": one block, no cluster, holds rows 0-452 of the slab
 //   (453 x 512 bytes and the walk's two words fill the 227 KB a block may
 //   hold) and reads rows 453-511 from device memory; every row through a
-//   generic load;
+//   generic load (cluster_rows.cuh's SplitStage);
 // - design 2, "walk": design 1's schedule with nothing staged and no
 //   shared memory, every row from device memory (the schedule's own cost).
 // Their chunk size, fewest visits of a staged segment and a stage-only
 // switch are given at run time, so that one call can time other choices.
+// K2's split variant (top tables past one block's shared memory:
+// traversal_tt.cu's top_visits_split_kernel, rows 0-452 on chip, the rest
+// through L1/L2) was measured against two designs here:
+// - design 2, "cluster" (probe_top_cluster_kernel): the top table over the
+//   shared memory of a cluster of n blocks (n from
+//   utils/schedule_probe.slab_variant, and 2n), row i in block i % n, read
+//   through the cluster's windows, rays from the same queue in the
+//   stream's work area;
+// - design 3, "global" (probe_top_global_kernel): one thread per ray, rows
+//   through L1/L2, K2's first kernel.
 // K1's global variant's group design (traverse8_group_kernel, 16 lanes a
 // live ray) is measured against the same kernel with 8 or 32 lanes a ray,
 // and with 16 lanes and an L2 prefetch of each node step's eligible
@@ -41,15 +52,10 @@
 // launch.
 // All compute what the kept kernels compute, bit for bit.
 
-#include <cooperative_groups.h>
-
+#include "cluster_rows.cuh"
 #include "traversal8.cu"
 #include "traversal_pool.cu"
 #include "traversal_tt.cu"
-
-// The start of a block's dynamic shared memory, where K3's probe designs
-// stage a slab.
-extern __shared__ float4 staged_rows[];
 
 namespace {
 
@@ -57,6 +63,8 @@ using namespace ctl;
 
 constexpr int kStride = 0;
 constexpr int kSmemStack = 1;
+constexpr int kTopCluster = 2;  // K2's cluster design
+constexpr int kTopGlobal = 3;   // K2 with one thread per ray
 
 // A ring stack in shared memory with one column per thread: entry k of
 // thread t is word k * kPersistThreads + t of the block's stack area, so
@@ -178,59 +186,9 @@ int launch_probe_top(int design, const float4* top, int n_top,
 constexpr int kCluster = 0;
 constexpr int kSplit = 1;
 constexpr int kWalk = 2;
-constexpr int kSplitRows = 453;
 
-// The cluster design's staged slab, spread over the dynamic shared memory
-// of a cluster of kRanks blocks (`table` is not read): row i lives in block
-// rank i % kRanks at local row i / kRanks, swizzled by the local row. With
-// kRanks a compile-time power of two the rank and the local row are a mask
-// and a shift of the row index, so the source holds no pointer and no
-// runtime state; a row in another block is read through that block's
-// shared window (distributed shared memory, a generic LD).
-template <int kRanks>
-struct ClusterStage {
-  static __device__ __forceinline__ const float4* row(const float4*, int i) {
-    const float4* local = staged_rows + (size_t)(i / kRanks) * 32;
-    if constexpr (kRanks == 1) {
-      return local;
-    } else {
-      return cooperative_groups::this_cluster().map_shared_rank(
-          const_cast<float4*>(local), (unsigned)(i % kRanks));
-    }
-  }
-  static __device__ __forceinline__ int swizzle(int row) {
-    return (row / kRanks) & 31;
-  }
-  // this block's rows of the slab: rows rank, rank + kRanks, ...
-  static __device__ __forceinline__ void stage(const float4* slab, int rows,
-                                               unsigned rank) {
-    stage_rows(staged_rows, slab + (size_t)rank * 32,
-               (rows - (int)rank + kRanks - 1) / kRanks, kRanks);
-  }
-  static __device__ __forceinline__ const float4* table(const float4*) {
-    return nullptr;
-  }
-};
-
-// The split design's staged slab: rows below kSplitRows in the block's
-// shared memory, swizzled as SharedRows; the rest read from the slab in
-// device memory (`table`).
-struct SplitStage {
-  static __device__ __forceinline__ const float4* row(const float4* table,
-                                                      int i) {
-    return i < kSplitRows ? staged_rows + i * 32 : table + (size_t)i * 32;
-  }
-  static __device__ __forceinline__ int swizzle(int row) {
-    return row < kSplitRows ? row & 31 : 0;
-  }
-  static __device__ __forceinline__ void stage(const float4* slab, int rows,
-                                               unsigned) {
-    stage_rows(staged_rows, slab, rows < kSplitRows ? rows : kSplitRows);
-  }
-  static __device__ __forceinline__ const float4* table(const float4* slab) {
-    return slab;
-  }
-};
+// The cluster design's staged slab is cluster_rows.cuh's ClusterStage, the
+// split design's its SplitStage (both given the slab as their table).
 
 // The walk design's "staged" slab stays in device memory: the split
 // design's schedule (one block per SM; chunks, segments, barriers) with no
@@ -242,15 +200,6 @@ struct WalkStage : GlobalRows {
     return slab;
   }
 };
-
-template <int kRanks>
-__device__ __forceinline__ void cluster_sync() {
-  if constexpr (kRanks == 1) {
-    __syncthreads();
-  } else {
-    cooperative_groups::this_cluster().sync();
-  }
-}
 
 // The word `w` of the cluster's first block (this block's own when kRanks
 // is 1).
@@ -300,10 +249,7 @@ __device__ __forceinline__ void treelet_chunks(CTL_K3_PARAMS, int chunk,
                                                int min_stage, bool stage_only,
                                                int* queue) {
   __shared__ int s_chunk, s_next;
-  unsigned rank = 0;
-  if constexpr (kRanks > 1) {
-    rank = cooperative_groups::this_cluster().block_rank();
-  }
+  const unsigned rank = cluster_rank<kRanks>();
   const bool leader = rank == 0 && threadIdx.x == 0;
   int stack[kMaxStack];
   if (leader) s_chunk = atomicAdd(queue, 1);
@@ -362,67 +308,71 @@ probe_treelet_kernel(CTL_K3_PARAMS, int chunk, int min_stage, int stage_only,
                                  stage_only != 0, queue);
 }
 
-// What a cluster launch of one kernel needs from the runtime, kept for each
-// device so that a launch asks the runtime nothing: the dynamic shared
-// bytes it is opted in to, and how many of its clusters fit on the card at
-// once with that many bytes.
-struct ClusterOptIn {
-  size_t bytes[kMaxDevices] = {};
-  int clusters[kMaxDevices] = {};
-};
-
 // Zeroes queue[0..1] on the stream and launches `kernel` as a persistent
 // grid of clusters of `ranks` blocks of kPersistThreads threads with
-// `bytes` of dynamic shared memory each: as many clusters as fit on the
-// card at once, no more than n_chunks. Returns the first CUDA error (a
-// refused opt-in or launch is returned, and cleared from the runtime's last
-// error; a configuration of which no cluster fits is refused).
+// `bytes` of dynamic shared memory each (launch_clusters): as many clusters
+// as fit on the card at once, no more than n_chunks.
 template <class... Params, class... Args>
 int launch_cluster(void (*kernel)(Params...), ClusterOptIn& opt, int ranks,
                    size_t bytes, int n_chunks, int* queue,
                    cudaStream_t stream, Args... args) {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ranks);
-  cfg.blockDim = dim3(kPersistThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (opt.clusters[dev] == 0 || opt.bytes[dev] < bytes) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    int clusters = 0;
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    }
-    if (err == cudaSuccess && clusters <= 0) {
-      err = cudaErrorInvalidConfiguration;
-    }
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return (int)err;
-    }
-    opt.bytes[dev] = bytes;
-    opt.clusters[dev] = clusters;
-  }
-  const int clusters = opt.clusters[dev] < n_chunks ? opt.clusters[dev]
-                                                    : n_chunks;
-  cfg.gridDim = dim3(clusters * ranks);
   cudaMemsetAsync(queue, 0, 2 * sizeof(int), stream);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args..., queue);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return (int)err;
-  }
+  return launch_clusters(kernel, opt, ranks, kPersistThreads, bytes, n_chunks,
+                         stream, args..., queue);
+}
+
+// ---- K2's cluster design ----------------------------------------------------
+
+// K2's split variant (traversal_tt.cu) with the cluster design's row
+// source: the top table over the shared memory of a cluster of kRanks
+// blocks (ClusterStage), read through the cluster's windows.
+template <int V, int kRanks>
+__global__ void __launch_bounds__(kPersistThreads, 1)
+probe_top_cluster_kernel(CTL_K2_PARAMS, int* __restrict__ work,
+                         int* __restrict__ next) {
+  top_staged<V, ClusterStage<kRanks>, kRanks>(CTL_K2_FORWARD, work, next);
+}
+
+// Launches the cluster design as a persistent grid of clusters of kRanks
+// blocks, as many as can be resident at once (none: refused), no more than
+// the rays need, counting in set `set` of the work area `work`.
+template <int V, int kRanks>
+int launch_top_cluster(CTL_K2_PARAMS, int* work, int set,
+                       cudaStream_t stream) {
+  static ClusterOptIn opt;
+  const int blocks = (n_rays + kPersistThreads - 1) / kPersistThreads;
+  return launch_clusters(probe_top_cluster_kernel<V, kRanks>, opt, kRanks,
+                         kPersistThreads, ClusterStage<kRanks>::bytes(n_top),
+                         (blocks + kRanks - 1) / kRanks, stream,
+                         CTL_K2_FORWARD, work + kSet * set,
+                         work + kSet * (1 - set));
+}
+
+// K2 with one thread per ray, top rows from device memory.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+probe_top_global_kernel(CTL_K2_PARAMS) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rays) return;
+  int stack[kMaxStack];
+  top_ray<V, GlobalRows>(CTL_K2_ARGS(top), i, stack);
+}
+
+template <int V>
+int launch_top_global(CTL_K2_PARAMS, cudaStream_t stream) {
+  const int blocks = (n_rays + kThreads - 1) / kThreads;
+  probe_top_global_kernel<V><<<blocks, kThreads, 0, stream>>>(CTL_K2_FORWARD);
   return (int)cudaGetLastError();
+}
+
+template <int V>
+int launch_top_cluster_n(int ranks, CTL_K2_PARAMS, int* work, int set,
+                         cudaStream_t stream) {
+  auto launch = ranks == 1   ? launch_top_cluster<V, 1>
+                : ranks == 2 ? launch_top_cluster<V, 2>
+                : ranks == 4 ? launch_top_cluster<V, 4>
+                             : launch_top_cluster<V, 8>;
+  return launch(CTL_K2_FORWARD, work, set, stream);
 }
 
 }  // namespace
@@ -510,25 +460,52 @@ extern "C" int ctl_probe_traverse_pool(
                 flags_out, work, set, s);
 }
 
-// ctl_top_visits's arguments, with `design` in place of the variant.
+// ctl_top_visits's arguments, with `design` in place of the variant and
+// `ranks` after it: design 0 stride, 1 smem_stack (the shared variant's
+// designs; scratch: the queue counter, zeroed here), 2 cluster over
+// `ranks` blocks (1, 2, 4 or 8; scratch: the work area, counting in its
+// set `set`, as the split variant's), 3 global (one thread per ray;
+// scratch unused). Returns a CUDA error code (a cluster of which none can
+// be resident is refused), or -1 for another V, design, ranks count or
+// set.
 extern "C" int ctl_probe_top_visits(
     const float* top, int n_top, const float* o, const float* d,
     const float* tmin, const float* tmax, const int* roots,
     const uint8_t* any_mask, int n_rays, int any_hit, int V, int stack_depth,
     int max_iters, float* t_out, int* tri_out, float* u_out, float* v_out,
     int* steps_out, uint8_t* flags_out, int* vid_out, float* vent_out,
-    int* vcnt_out, float* mdrop_out, int* next_ray, int design,
-    void* stream) {
-  if ((V != 3 && V != 6) || (design != kStride && design != kSmemStack)) {
+    int* vcnt_out, float* mdrop_out, int* scratch, int design, int ranks,
+    int set, void* stream) {
+  if ((V != 3 && V != 6) || design < kStride || design > kTopGlobal ||
+      set < 0 || set > 1) {
+    return -1;
+  }
+  if (design == kTopCluster && ranks != 1 && ranks != 2 && ranks != 4 &&
+      ranks != 8) {
     return -1;
   }
   if (n_rays <= 0) return (int)cudaGetLastError();
+  const float4* t4 = reinterpret_cast<const float4*>(top);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (design == kTopGlobal) {
+    auto launch = V == 3 ? launch_top_global<3> : launch_top_global<6>;
+    return launch(t4, n_top, o, d, tmin, tmax, roots, any_mask, n_rays,
+                  any_hit, stack_depth, max_iters, t_out, tri_out, u_out,
+                  v_out, steps_out, flags_out, vid_out, vent_out, vcnt_out,
+                  mdrop_out, s);
+  }
+  if (design == kTopCluster) {
+    auto launch = V == 3 ? launch_top_cluster_n<3> : launch_top_cluster_n<6>;
+    return launch(ranks, t4, n_top, o, d, tmin, tmax, roots, any_mask, n_rays,
+                  any_hit, stack_depth, max_iters, t_out, tri_out, u_out,
+                  v_out, steps_out, flags_out, vid_out, vent_out, vcnt_out,
+                  mdrop_out, scratch, set, s);
+  }
   auto launch = V == 3 ? launch_probe_top<3> : launch_probe_top<6>;
-  return launch(design, reinterpret_cast<const float4*>(top), n_top, o, d,
-                tmin, tmax, roots, any_mask, n_rays, any_hit, stack_depth,
-                max_iters, t_out, tri_out, u_out, v_out, steps_out, flags_out,
-                vid_out, vent_out, vcnt_out, mdrop_out, next_ray,
-                (cudaStream_t)stream);
+  return launch(design, t4, n_top, o, d, tmin, tmax, roots, any_mask, n_rays,
+                any_hit, stack_depth, max_iters, t_out, tri_out, u_out, v_out,
+                steps_out, flags_out, vid_out, vent_out, vcnt_out, mdrop_out,
+                scratch, s);
 }
 
 // ctl_treelet_hits's arguments, then queue (an int32[2] of the caller's:

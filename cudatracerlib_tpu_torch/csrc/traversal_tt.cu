@@ -26,17 +26,36 @@
 // its hit to the visit's own slot. Invalid slots (key >= n_treelets << 14)
 // exit at once. Launched over all slots, so the caller needs no host read.
 //
-// K2 has K1's two variants (traversal8.cu), picked by the same rule from
-// the top table's size: shared (top_visits_shared_kernel: one 512-thread
-// block per SM holds the swizzled top table in shared memory, its warps
-// take 32 rays at a time from a queue, rows by LDS.128) for a top table
-// that fits a block's shared memory, which San Miguel's 240 rows (123 KB)
-// do; global (top_visits_kernel: one thread per ray, rows through L1/L2)
-// for a larger one, up to the partition's 2,048-row cap. A K2 ray takes
-// some 17 steps in the top table (K1's rays on Cornell-class tables about
-// 3), so the cheaper rows and the queue's balance show: the shared variant
-// is ahead of the global one by 5-12% of device time (PERF.md), and like
-// K1 bound by issuing the state machine under divergence, not by bytes.
+// K2 has two variants, picked by its own rule from the top table's size
+// (ops/traversal_tt.py::top_variant; K1 and K4 keep theirs):
+// - shared (top_visits_shared_kernel), for a top table that fits one
+//   block's shared memory (454 rows, 227 KB on an H100; San Miguel's 240
+//   rows at 1.2M triangles): one 512-thread block per SM holds the
+//   swizzled table, its warps take 32 rays at a time from a queue, rows by
+//   LDS.128;
+// - split (top_visits_split_kernel<V>), for a larger one, up to the
+//   partition's 2,048-row cap (998 rows at 4.8M triangles): a persistent
+//   grid of one 512-thread block per SM stages rows 0-452 of the table
+//   with cp.async (cluster_rows.cuh: SplitStage; the partition writes the
+//   top's node rows first, so they hold the rows every ray reads) and
+//   reads the rest through L1/L2; its warps drain the launch's ray queue,
+//   kept in the stream's work area (warp_queue.cuh, as K4 and K1's group
+//   design: no memset).
+// A K2 ray takes some 17 steps in the top table (K1's rays on
+// Cornell-class tables about 3), so the cheaper rows and the queue's
+// balance show: on the 240-row table the shared variant is ahead of one
+// thread per ray reading rows through L1/L2 by 5-12% of device time, and
+// like K1 bound by issuing the state machine under divergence, not by
+// bytes. On the 998-row table of the 4.8M-triangle stand-in (H100 80GB
+// HBM3, 700.00 W; PERF.md) the split design was some 2% ahead of one
+// thread per ray through L1/L2 and 8-10% ahead of the table over a
+// cluster's shared memory at 4 or 8 blocks, read through its windows, over
+// a PT pass's 48 calls (both designs are in csrc/schedule_probe.cu). It
+// wins the heavy bounce calls by 5-8% and loses the light ones (camera
+// rays, the shadow flush) by 10-25%: staging 227 KB on every SM costs
+// some 7 us a launch. One thread reading a remote row as 16-byte generic
+// loads waits longer than for one from L2, so the cluster design loses to
+// both.
 //
 // K3 reads its slabs straight from device memory through L1 and L2: the
 // 1.2M-triangle table's 414 slabs of 512 rows total ~109 MB, twice the
@@ -55,9 +74,12 @@
 //
 // Their plain PyTorch versions are ops/traversal_tt.py::top_visits and
 // ::treelet_hits. Launches go on the caller's stream and allocate nothing;
-// K2's shared variant zeroes the caller's queue counter on the stream.
+// K2's shared variant zeroes the caller's queue counter on the stream, its
+// split variant counts in the caller's work area.
 
 #include "bvh8_traverse.cuh"
+#include "cluster_rows.cuh"
+#include "warp_queue.cuh"
 
 namespace {
 
@@ -169,15 +191,11 @@ __device__ __forceinline__ void top_ray(
       max_iters,                                                             \
       t_out, tri_out, u_out, v_out, steps_out, flags_out, vid_out, vent_out, \
       vcnt_out, mdrop_out
-
-// The global variant: one thread per ray, top rows from device memory.
-template <int V>
-__global__ void __launch_bounds__(kThreads) top_visits_kernel(CTL_K2_PARAMS) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  int stack[kMaxStack];
-  top_ray<V, GlobalRows>(CTL_K2_ARGS(top), i, stack);
-}
+// A K2 kernel's parameters passed on whole, as they came.
+#define CTL_K2_FORWARD                                                       \
+  top, n_top, o, d, tmin, tmax, roots, any_mask, n_rays, any_hit,           \
+      stack_depth, max_iters, t_out, tri_out, u_out, v_out, steps_out,       \
+      flags_out, vid_out, vent_out, vcnt_out, mdrop_out
 
 // The shared variant, as K1's (traversal8.cu): one block per SM stages the
 // top table, then each warp takes 32 rays at a time from the launch's queue.
@@ -193,6 +211,38 @@ top_visits_shared_kernel(CTL_K2_PARAMS, int* next_ray) {
     if (i < 0) continue;
     top_ray<V, SharedRows>(CTL_K2_ARGS(smem), i, stack);
   }
+}
+
+// A launch's rays from a table staged on chip by the row source Stage over
+// a cluster of kRanks blocks (one for SplitStage): each block stages its
+// share, the cluster meets, the warps drain the queue counter in `work`
+// (this launch's counter set; block 0 zeroes the other, `next`, for the
+// launch after), and the cluster meets again before any block leaves, so
+// that no block's share goes while another block may still read it.
+template <int V, class Stage, int kRanks>
+__device__ __forceinline__ void top_staged(CTL_K2_PARAMS,
+                                           int* __restrict__ work,
+                                           int* __restrict__ next) {
+  zero_set(next);
+  Stage::stage(top, n_top, cluster_rank<kRanks>());
+  cluster_sync<kRanks>();
+  int stack[kMaxStack];
+  bool drained = false;
+  while (!drained) {  // warp-uniform
+    const int i = warp_fetch(work + kInput, true, n_rays, drained);
+    if (i < 0) continue;
+    top_ray<V, Stage>(CTL_K2_ARGS(Stage::table(top)), i, stack);
+  }
+  cluster_sync<kRanks>();
+}
+
+// The split variant: rows 0-452 of the top table in each block's shared
+// memory, the rest through L1/L2.
+template <int V>
+__global__ void __launch_bounds__(kPersistThreads, 1)
+top_visits_split_kernel(CTL_K2_PARAMS, int* __restrict__ work,
+                        int* __restrict__ next) {
+  top_staged<V, SplitStage, 1>(CTL_K2_FORWARD, work, next);
 }
 
 #define CTL_K3_PARAMS                                                         \
@@ -258,39 +308,43 @@ treelet_hits_kernel(CTL_K3_PARAMS) {
                             stack);
 }
 
+// Launches the split variant on shared_grid's grid (one block per SM, no
+// more than the rays need), counting in set `set` of the work area `work`
+// (warp_queue.cuh), which must be zero.
 template <int V>
-int launch_top(int variant, const float* top, int n_top, const float* o,
-               const float* d, const float* tmin, const float* tmax,
-               const int* roots, const uint8_t* any_mask, int n_rays,
-               int any_hit, int stack_depth, int max_iters, float* t_out,
-               int* tri_out, float* u_out, float* v_out, int* steps_out,
-               uint8_t* flags_out, int* vid_out, float* vent_out,
-               int* vcnt_out, float* mdrop_out, int* next_ray,
+int launch_top_split(CTL_K2_PARAMS, int* work, int set, cudaStream_t stream) {
+  static SharedOptIn opt;
+  const size_t bytes = SplitStage::bytes(n_top);
+  int blocks = 0;
+  const int err = shared_grid(top_visits_split_kernel<V>, opt,
+                              kPersistThreads, bytes, n_rays, &blocks);
+  if (err != 0) return err;
+  top_visits_split_kernel<V><<<blocks, kPersistThreads, bytes, stream>>>(
+      CTL_K2_FORWARD, work + kSet * set, work + kSet * (1 - set));
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+int launch_top(int variant, int set, CTL_K2_PARAMS, int* scratch,
                cudaStream_t stream) {
-  const float4* t4 = reinterpret_cast<const float4*>(top);
-  if (variant == 0) {
-    const int blocks = (n_rays + kThreads - 1) / kThreads;
-    top_visits_kernel<V><<<blocks, kThreads, 0, stream>>>(
-        t4, n_top, o, d, tmin, tmax, roots, any_mask, n_rays, any_hit,
-        stack_depth, max_iters, t_out, tri_out, u_out, v_out, steps_out,
-        flags_out, vid_out, vent_out, vcnt_out, mdrop_out);
-    return (int)cudaGetLastError();
+  if (variant == 1) {
+    return launch_top_split<V>(CTL_K2_FORWARD, scratch, set, stream);
   }
   static SharedOptIn opt;
   return launch_shared(top_visits_shared_kernel<V>, opt, kPersistThreads,
-                       (size_t)n_top * 512, n_rays, next_ray, stream, t4,
-                       n_top, o, d, tmin, tmax, roots, any_mask, n_rays,
-                       any_hit, stack_depth, max_iters, t_out, tri_out, u_out,
-                       v_out, steps_out, flags_out, vid_out, vent_out,
-                       vcnt_out, mdrop_out);
+                       (size_t)n_top * 512, n_rays, scratch, stream,
+                       CTL_K2_FORWARD);
 }
 
 }  // namespace
 
 // roots (nullable: every ray starts at top row 0) holds each ray's
-// top-local start row, as ctl_traverse8's roots; variant (0 global, 1
-// shared) and next_ray as ctl_traverse8's. Returns a CUDA error code, or -1
-// for a V other than 3 and 6 or another variant.
+// top-local start row, as ctl_traverse8's roots. variant: 0 shared, 1
+// split. scratch: the shared variant's queue counter (an int32, zeroed
+// here on the stream), or the split variant's work area (warp_queue.cuh;
+// at least kWork int32), counting in its set `set` (0 or 1, zero).
+// Returns a CUDA error code (a block the card cannot hold is refused), or
+// -1 for a V other than 3 and 6, or another variant or set.
 extern "C" int ctl_top_visits(const float* top, int n_top, const float* o,
                               const float* d, const float* tmin,
                               const float* tmax, const int* roots,
@@ -300,15 +354,19 @@ extern "C" int ctl_top_visits(const float* top, int n_top, const float* o,
                               float* u_out, float* v_out, int* steps_out,
                               uint8_t* flags_out, int* vid_out,
                               float* vent_out, int* vcnt_out,
-                              float* mdrop_out, int* next_ray, int variant,
-                              void* stream) {
-  if ((V != 3 && V != 6) || variant < 0 || variant > 1) return -1;
+                              float* mdrop_out, int* scratch, int variant,
+                              int set, void* stream) {
+  if ((V != 3 && V != 6) || variant < 0 || variant > 1 || set < 0 ||
+      set > 1) {
+    return -1;
+  }
   if (n_rays <= 0) return (int)cudaGetLastError();
   auto launch = V == 3 ? launch_top<3> : launch_top<6>;
-  return launch(variant, top, n_top, o, d, tmin, tmax, roots, any_mask,
-                n_rays, any_hit, stack_depth, max_iters, t_out, tri_out,
-                u_out, v_out, steps_out, flags_out, vid_out, vent_out,
-                vcnt_out, mdrop_out, next_ray, (cudaStream_t)stream);
+  return launch(variant, set, reinterpret_cast<const float4*>(top),
+                n_top, o, d, tmin, tmax, roots, any_mask, n_rays, any_hit,
+                stack_depth, max_iters, t_out, tri_out, u_out, v_out,
+                steps_out, flags_out, vid_out, vent_out, vcnt_out, mdrop_out,
+                scratch, (cudaStream_t)stream);
 }
 
 extern "C" int ctl_treelet_hits(const float* slabs, int n_treelets, int rows,

@@ -74,7 +74,7 @@ ROW_BYTES = 512
 # threads of a shared-variant block of K1 or K2, one block per SM
 # (kPersistThreads in csrc/bvh8_traverse.cuh)
 SHARED_THREADS = 512
-# the launch variants of K1 and K2, by their C entries' codes
+# the launch variants of K1 and K4, by their C entries' codes
 VARIANTS = {"global": 0, "shared": 1}
 # the designs of K1's global variant: "thread", one thread per ray; "group",
 # dead lanes written without a row read and live rays drained from a queue
@@ -399,7 +399,7 @@ def _mask_u8(any_mask: Tensor, B: int, dev):
 
 
 def table_variant(rows: int, shared_limit: int) -> str:
-    """The variant of K1 or K2 for a table of `rows` fat rows on a card whose
+    """The variant of K1 or K4 for a table of `rows` fat rows on a card whose
     blocks may opt in to `shared_limit` bytes of shared memory: "shared"
     when the table fits (rows x ROW_BYTES bytes, the shared variant's only
     shared memory), else "global"."""
@@ -412,7 +412,7 @@ def _shared_limit(index: int) -> int:
 
 
 def launch_variant(table: Tensor, forced: str = None) -> str:
-    """The variant a K1 or K2 launch on `table` ((R, 128), CUDA) takes:
+    """The variant a K1 or K4 launch on `table` ((R, 128), CUDA) takes:
     ``table_variant`` of its rows and its card's opt-in shared-memory limit,
     or `forced` (a test hook: chip_smoke.py and the gpu tests run every
     variant on the same rays)."""
@@ -480,10 +480,19 @@ def stream_group_work(B: int, dev, queue: bool = True):
     return work, count_set
 
 
+def forget_stream_work(dev):
+    """Drop the work area of `dev`'s current stream after a launch on it
+    that the card refused. That launch zeroed no counter set, so the set
+    the next launch would take may hold an older launch's counts, and a
+    launch that starts on counts skips rays or waits for rays no launch
+    classifies. The next launch takes a new area."""
+    _group_work.pop((dev.index, torch.cuda.current_stream(dev).cuda_stream), None)
+
+
 def queue_counter(variant: str, dev):
-    """The ray queue counter a K1 or K2 launch of `variant` needs: an int32
-    scratch tensor for the shared variant (its C entry zeroes it on the
-    stream), None for the global one."""
+    """The ray queue counter a K1 launch of `variant`, or K2's shared
+    variant, needs: an int32 scratch tensor for the shared variant (its C
+    entry zeroes it on the stream), None for the global one."""
     if variant == "global":
         return None
     return torch.empty(1, dtype=torch.int32, device=dev)
@@ -513,10 +522,15 @@ def _wide_args(table: Tensor, rays: Rays, any_hit, stack_depth, max_iters,
     return args, out
 
 
-def _wide_result(err: int, out, with_iters: bool, slots: Tensor = None):
+def _wide_result(err: int, out, with_iters: bool, slots: Tensor = None,
+                 stream_dev=None):
     """The outputs of a K1 or K4 launch: the hit, with `with_iters` its
-    steps and flags, and `slots` when given and with_iters."""
+    steps and flags, and `slots` when given and with_iters. stream_dev: the
+    device whose stream's work area the launch took (None: it took none),
+    dropped if the launch failed (``forget_stream_work``)."""
     if err != 0:
+        if stream_dev is not None:
+            forget_stream_work(stream_dev)
         raise RuntimeError(f"traversal kernel launch failed: CUDA error {err}")
     t, tri, u, v, steps, flags = out
     hit = Hit(t=t, tri=tri, u=u, v=v)
@@ -597,7 +611,9 @@ def intersect_wide_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
     wanted = with_util and with_iters
     slots = (_kernel_slots(counter, count_set, wanted) if design == "group"
              else static_slots(out[4]) if wanted else None)
-    res = _wide_result(err, out, with_iters, slots)
+    res = _wide_result(err, out, with_iters, slots,
+                       table.device if design == "group" and _scratch is None
+                       else None)
     intersect_wide_cuda.launches += 1
     intersect_wide_cuda.launches_by_variant[variant] += 1
     intersect_wide_cuda.launches_by_mode[launch_mode(any_hit, any_mask)] += 1
@@ -647,7 +663,8 @@ def intersect_wide_pool_cuda(table: Tensor, rays: Rays, any_hit: bool = False,
     err = fn(*args, _ptr(work), count_set, VARIANTS[variant],
              _stream(table.device))
     res = _wide_result(err, out, with_iters,
-                       _kernel_slots(work, count_set, with_util and with_iters))
+                       _kernel_slots(work, count_set, with_util and with_iters),
+                       table.device if _scratch is None else None)
     intersect_wide_pool_cuda.launches += 1
     return res
 

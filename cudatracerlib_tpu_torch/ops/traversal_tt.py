@@ -4,10 +4,12 @@ Port of ``cudatracerlib_tpu/ops/traversal_tt.py``. A table of more than
 2,048 rows is split into a top table and treelet slabs (scene/treelet.py);
 ``intersect_treelet`` traverses the two:
 
-  phase 1  K2 traverses the top table, one thread per ray: real top-level
-           leaves give hits, and each virtual leaf is a visit of one cut
-           subtree. Each ray keeps its V visits with the smallest entry t,
-           counts them all, and tracks the smallest entry t it dropped.
+  phase 1  K2 traverses the top table, one thread per ray (the table, or
+           its first 453 rows, in each SM's shared memory, ``top_variant``):
+           real top-level leaves give hits, and each virtual leaf is a
+           visit of one cut subtree. Each ray keeps its V visits with the
+           smallest entry t, counts them all, and tracks the smallest entry
+           t it dropped.
   sort     the B*V visit slots by packed key (tid << 14 | root), so that
            neighbouring K3 threads read the same slab.
   phase 2  K3 traverses one slab per visit, one thread per slot, from the
@@ -38,10 +40,10 @@ import torch
 
 from . import cuda_build
 from .traversal import Hit, Rays
-from .traversal8 import (MAX_ITERS, STACK_DEPTH, VARIANTS, _check_args,
+from .traversal8 import (MAX_ITERS, ROW_BYTES, STACK_DEPTH, _check_args,
                          _check_rays, _check_table, _flag_counts, _lockstep,
-                         _mask_u8, _ptr, _require, any_lanes, launch_variant,
-                         queue_counter)
+                         _mask_u8, _ptr, _require, _shared_limit, any_lanes,
+                         forget_stream_work, queue_counter, stream_group_work)
 from ..scene.treelet import VID_ROOT_BITS
 
 Tensor = torch.Tensor
@@ -49,6 +51,10 @@ Tensor = torch.Tensor
 DEFAULT_V = 6
 KERNEL_V = (3, 6)  # the V that csrc/traversal_tt.cu instantiates K2 for
 _INF = float("inf")
+# K2's variants (the C entry's codes): the table in each SM's shared
+# memory; for a table past one block, its rows 0-452 there and the rest
+# through L1/L2 (csrc/traversal_tt.cu)
+TOP_VARIANTS = {"shared": 0, "split": 1}
 
 
 # ---------------------------------------------------------------- K2 ------
@@ -81,6 +87,27 @@ def top_visits(top: Tensor, rays: Rays, V: int = DEFAULT_V,
 top_visits.cuda_calls = 0   # calls that got CUDA tensors (comparisons only)
 
 
+def top_variant(rows: int, shared_limit: int) -> str:
+    """K2's variant for a top table of `rows` fat rows on a card whose
+    blocks may opt in to `shared_limit` bytes of shared memory: "shared"
+    when the table fits one block (454 rows on an H100), else "split" (the
+    partition caps a top at 2,048 rows). K1 and K4 keep
+    ``traversal8.table_variant``."""
+    return "shared" if rows * ROW_BYTES <= shared_limit else "split"
+
+
+def launch_top_variant(top: Tensor, forced: str = None) -> str:
+    """The variant a K2 launch on `top` ((R, 128), CUDA) takes:
+    ``top_variant``'s of its rows and its card's opt-in shared-memory limit,
+    or `forced` (a test hook: chip_smoke.py and the gpu tests run every
+    variant on the same rays)."""
+    if forced is not None:
+        if forced not in TOP_VARIANTS:
+            raise ValueError(f"no K2 variant {forced!r}: one of {list(TOP_VARIANTS)}")
+        return forced
+    return top_variant(top.shape[0], _shared_limit(top.device.index))
+
+
 def _lib():
     return cuda_build.load_library("traversal_tt.cu")
 
@@ -93,28 +120,42 @@ def top_visits_cuda(top: Tensor, rays: Rays, V: int = DEFAULT_V,
     """Launch K2 (``csrc/traversal_tt.cu``) on the current stream: the same
     signature, results, step counts and flags as ``top_visits``. Takes
     CUDA tensors only (roots: (B,) int32) and raises on anything else, on a V outside
-    ``KERNEL_V`` and when the card refuses the launch. The variant comes
-    from the top table's size, as K1's (``traversal8.launch_variant``;
-    `_variant` forces one). Each launch adds one to
+    ``KERNEL_V`` and when the card refuses the launch (a block the card
+    cannot hold is refused, not run another way). The variant comes from
+    the top table's size (``launch_top_variant``; `_variant` forces one).
+    The shared variant's queue counter is an int32 scratch tensor
+    allocated here; the split variant's is in the stream's work area
+    (``traversal8.stream_group_work``, shared with K4 and K1's group
+    design). Each launch adds one to
     ``top_visits_cuda.launches``, to ``top_visits_cuda.launches_by_v[V]``
     and to ``top_visits_cuda.launches_by_variant[variant]``."""
     _check_table(top, "top")
-    variant = launch_variant(top, _variant)
-    res = launch_top(_lib().ctl_top_visits, VARIANTS[variant],
-                     queue_counter(variant, top.device), top, rays, V,
-                     any_hit, any_mask, stack_depth, max_iters, roots)
+    variant = launch_top_variant(top, _variant)
+    count_set = 0
+    if variant == "split":
+        scratch, count_set = stream_group_work(rays.o.shape[0], top.device,
+                                               queue=False)
+    else:
+        scratch = queue_counter(variant, top.device)
+    res = launch_top(_lib().ctl_top_visits, TOP_VARIANTS[variant], scratch, top,
+                     rays, V, any_hit, any_mask, stack_depth, max_iters, roots,
+                     [(ctypes.c_int, count_set)], stream_work=variant == "split")
     top_visits_cuda.launches += 1
     top_visits_cuda.launches_by_v[V] += 1
     top_visits_cuda.launches_by_variant[variant] += 1
     return res
 
 
-def launch_top(fn, code: int, counter: Tensor, top: Tensor, rays: Rays,
+def launch_top(fn, code: int, scratch: Tensor, top: Tensor, rays: Rays,
                V: int, any_hit: bool, any_mask: Tensor, stack_depth: int,
-               max_iters: int, roots: Tensor = None):
+               max_iters: int, roots: Tensor = None, extra=(),
+               stream_work: bool = False):
     """Check K2's arguments, allocate its outputs and call `fn`, a C entry
-    with ``ctl_top_visits``'s arguments, with `code` (the variant) and
-    `counter` (the queue counter, or None); raises on an error. Returns
+    with ``ctl_top_visits``'s arguments up to `scratch` (the queue counter,
+    the work area, or None) and `code` (the variant or design), then the
+    (ctypes type, value) pairs `extra`, then the stream; raises on an
+    error, after dropping the stream's work area when `scratch` is it
+    (`stream_work`; ``traversal8.forget_stream_work``). Returns
     ``top_visits``'s outputs."""
     _check_args(any_hit, stack_depth, any_mask)
     if V not in KERNEL_V:
@@ -133,23 +174,26 @@ def launch_top(fn, code: int, counter: Tensor, top: Tensor, rays: Rays,
     vent = torch.empty((B, V), **f32)
     mdrop = torch.empty(B, **f32)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                   vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+    fn.argtypes = ([vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci]
+                   + [vp] * 11 + [ci] + [typ for typ, _ in extra] + [vp])
     fn.restype = ci
     err = fn(_ptr(top), top.shape[0], _ptr(rays.o), _ptr(rays.d),
              _ptr(rays.tmin), _ptr(rays.tmax), _ptr(roots), _ptr(mask_u8), B,
              int(bool(any_hit)), V, stack_depth, max_iters, _ptr(t), _ptr(tri),
              _ptr(u), _ptr(v), _ptr(steps), _ptr(flags), _ptr(vids),
-             _ptr(vent), _ptr(vcnt), _ptr(mdrop), _ptr(counter), code,
+             _ptr(vent), _ptr(vcnt), _ptr(mdrop), _ptr(scratch), code,
+             *(x for _, x in extra),
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err != 0:
+        if stream_work:
+            forget_stream_work(dev)
         raise RuntimeError(f"K2 (top_visits) launch failed: error {err}")
     return Hit(t=t, tri=tri, u=u, v=v), vids, vent, vcnt, mdrop, steps, flags
 
 
 top_visits_cuda.launches = 0
 top_visits_cuda.launches_by_v = dict.fromkeys(KERNEL_V, 0)
-top_visits_cuda.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+top_visits_cuda.launches_by_variant = dict.fromkeys(TOP_VARIANTS, 0)
 
 
 # ---------------------------------------------------------------- K3 ------

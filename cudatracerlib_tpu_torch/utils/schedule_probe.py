@@ -1,5 +1,5 @@
-"""The designs that the shared variants of K1 and K2, and K3, were
-measured against.
+"""The designs that the shared variants of K1 and K2, K2's split
+variant, and K3, were measured against.
 
 ``csrc/schedule_probe.cu`` holds them; on no render path. K1's and K2's
 take the kept shared variant (the table in shared memory, one 512-thread
@@ -10,6 +10,14 @@ change one thing:
   of the queue;
 - ``"smem_stack"``: each thread's ring stack in shared memory after the
   table.
+
+``top_visits`` runs K2 in the two designs that its split variant (rows
+0-452 in each SM's shared memory, the rest through L1/L2) was measured
+against (``TOP_DESIGNS``): ``"cluster"``, the top table over the shared
+memory of a cluster of `blocks` blocks (``slab_variant``'s by default; 2n
+too), read through the cluster's windows, rays from the same queue in the
+stream's work area; and ``"global"``, one thread per ray, rows through
+L1/L2 (K2's first kernel).
 
 ``traverse8_group`` runs K1's global variant in the group design with 8
 or 32 lanes a live ray, or with the kept 16 and an L2 prefetch of each
@@ -59,6 +67,9 @@ from ..ops.traversal import Rays
 from ..scene.treelet import VID_ROOT_BITS
 
 DESIGNS = {"stride": 0, "smem_stack": 1}
+# K2's designs here: the shared variant's two (the table in shared memory)
+# and the two measured against the split variant
+TOP_DESIGNS = dict(DESIGNS, cluster=2, **{"global": 3})
 # the group design of K1's global variant as measured against the kept
 # one (16 lanes a live ray): 8 or 32 lanes, or 16 with an L2 prefetch of
 # each node step's eligible children
@@ -67,7 +78,7 @@ GROUP_DESIGNS = {"g8": 0, "g32": 1, "g16p": 2}
 # or 2 fetches an iteration; and its first design (the C entry's codes)
 POOL_DESIGNS = {"first": 0, "f1": 1, "f8": 8, "f16": 16, "r1": 101, "r2": 102}
 K3_DESIGNS = {"cluster": 0, "split": 1, "walk": 2}
-CLUSTER_MAX = 8    # the largest cluster the cluster design is built for
+CLUSTER_MAX = 8    # the largest cluster the cluster designs are built for
 # the K3 designs' chunk of sorted slots and fewest visits of a staged
 # segment, unless a call gives others (chip_smoke.py times a sweep)
 CHUNK = 4096
@@ -121,7 +132,8 @@ def traverse8_group(table, rays: Rays, design: str, any_hit: bool = False,
              traversal8._stream(table.device))
     return traversal8._wide_result(
         err, out, with_iters,
-        traversal8._kernel_slots(work, count_set, with_util and with_iters))
+        traversal8._kernel_slots(work, count_set, with_util and with_iters),
+        table.device if _scratch is None else None)
 
 
 def traverse_pool(table, rays: Rays, design: str, any_hit: bool = False,
@@ -148,7 +160,8 @@ def traverse_pool(table, rays: Rays, design: str, any_hit: bool = False,
              POOL_DESIGNS[design], traversal8._stream(table.device))
     return traversal8._wide_result(
         err, out, with_iters,
-        traversal8._kernel_slots(work, count_set, with_util and with_iters))
+        traversal8._kernel_slots(work, count_set, with_util and with_iters),
+        table.device if _scratch is None else None)
 
 
 def pool_model(steps, dead, warps: int, fetch_idle: int, rounds: int = 4,
@@ -194,24 +207,47 @@ def pool_model(steps, dead, warps: int, fetch_idle: int, rounds: int = 4,
     return slots, active
 
 
-def top_visits(top, rays: Rays, V: int, design: str, any_hit: bool = False,
-               any_mask=None):
-    """K2's shared variant in `design`: the outputs of ``top_visits_cuda``."""
+def top_visits(top, rays: Rays, V: int, design: str, blocks: int = None,
+               any_hit: bool = False, any_mask=None, roots=None):
+    """K2 in `design` (``TOP_DESIGNS``: the shared variant's "stride" and
+    "smem_stack", which need the table in one block's shared memory; the
+    "cluster" design over `blocks` blocks, 1, 2, 4 or 8, ``slab_variant``'s
+    for the table by default; "global", one thread per ray): the outputs
+    of ``top_visits_cuda``."""
+    if design not in TOP_DESIGNS:
+        raise ValueError(f"no K2 design {design!r}: one of {list(TOP_DESIGNS)}")
+    if blocks is not None and (design != "cluster" or blocks not in (1, 2, 4, 8)):
+        raise ValueError(f"the cluster design takes 1, 2, 4 or 8 blocks, not "
+                         f"{blocks} ({design})")
     traversal8._check_table(top, "top")   # before the build
+    if design == "cluster":
+        blocks = blocks or slab_variant(top.shape[0],
+                                        traversal8._shared_limit(top.device.index))
+        if not blocks:
+            raise ValueError(f"no cluster of up to {CLUSTER_MAX} blocks holds "
+                             f"{top.shape[0]} rows")
+        scratch, count_set = traversal8.stream_group_work(rays.o.shape[0],
+                                                          top.device, queue=False)
+    elif design == "global":
+        scratch, count_set = None, 0
+    else:
+        scratch, count_set = _counter(top.device), 0
+    ci = ctypes.c_int
     return traversal_tt.launch_top(
-        _lib().ctl_probe_top_visits, DESIGNS[design], _counter(top.device),
+        _lib().ctl_probe_top_visits, TOP_DESIGNS[design], scratch,
         top, rays, V, any_hit, any_mask, traversal8.STACK_DEPTH,
-        traversal8.MAX_ITERS)
+        traversal8.MAX_ITERS, roots, [(ci, blocks or 0), (ci, count_set)],
+        stream_work=design == "cluster")
 
 
 def slab_variant(rows: int, shared_limit: int,
                  cluster_max: int = CLUSTER_MAX) -> int:
-    """The blocks of the cluster design's cluster for a slab of `rows` fat
-    rows on a card whose blocks may opt in to `shared_limit` bytes of
-    shared memory: the fewest, a power of two up to `cluster_max`, whose
-    shares (ceil(rows / n) rows of ROW_BYTES each, the design's only
-    dynamic shared memory) fit; 0 when none does. On an H100 (454 rows a
-    block): 2 for 512-row slabs, 4 for 1,024."""
+    """The blocks of a cluster design's cluster for a table or slab of
+    `rows` fat rows on a card whose blocks may opt in to `shared_limit`
+    bytes of shared memory: the fewest, a power of two up to
+    `cluster_max`, whose shares (ceil(rows / n) rows of ROW_BYTES each, the
+    designs' only dynamic shared memory) fit; 0 when none does. On an H100
+    (454 rows a block): 2 for 512-row slabs, 4 for 1,024."""
     n = 1
     while n <= cluster_max:
         if -(-rows // n) * traversal8.ROW_BYTES <= shared_limit:

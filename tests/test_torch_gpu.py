@@ -220,14 +220,118 @@ def test_microbench_kernels_match_plain_on_gpu(dev):
     assert mb.max_abs_err(res) == 0, res
 
 
+def _big_top(dev):
+    """(top table over one block's shared memory, the scene): the
+    800,000-triangle San Miguel stand-in's table split with 128-row
+    treelets, which gives a 568-row top (K2's split variant)."""
+    from cudatracerlib_tpu_torch.scene import treelet
+    sc = tscenes.san_miguel_stand_in(64, 64, target_tris=800_000).build(dev)
+    part = treelet.partition(sc.geom.wide.cpu().numpy(), treelet_rows=128)
+    return torch.from_numpy(part.top).to(dev), sc
+
+
+@pytest.mark.gpu
+def test_k2_cluster_designs_match_plain_on_gpu(dev):
+    """Every K2 design on a top table of over 454 rows against the plain
+    version bit for bit (hits, visit lists, counts, min-dropped t, steps,
+    flags), closest / any-hit / mixed, at V = 6 and 3, with per-lane roots
+    (row 0 or one of its node children) and a third of the lanes dead
+    (tmax -1): the split variant the rule picks, the probe's cluster design
+    over 2, 4 and 8 blocks, and the probe's global design (one thread per
+    ray). One block cannot hold the table: the cluster design forced onto
+    one, or the shared variant's designs, raise. The rule's launches count
+    under "split"."""
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
+    top, _ = _big_top(dev)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert top.shape[0] > limit // 512
+    assert traversal_tt.launch_top_variant(top) == "split"
+    assert traversal_tt.top_variant(top.shape[0], limit) == "split"
+    assert probe.slab_variant(top.shape[0], limit) == 2
+    r = np.random.default_rng(17)
+    o = r.uniform([-16, 0.3, -10], [16, 5, 10], (N_RAYS, 3)).astype(np.float32)
+    d = r.normal(size=(N_RAYS, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(np.arange(N_RAYS) % 3 == 1, -1.0, 1e9).astype(np.float32)
+    rays = Rays(torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev),
+                torch.full((N_RAYS,), 1e-4, device=dev), torch.from_numpy(tmax).to(dev))
+    links = top[0, 48:56].contiguous().view(torch.int32)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), links[links >= 0]])
+    roots = starts[torch.from_numpy(r.integers(0, starts.numel(), N_RAYS)).to(dev)]
+    amask = torch.from_numpy(r.random(N_RAYS) < 0.5).to(dev)
+    K2 = traversal_tt.top_visits_cuda
+    before = dict(K2.launches_by_variant)
+    for kw in ({}, dict(any_hit=True), dict(any_mask=amask)):
+        for V in (6, 3):
+            for rk in ({}, dict(roots=roots.contiguous())):
+                p2 = traversal_tt.top_visits(top, rays, V, **kw, **rk)
+                runs = [K2(top, rays, V, **kw, **rk),
+                        probe.top_visits(top, rays, V, "global", **kw, **rk)]
+                runs += [probe.top_visits(top, rays, V, "cluster", n, **kw, **rk)
+                         for n in (None, 4, 8)]
+                for k2 in runs:
+                    _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
+    assert K2.launches_by_variant["split"] - before["split"] == 12
+    with pytest.raises(RuntimeError):
+        probe.top_visits(top, rays, 3, "cluster", 1)
+    with pytest.raises(RuntimeError):
+        probe.top_visits(top, rays, 3, "stride")
+    # a refused launch zeroed no counter set: the set the stream's next
+    # launch takes is still zero (a group-design launch that started on
+    # counts would skip rays or wait for ever)
+    half = traversal8.GROUP_WORK // 2
+    for work, count_set in traversal8._group_work.values():
+        assert not work[count_set * half:(count_set + 1) * half].any()
+    k2, p2 = K2(top, rays, 3), traversal_tt.top_visits(top, rays, 3)
+    _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_p1_modes_match_plain_on_gpu(dev):
+    """P1 in every mode (thread, shared, group with 8, 16 and 32 lanes,
+    cluster over 1, 2, 4 and 8 blocks, bulk), reading whole rows and a node
+    step's 14 float4, against the plain chase_rows, at both occupancies
+    and at an odd chain count, on tables of 331 and 998 rows (shared and
+    1-2 block clusters refuse 998 rows)."""
+    from cudatracerlib_tpu_torch.utils import microbench as mb
+    gen = torch.Generator(device=dev).manual_seed(5)
+    runs = [("thread", None), ("shared", None), ("bulk", None)] \
+        + [("group", g) for g in mb.GROUP_LANES] \
+        + [("cluster", n) for n in mb.CLUSTER_BLOCKS]
+    for rows in (331, 998):
+        table = mb._random_table(rows, gen, dev)
+        for chains, lanes, threads in ((1024, None, 128), (133, 32, 32), (77, None, 64)):
+            idx0 = mb._random_idx(chains, rows, gen, dev)
+            for words in (mb.ROW_WORDS, mb.NODE_WORDS):
+                ref = mb.chase_rows(table, idx0, 37, words=words)
+                for mode, param in runs:
+                    fits = not (mode == "shared" and rows > 454) and not (
+                        mode == "cluster" and -(-rows // param) > 454)
+                    if not fits:
+                        with pytest.raises(ValueError):
+                            mb.chase_rows_cuda(table, idx0, 37, mode, param, lanes,
+                                               threads, words)
+                        continue
+                    got = mb.chase_rows_cuda(table, idx0, 37, mode, param, lanes,
+                                             threads, words)
+                    assert torch.equal(got, ref), (rows, chains, mode, param, words)
+    entries = mb.chase_entries(mb._random_table(998, gen, dev), gen, 132)
+    assert {e["mode"] for e in entries} == set(mb.CHASE_MODES) - {"shared"}
+    assert {e["words"] for e in entries} == {mb.ROW_WORDS, mb.NODE_WORDS}
+    assert max(e["max_abs_err"] for e in entries) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_table_variants_match_plain_on_gpu(dev):
-    """K1's and K2's variants (shared table, forced global) and the two
-    designs of utils/schedule_probe.py (static stride, stacks in shared
-    memory) against the plain versions, closest / any-hit / mixed: K1 on
-    the Cornell table (shared by the size rule) and on the 20,000-triangle
-    San Miguel table (global by the rule, refused when forced shared), K2
-    on that scene's top table at V = 6 and 3."""
+    """K1's variants (shared table, forced global), K2's (shared table,
+    forced split) and the designs of utils/schedule_probe.py (static
+    stride, stacks in shared memory; for K2 also a cluster of one block and
+    one thread per ray) against the plain versions, closest / any-hit /
+    mixed: K1 on the Cornell table (shared by the size rule) and on the
+    20,000-triangle San Miguel table (global by the rule, refused when
+    forced shared), K2 on that scene's top table at V = 6 and 3."""
     from cudatracerlib_tpu_torch.utils import schedule_probe as probe
     r = np.random.default_rng(11)
     o = r.uniform(0.05, 0.95, (N_RAYS, 3)).astype(np.float32)
@@ -255,10 +359,10 @@ def test_table_variants_match_plain_on_gpu(dev):
                     _equal((*k[0], k[1], k[2]), (*p[0], p[1], p[2]))
         for V in (6, 3):
             p2 = traversal_tt.top_visits(geom.tt_top, rays, V, **kw)
-            for variant in (None, "global"):
+            for variant in (None, "split"):
                 k2 = K2(geom.tt_top, rays, V, _variant=variant, **kw)
                 _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
-            for design in probe.DESIGNS:
+            for design in probe.TOP_DESIGNS:
                 k2 = probe.top_visits(geom.tt_top, rays, V, design, **kw)
                 _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
     with pytest.raises(RuntimeError):
@@ -626,12 +730,14 @@ def test_wavefront_instanced_on_gpu(dev):
 
 @pytest.mark.gpu
 def test_k2_roots_match_plain_on_gpu(dev):
-    """K2 with per-lane top-local roots, both variants, against its plain
+    """K2 with per-lane top-local roots, both variants and the probe's
+    global design (one thread per ray), against its plain
     version bit for bit, on the instanced scene's forced-split forest;
     roots of zeros equal the rootless launch; the treelet BLAS route on the
     card (K2 with roots, K3, the K1 fallback with global roots) equals the
     same route on the CPU."""
     from cudatracerlib_tpu_torch.ops import instanced
+    from cudatracerlib_tpu_torch.utils import schedule_probe as probe
     sc = _inst_scene(32).build(dev)
     geom_tt, part = _forest(sc, dev)
     top = geom_tt.tt_top
@@ -645,9 +751,11 @@ def test_k2_roots_match_plain_on_gpu(dev):
     for kw in ({}, dict(any_hit=True), dict(any_mask=amask)):
         for V in (6, 3):
             p2 = traversal_tt.top_visits(top, rays, V, roots=roots, **kw)
-            for variant in ("shared", "global"):
+            for variant in ("shared", "split"):
                 k2 = K2(top, rays, V, roots=roots, _variant=variant, **kw)
                 _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
+            k2 = probe.top_visits(top, rays, V, "global", roots=roots, **kw)
+            _equal((*k2[0], *k2[1:]), (*p2[0], *p2[1:]))
             z = K2(top, rays, V, roots=torch.zeros(B, dtype=torch.int32, device=dev), **kw)
             _equal((*z[0], *z[1:]), (*K2(top, rays, V, **kw)[0], *K2(top, rays, V, **kw)[1:]))
         card = traversal8.intersect_scene(geom_tt, rays, **kw)

@@ -38,6 +38,19 @@ def test_chase_rows_matches_numpy_loop():
     assert got.dtype == np.int32
 
 
+def test_chase_rows_node_step_matches_numpy_loop():
+    """With words=14 a step's row value is the xor of its first 56 words
+    (what a traversal's node step reads)."""
+    bits, table = _table(5)
+    idx0 = np.random.default_rng(6).integers(0, ROWS, 19).astype(np.int32)
+    got = mb.chase_rows(table, torch.from_numpy(idx0), 7, words=mb.NODE_WORDS).numpy()
+    for c, start in enumerate(idx0):
+        idx = int(start)
+        for s in range(7):
+            idx = ((_xor(bits[idx][:4 * mb.NODE_WORDS]) + s * 0x9E3779B9) % 2 ** 32) % ROWS
+        assert got[c] == idx
+
+
 def test_gather_rows_matches_numpy_loop():
     bits, table = _table(3)
     idx = np.random.default_rng(4).integers(0, ROWS, 101).astype(np.int32)

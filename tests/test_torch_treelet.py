@@ -220,11 +220,13 @@ def test_flags_of_the_plain_phases(setup):
 
 @pytest.mark.parametrize("scene", ["cornell_split", "san_miguel"])
 def test_top_table_variant_rule(setup, scene, monkeypatch, tmp_path):
-    """K2's variant follows the top table's size, by K1's rule: the top
-    tables of the split Cornell box (this file's split) and of the
-    20,000-triangle San Miguel stand-in fit an H100 block's shared memory
-    (at full size San Miguel's top has 240 rows); a top table at the
-    partition's cap (2,048 rows) does not."""
+    """K2's variant follows the top table's size, by its own rule
+    (``traversal_tt.top_variant``): the top tables of the split Cornell
+    box (this file's split) and of the 20,000-triangle San Miguel stand-in
+    fit an H100 block's shared memory (at full size San Miguel's top has
+    240 rows); a top table at the partition's cap (2,048 rows) does not,
+    and takes the split variant, as K1's rule would take its global
+    variant."""
     if scene == "cornell_split":
         top = setup["part"].top
     else:
@@ -233,6 +235,8 @@ def test_top_table_variant_rule(setup, scene, monkeypatch, tmp_path):
     assert 1 <= top.shape[0] <= 454
     assert traversal8.table_variant(top.shape[0], 232448) == "shared"
     assert traversal8.table_variant(treelet.MAX_TOP_ROWS, 232448) == "global"
+    assert traversal_tt.top_variant(top.shape[0], 232448) == "shared"
+    assert traversal_tt.top_variant(treelet.MAX_TOP_ROWS, 232448) == "split"
 
 
 def test_kernel_wrappers_reject_cpu_tensors(setup):
