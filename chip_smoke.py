@@ -19,7 +19,12 @@ rank through NCCL, and the command-line renderer).
 
 Needs one CUDA device, nvcc (CUDA_HOME or PATH), g++ and the repository
 checkout; imports nothing of JAX. Each phase prints one JSON line, any
-failure exits non-zero, and nothing falls back to the CPU:
+failure exits non-zero, and nothing falls back to the CPU. Each
+card-against-CPU comparison (card_vs_cpu) renders its CPU half in a child
+forked from this process while the card renders, at most CPU_SIDE_PROCS
+at once, and compares when the child is collected (collect_cpu_sides):
+before any clock is read for a timing, and at the latest before the
+kernel table, so that no timing runs beside a CPU half:
 
 1. the card's name and power limit; build every kernel (csrc/traversal8.cu:
    K1; csrc/traversal_tt.cu: K2, K3; csrc/traversal_pool.cu: K4;
@@ -189,12 +194,29 @@ failure exits non-zero, and nothing falls back to the CPU:
    within 1e-3);
 8. P1-P3 (utils/microbench.py) timed at their full sizes, with the counts
    zeroed around the run; the output of every timed configuration must
-   equal its plain version's on the same inputs. P1 runs each mode of read
+   equal its plain version's on the same inputs, and every design, kind
+   and form must launch. P1 runs each mode of read
    (thread, shared, group of 16 lanes, cluster of 2, 4 and 8 blocks, bulk
    copy) that fits each table, reading the whole row, and each mode but
    bulk reading a node step's 14 float4, at 1,024 chains and at one chain
    a warp on every SM, and reports ns per dependent row as the slope
-   between 256 and 512 steps (p1_ns_per_row).
+   between 256 and 512 steps (p1_ns_per_row). P2 (a) times the port's
+   row gathers as table.index_select(0, idx) in three designs (a thread a
+   row, a thread a float4, TMA both ways) on two index streams recorded on
+   the main path (RecordTake): the game frame's neighbourhood gather of
+   7c (1,048,576 queries x 8 runs of 16 rows of 48 bytes) and one EWA
+   texel-quad tap of a WavefrontPT iteration of 7a, beside
+   torch.index_select and the port's table[idx.long()] (p2_take). P2 (b)
+   times step_only, a traversal step on a node or leaf row held in
+   registers (veach-mis's root and a leaf row; phase 1 checks that its
+   loop holds no load from memory), closest and any-hit, at one warp an
+   SM and at full occupancy (p2_step_only); the smallest reading at one
+   warp an SM is added to every step of the chain floors. P3 times the
+   queue fetch in its three forms (memset, the stream's work area, K4's
+   claim at 8 idle lanes, the last on 4a's veach-mis bounce stream with
+   40% dead rays and each live ray held for its traversal's steps) at
+   both occupancies (p3_forms, with the threshold form's share of cycles
+   in fetch rounds beside K4's loss to K1 on that set).
 9a. (instanced_phases) the instanced golden: PathTracer on the JAX tests'
    instanced scene (five nodes sharing one sphere: six instances, the
    dense route, K1 with per-lane roots) at 48^2, depth 4, 8 passes against
@@ -241,12 +263,13 @@ L1-L3. (loader_phases) Mitsuba files written to a temporary directory and
    materials.xml, a 4 x 4 grid of spheres, one per BSDF type (with the
    twosided, coating, rough coating and blend adapters), a blackbody area
    light and a sun-and-sky map that must equal preetham_sky's; every type
-   in the material table; the PT at 512^2, depth 5, without and with
-   regularization (a warm-up and L2_PASSES timed passes each; K2, K3 and
-   the K1 fallback: 63,492 triangles), every K2, K3 and K1 call of one
-   pass held to its plain version; at L2_SMALL^2 one pass each of the PT
-   (both), BDPT and VCM (depth L2_SMALL_DEPTH) and the regularized
-   WavefrontPT against the CPU.
+   in the material table; the PT at L2_SIZE^2 (256^2), depth 5, without
+   and with regularization (a warm-up and L2_PASSES timed passes each;
+   K2, K3 and the K1 fallback: 63,492 triangles), every K2, K3 and K1
+   call of one pass held to its plain version; at L2_SMALL^2 one pass
+   each of BDPT and VCM (depth L2_SMALL_DEPTH) and the regularized
+   WavefrontPT against the CPU (the PT's, plain and regularized, are
+   tests/test_torch_gpu.py::test_loaded_materials_on_gpu's).
    L3: the San Miguel stand-in's nodes merged by material into one
    .serialized file (1,200,444 triangles with normals and uv) and an XML
    that loads each mesh by shapeIndex; every loaded array equal to the one
@@ -512,8 +535,12 @@ L2_DEPTH = 5
 # L2 evaluates all 16 closed forms on every lane, and every simple type
 # again inside its coatings and blends (JAX's dispatch): 10-12 s a 512²
 # pass and 40-45 s a 32² BDPT or VCM pass on the card and the CPU, so one
-# timed pass a setting, and its card-against-CPU passes at 16², BDPT and
-# VCM at depth 2 (20-23 s each at depth 3 on the CPU side)
+# timed pass a setting at L2_SIZE² (one chunk of LOADER_CHUNK lanes), and
+# its card-against-CPU passes at 16², BDPT and VCM at depth 2 (20-23 s
+# each at depth 3 on the CPU side); the PT's, plain and regularized, are
+# tests/test_torch_gpu.py::test_loaded_materials_on_gpu's (the same file,
+# size and depth, two passes)
+L2_SIZE = 256
 L2_PASSES = 1
 L2_SMALL = 16
 L2_SMALL_DEPTH = 2
@@ -537,6 +564,10 @@ SASS_NAME_RE = re.compile(r"(traverse8_shared_kernel|traverse8_kernel"
 # the staged slab lives
 PROBE_K3_RE = re.compile(r"probe_treelet_kernelILi(\d)EN\w*?(Cluster|Split|Walk)Stage")
 SASS_LOAD_RE = re.compile(r"\b(?:LDS|LDG|LD|LDGSTS)(?:\.[A-Z0-9_]+)*\b")
+# P2 (b)'s kernels in a mangled name (node row, any-hit), and every load
+# from memory other than the constant bank in a SASS line
+STEP_ONLY_RE = re.compile(r"step_only_kernelILb(\d)ELb(\d)E")
+SASS_MEM_LOAD_RE = re.compile(r"\b(?:LDGSTS|LDG|LDS|LDL|LD)(?:\.[A-Z0-9_]+)*\b")
 
 
 def emit(**kw):
@@ -549,6 +580,7 @@ def fail(msg):
 
 
 def cuda_median_ms(fn, reps=5):
+    collect_cpu_sides()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -564,6 +596,7 @@ def device_ms(fn, reps=10):
     time between CUDA events recorded around each call, all queued behind a
     sleeping kernel, so that the host's launch and synchronisation (which
     cuda_median_ms includes) fall outside them."""
+    collect_cpu_sides()
     fn()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
@@ -597,6 +630,53 @@ def sass_loads(lib_path, nvcc):
             for op in SASS_LOAD_RE.findall(ln):
                 if "128" in op:
                     out[fn][op] = out[fn].get(op, 0) + 1
+    return out
+
+
+def sass_loop_loads(lib_path, nvcc):
+    """{step_only_kernel<row,mode>: (loops, {load opcode: count inside a
+    loop})} from the SASS of a built microbench library: a loop is the
+    address range of a backward branch, [its target, the branch]."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    funcs, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = STEP_ONLY_RE.search(ln)
+            fn = (f"step_only_kernel<{'node' if m.group(1) == '1' else 'leaf'},"
+                  f"{'any_hit' if m.group(2) == '1' else 'closest'}>") if m else None
+            if fn:
+                funcs[fn] = []
+            continue
+        a = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+        if fn and a:
+            funcs[fn].append((int(a.group(1), 16), a.group(2)))
+    out = {}
+    for fn, ins in funcs.items():
+        loops = []
+        for addr, text in ins:
+            b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)
+            if b and int(b.group(1), 16) < addr:
+                loops.append((int(b.group(1), 16), addr))
+        loads = {}
+        for addr, text in ins:
+            if any(lo <= addr <= hi for lo, hi in loops):
+                for op in SASS_MEM_LOAD_RE.findall(text):
+                    loads[op] = loads.get(op, 0) + 1
+        out[fn] = (len(loops), loads)
+    return out
+
+
+def ptxas_lines(log, name):
+    """ptxas's report lines (registers, stack, spills) of the entry
+    functions whose mangled names hold `name`."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if "Compiling entry" in ln or "Function properties" in ln:
+            keep = name in ln
+        if keep and ("registers" in ln or "stack frame" in ln):
+            out.append(ln.strip())
     return out
 
 
@@ -716,6 +796,44 @@ class RowFetches:
     def near_far(self):
         return [] if self.reads is None else \
             [tuple(p) for p in torch.unique(self.reads, dim=0).tolist()]
+
+
+# the inputs of phase 8's new microbenchmarks, each from the main path:
+# TAKE_CALLS, P2's index streams ({name: (table, int32 index)}: the game
+# frame's neighbourhood gather of 7c and one EWA tap of a WavefrontPT
+# iteration of 7a, recorded by RecordTake); MB_INPUTS, P2 (b)'s rows (the
+# veach-mis table's root and a leaf row, 4a) and P3's threshold stream
+# (the steps, tmin and tmax of 4a's veach-mis bounce wavefront with 40% of
+# its rays dead)
+TAKE_CALLS = {}
+MB_INPUTS = {}
+
+
+class RecordTake:
+    """While entered, module.name, a row gather called as name(x, idx), is
+    wrapped so that its first call whose table `table_of(x)` gives (None:
+    not this gather) records (table, the flat int32 index it gathers,
+    clamped into the table as the gather clamps it) as TAKE_CALLS[key];
+    every call then runs as before."""
+
+    def __init__(self, key, module, name, table_of):
+        self.key, self.module, self.name, self.table_of = key, module, name, table_of
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+
+        def rec(x, idx):
+            table = self.table_of(x)
+            if table is not None and self.key not in TAKE_CALLS:
+                table = table if table.data_ptr() % 16 == 0 else table.clone()
+                TAKE_CALLS[self.key] = (table, idx.reshape(-1).clamp(
+                    0, table.shape[0] - 1).to(torch.int32).contiguous().clone())
+            return orig(x, idx)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
 
 
 def trav_bound(table_bytes, B, steps, mixed, mb, traversal8, live=None,
@@ -1013,6 +1131,7 @@ def profile_pass(tr, scene_name, **extra):
     their template instantiations. Without it, nothing."""
     if not PROFILE:
         return
+    collect_cpu_sides()
     from torch.profiler import ProfilerActivity, profile as tprofile
     # device activity only: the CPU ops of a pass of 10^5 launches would
     # take minutes to sum, and only device events are counted
@@ -1250,6 +1369,7 @@ def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
     B = rays.o.shape[0]
     live = live_mask(rays, kw, traversal8)
     if ref is None:
+        collect_cpu_sides()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with RowFetches(lanes=live) as fetched:
@@ -1297,16 +1417,18 @@ def k1_global_call(label, table, rays, kw, traversal8, mb, run_design, ref=None,
                 designs=med)
 
 
-def chain_floor(p1, design, rows, steps, mb, blocks=None):
-    """(floor ms, the P1 entry): `steps` dependent rows (a call's largest
-    live step count) at the ns per dependent row of the P1 reading that
+def chain_floor(p1, design, rows, steps, mb, blocks=None, arith_ns=0.0):
+    """(floor ms, the P1 entry): `steps` dependent steps (a call's largest
+    live step count), each the ns per dependent row of the P1 reading that
     `design` is held to (mb.floor_entry: a node step's read in its mode of
     read, one chain a warp, the lowest over the measured tables of at most
-    `rows` rows); (None, None) when P1 did not measure that mode."""
+    `rows` rows) plus `arith_ns`, a step's arithmetic (mb.step_arith_ns:
+    the smaller of a node and a leaf step at one warp an SM); (None, None)
+    when P1 did not measure that mode."""
     e = mb.floor_entry(p1, design, rows, blocks)
     if e is None:
         return None, None
-    return steps * max(e["ns_per_dependent_row"], 0.0) / 1e6, e
+    return steps * (max(e["ns_per_dependent_row"], 0.0) + arith_ns) / 1e6, e
 
 
 def floor_fields(times, floors):
@@ -1316,24 +1438,28 @@ def floor_fields(times, floors):
             if floors.get(d, (None,))[0]}
 
 
-def k1_global_lines(p1, mb):
+def k1_global_lines(p1, mb, arith_ns):
     """One line per call in K1_GLOBAL_CALLS, with each design's chain
     floor: the largest live steps times the ns per dependent row of P1's
     node-step reading in the design's mode of read (thread: one thread a
     row through L1/L2; group: 16 lanes a row), one chain a warp, the lowest
     over the measured tables of at most the call's rows, both from this
-    run; and
-    floor_ratio, each design's device ms over its floor (under 1: the
-    design beat the reading, PERF.md names it). Returns the lines."""
+    run, each step with arith_ns[design] of arithmetic added (step_only's
+    smallest reading at one warp an SM; for the group design, whose lanes
+    split a step's tests, a lane's share of it); and floor_ratio, each
+    design's device ms over its floor (under 1: the design beat the floor,
+    PERF.md names it). Returns the lines."""
     lines = []
     for c in K1_GLOBAL_CALLS:
-        floors = {d: chain_floor(p1, d, c["rows"], c["live_steps_max"], mb)
+        floors = {d: chain_floor(p1, d, c["rows"], c["live_steps_max"], mb,
+                                 arith_ns=arith_ns[d])
                   for d in ("thread", "group")}
         med = {d: statistics.median(v) for d, v in c["device_ms"].items()}
         line = dict(c, chain_floor_ms={d: f[0] for d, f in floors.items()},
                     ns_per_dependent_row={d: f[1] and f[1]["ns_per_dependent_row"]
                                           for d, f in floors.items()},
                     floor_rows={d: f[1] and f[1]["rows"] for d, f in floors.items()},
+                    step_arith_ns=arith_ns,
                     floor_ratio=floor_fields(c["device_ms"], floors),
                     thread_over_group=med["thread"] / med["group"])
         emit(phase="k1_global_call", **line)
@@ -1344,6 +1470,7 @@ def k1_global_lines(p1, mb):
 def timed_passes(tr, n):
     """n passes of `tr`, each timed to torch.cuda.synchronize (do_pass);
     returns (pass seconds, live rays per pass or None)."""
+    collect_cpu_sides()
     secs, rays_n = [], []
     for _ in range(n):
         before = getattr(tr, "rays_traced_live", None)
@@ -1354,30 +1481,109 @@ def timed_passes(tr, n):
     return secs, rays_n or None
 
 
+# card_vs_cpu's CPU halves: each renders in a child forked from this
+# process (CpuSide), on one torch thread, while this process goes on with
+# the card; at most CPU_SIDE_PROCS run at once, and a comparison is made
+# when its child is collected (collect_cpu_sides: before a new child would
+# pass the cap, where a caller needs the readings, before every clock
+# reading of a timing (timed_passes, cuda_median_ms, device_ms, and the
+# phases that read time.perf_counter), and before the kernel table). A
+# child that runs past CPU_SIDE_SECONDS or fails fails the run.
+CPU_SIDE_PROCS = 3
+CPU_SIDE_SECONDS = 900
+CPU_SIDES = []
+# seconds this process spent in card_vs_cpu (the card's half) and waiting
+# for its children (the card_vs_cpu_time line)
+CARD_CPU_SECONDS = dict(card=0.0, wait=0.0)
+
+
+class CpuSide:
+    """fn() (numpy arrays, stacked) computed in a forked child that uses
+    the CPU alone: the child inherits this process's state, so `fn` may be
+    any closure, and it must not touch CUDA (the child of a process that
+    holds a CUDA context cannot use it). The result comes back through a
+    temporary .npy file."""
+
+    def __init__(self, fn):
+        import multiprocessing
+        import tempfile
+        fd, self.path = tempfile.mkstemp(prefix="cpu_side_", suffix=".npy")
+        os.close(fd)
+        self.proc = multiprocessing.get_context("fork").Process(
+            target=CpuSide._run, args=(fn, self.path), daemon=True)
+        self.proc.start()
+
+    @staticmethod
+    def _run(fn, path):
+        torch.set_num_threads(1)
+        np.save(path, fn())
+
+    def result(self, what):
+        self.proc.join(CPU_SIDE_SECONDS)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+            fail(f"the CPU half of {what} ran past {CPU_SIDE_SECONDS} s")
+        try:
+            if self.proc.exitcode != 0:
+                fail(f"the CPU half of {what} failed (exit code {self.proc.exitcode})")
+            return np.load(self.path)
+        finally:
+            os.remove(self.path)
+
+
 def card_vs_cpu(name, make, scene_fn, size, passes, dev, limit=CARD_CPU_LIMIT,
-                **extra):
+                wait=False, **extra):
     """The same tracer on the card and on the CPU, pass by pass: the mean
     relative error of the cumulative image after each pass, every image
-    finite and not black; fails over `limit`. Returns the readings."""
-    trs = [make(scene_fn(size, size).build(d)) for d in (dev, "cpu")]
-    rels = []
-    for _ in range(passes):
-        imgs = [tr.render(1).cpu().numpy() for tr in trs]
-        for img in imgs:
-            if not np.isfinite(img).all() or not img.mean() > 0.0:
-                fail(f"the {name} card-vs-CPU image is not finite and non-black")
-        rels.append(float(np.abs(imgs[0] - imgs[1]).mean()
-                          / max(imgs[1].mean(), 1e-9)))
-    # the last image's pixels off by more than 1e-4 of their own value
-    pix = (np.abs(imgs[0] - imgs[1]).max(-1)
-           / np.maximum(np.abs(imgs[1]).max(-1), 1e-6))
-    emit(phase="card_vs_cpu", tracer=name, size=size, passes=passes,
-         rel_err=max(rels), rel_err_by_pass=rels, limit=limit,
-         pixels_off_1e4=int((pix > 1e-4).sum()), max_pixel_rel=float(pix.max()),
-         **extra)
-    if not max(rels) < limit:
-        fail(f"the {name} card image differs from the CPU image: {rels}")
-    return rels
+    finite and not black; fails over `limit`. The CPU half renders in a
+    forked child (CpuSide) while the card renders; the comparison is made
+    when collect_cpu_sides collects it, at once with `wait`, which returns
+    the readings."""
+    def cpu_half():
+        tr = make(scene_fn(size, size).build("cpu"))
+        return np.stack([tr.render(1).numpy() for _ in range(passes)])
+    collect_cpu_sides(keep=CPU_SIDE_PROCS - 1)
+    t0 = time.perf_counter()
+    job = CpuSide(cpu_half)
+    tr = make(scene_fn(size, size).build(dev))
+    card = [tr.render(1).cpu().numpy() for _ in range(passes)]
+    del tr
+    CARD_CPU_SECONDS["card"] += time.perf_counter() - t0
+    CPU_SIDES.append(dict(name=name, size=size, passes=passes, limit=limit,
+                          extra=extra, card=card, job=job))
+    if wait:
+        return collect_cpu_sides()[-1]
+
+
+def collect_cpu_sides(keep=0):
+    """Collect card_vs_cpu's children, oldest first, until `keep` are
+    left running, and make each one's comparison (one card_vs_cpu line);
+    returns the readings of those collected."""
+    done = []
+    while len(CPU_SIDES) > keep:
+        c = CPU_SIDES.pop(0)
+        t0 = time.perf_counter()
+        imgs_cpu = c["job"].result(f"{c['name']} card-vs-CPU")
+        CARD_CPU_SECONDS["wait"] += time.perf_counter() - t0
+        rels = []
+        for img_card, img_cpu in zip(c["card"], imgs_cpu):
+            for img in (img_card, img_cpu):
+                if not np.isfinite(img).all() or not img.mean() > 0.0:
+                    fail(f"the {c['name']} card-vs-CPU image is not finite and non-black")
+            rels.append(float(np.abs(img_card - img_cpu).mean()
+                              / max(img_cpu.mean(), 1e-9)))
+        # the last image's pixels off by more than 1e-4 of their own value
+        pix = (np.abs(img_card - img_cpu).max(-1)
+               / np.maximum(np.abs(img_cpu).max(-1), 1e-6))
+        emit(phase="card_vs_cpu", tracer=c["name"], size=c["size"], passes=c["passes"],
+             rel_err=max(rels), rel_err_by_pass=rels, limit=c["limit"],
+             pixels_off_1e4=int((pix > 1e-4).sum()), max_pixel_rel=float(pix.max()),
+             **c["extra"])
+        if not max(rels) < c["limit"]:
+            fail(f"the {c['name']} card image differs from the CPU image: {rels}")
+        done.append(rels)
+    return done
 
 
 def golden_rel(img, name):
@@ -1975,6 +2181,7 @@ def sm_slice_phases(dev, scene, pt_rays_n, K1, K2, K3, K4, zero_counts, plain_ca
     launch per pass; one call of each recorded and held to the plain
     versions. Returns {tracer: dict(launches_per_pass, calls)}, the calls
     as treelet_on_call returns them."""
+    from cudatracerlib_tpu_torch.ops import texture
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     geom, n_pix = scene.geom, 1024 * 1024
     out = {}
@@ -2037,7 +2244,9 @@ def sm_slice_phases(dev, scene, pt_rays_n, K1, K2, K3, K4, zero_counts, plain_ca
         fail(f"wavefront live rays {rays_n[0]} differ from the chunked PT's "
              f"{pt_rays_n[1]} for pass index 1")
     profile_pass(wf, "san_miguel_stand_in", tracer="WavefrontPT")
-    calls = record_scene(wf.do_pass, traversal8, Rays)
+    quads = scene.textures.texels_quad
+    with RecordTake("ewa_tap", texture, "_take_rows", lambda t: t if t is quads else None):
+        calls = record_scene(wf.do_pass, traversal8, Rays)
     call = calls[len(calls) // 2]
     del calls
     out["wavefront"] = dict(launches_per_pass=per_pass, calls={
@@ -2303,7 +2512,7 @@ def feature_phases(dev, K1, zero_counts, plain_calls, pathmod, wfmod, example_sc
     zero_counts()
     rels = card_vs_cpu("PathTracer", lambda s: pathmod.PathTracer(
         s, 24, 24, max_depth=4, spectral=4), example_scenes.cornell_box, 24, 4, dev,
-        scene="cornell_box", spectral=4)
+        wait=True, scene="cornell_box", spectral=4)
     scene = example_scenes.cornell_box(24, 24).build(dev)
     im1 = pathmod.PathTracer(scene, 24, 24, max_depth=4).render(24).cpu().numpy()
     im2 = pathmod.PathTracer(scene, 24, 24, max_depth=4,
@@ -2383,7 +2592,8 @@ def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
             or c["K2_by_variant"]["shared"] != 2 * GAME_FRAMES or c["K4"] or c["plain"]):
         fail(f"the game run took the wrong kernels: {c}")
     profile_pass(tr, "san_miguel_stand_in", tracer="GameTracer")
-    calls = record_scene(tr.do_pass, traversal8, Rays)
+    with RecordTake("game_neighbors", hashgrid, "_gather_rows", lambda g: g.data):
+        calls = record_scene(tr.do_pass, traversal8, Rays)
     if len(calls) != 2:
         fail(f"a game frame traced {len(calls)} times, not 2")
     out = dict(launches_per_pass=per_frame, calls={
@@ -2408,6 +2618,8 @@ SPLIT_ROWS = 453         # the rows K2's split variant stages (cluster_rows.cuh)
 # every K2 call of one 4.8M pass held in each design (hold_k2_call), for
 # the lines after P1 (their chain floors)
 SM48_K2_CALLS = []
+# the floor ratios of k2_call_lines' lines, by design, one dict a call
+SM48_K2_LINES = []
 
 
 def k2_designs(top, probe):
@@ -2445,6 +2657,7 @@ def hold_k2_call(label, top, rays, V, kw, K2, probe, traversal8, traversal_tt, m
         r = (K2(top, rays, V, **how, **kw) if isinstance(how, dict)
              else probe.top_visits(top, rays, V, *how, **kw))
         return (*r[0], *r[1:])
+    collect_cpu_sides()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with RowFetches(split_rows=SPLIT_ROWS) as fetched:
@@ -2479,31 +2692,38 @@ def hold_k2_call(label, top, rays, V, kw, K2, probe, traversal8, traversal_tt, m
         plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1]))
 
 
-def k2_call_lines(p1, mb, card):
+def k2_call_lines(p1, mb, card, arith_ns=0.0):
     """One line per call in SM48_K2_CALLS, with each design's chain floor
     and floor_ratio; then the sums over the pass by design. A floor is P1's
     node-step reading in the design's mode of read (mb.floor_entry: one
     chain a warp, the lowest over the tables measured up to the top's
-    size): the cluster design's over its blocks and the global design's
-    thread reads times the call's largest steps; the kept split variant's
-    shared reading for a lane's reads of its staged rows and thread reading
-    for the rest, the most over the lanes (mb.split_floor). Returns the
-    sums."""
+    size): the global design's thread reads, and the cluster design's reads
+    at the shared reading (a block's own share of the table is the nearest
+    memory a row can lie in; P1's cluster reading, of random rows over the
+    cluster, overstates the hot upper rows), times the most rows a lane
+    reads (its steps less the virtual visits, which read no row and test
+    nothing); the kept split variant's shared reading for a lane's reads of
+    its staged rows and thread reading for the rest, the most over the
+    lanes (mb.split_floor); every row read with `arith_ns` of arithmetic
+    added. Returns the sums."""
     sums = {}
     for c in SM48_K2_CALLS:
-        blocks = dict(cluster=c["blocks"], cluster_2n=2 * c["blocks"])
-        floors = {d: mb.split_floor(p1, c["rows"], c["near_far"]) if d == "split"
-                  else chain_floor(p1, d.replace("_2n", ""), c["rows"], c["steps_max"],
-                                   mb, blocks.get(d))
+        reads = max((n + f for n, f in c["near_far"]), default=0)
+        floors = {d: mb.split_floor(p1, c["rows"], c["near_far"], arith_ns)
+                  if d == "split"
+                  else chain_floor(p1, "shared" if d.startswith("cluster") else d,
+                                   c["rows"], reads, mb, arith_ns=arith_ns)
                   for d in c["device_ms"]}
-        emit(phase="k2_split_call", nvidia_smi=card,
+        SM48_K2_LINES.append(dict(floor_ratio=floor_fields(c["device_ms"], floors)))
+        emit(phase="k2_split_call", nvidia_smi=card, step_arith_ns=arith_ns,
              chain_floor_ms={d: f[0] for d, f in floors.items()},
              ns_per_dependent_row={d: f[1] and (
                  [e["ns_per_dependent_row"] for e in f[1]] if d == "split"
                  else f[1]["ns_per_dependent_row"]) for d, f in floors.items()},
-             floor_ratio=floor_fields(c["device_ms"], floors),
+             floor_ratio=SM48_K2_LINES[-1]["floor_ratio"],
              **{k: v for k, v in c.items() if k != "near_far"},
-             lanes_near_far_max=[max(x) for x in zip(*c["near_far"])])
+             lanes_near_far_max=[max(x) for x in zip(*c["near_far"])],
+             lane_rows_max=reads)
         for d, v in c["device_ms"].items():
             r = sums.setdefault(d, dict(readings=[0.0] * len(v), device_ms=0.0,
                                         chain_floor_ms=0.0))
@@ -2827,6 +3047,7 @@ def hold_calls(label, calls, K1, K2, K3, traversal8, traversal_tt, mb):
             lanes = None
             variant = "global"
         got = run()
+        collect_cpu_sides()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with RowFetches(lanes=lanes) as fetched:
@@ -3434,7 +3655,9 @@ def loader_phases(*args):
     {kernel: dict}}."""
     import tempfile
     with tempfile.TemporaryDirectory(prefix="loader_") as tmp:
-        return _loader_phases(tmp, *args)
+        out = _loader_phases(tmp, *args)
+        collect_cpu_sides()    # the children read the files written here
+        return out
 
 
 def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
@@ -3568,8 +3791,9 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
                 LOADER_CPU_PASSES, dev, scene="cornell.xml", rows=rows["cpu"])
 
     # L2. every BSDF type: the materials file
+    collect_cpu_sides()
     t0 = time.perf_counter()
-    path = write("materials.xml", materials_xml(LOADER_SIZE, L2_DEPTH))
+    path = write("materials.xml", materials_xml(L2_SIZE, L2_DEPTH))
     sc, settings = mitsuba.load_mitsuba(path)
     parse_s = time.perf_counter() - t0
     check_env(sc, sunsky.preetham_sky((0.35, 0.7, 0.45), turbidity=3.0), "materials.xml")
@@ -3586,10 +3810,10 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
         fail(f"materials.xml: types {types}, split table {scene.geom.tt_top is not None}")
     out["loader_materials"] = {}
     for reg in (False, True):
-        tr, img, r = pt_run(scene, LOADER_SIZE, L2_DEPTH, LOADER_CHUNK, L2_PASSES,
+        tr, img, r = pt_run(scene, L2_SIZE, L2_DEPTH, LOADER_CHUNK, L2_PASSES,
                             f"materials (regularize={reg})", regularize=reg)
         emit(phase="headline", scene="materials.xml", tracer="PathTracer",
-             regularize=reg, size=LOADER_SIZE, max_depth=L2_DEPTH,
+             regularize=reg, size=L2_SIZE, max_depth=L2_DEPTH,
              chunk_size=LOADER_CHUNK, passes=L2_PASSES, **r)
         lc = r["launches"]
         if not (lc["K1"] and lc["K2_by_v"][traversal8.V_INCOHERENT]
@@ -3597,7 +3821,7 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
             fail(f"the materials PT did not run K2, K3 and the K1 fallback: {lc}")
         if not reg:
             calls = record_kernels(tr.do_pass, traversal8, traversal_tt, Rays)
-            held = hold_calls("loader_materials_512", calls, K1, K2, K3, traversal8,
+            held = hold_calls(f"loader_materials_{L2_SIZE}", calls, K1, K2, K3, traversal8,
                               traversal_tt, mb)
             out["loader_materials"] = {k: dict(v, pass_launches=r["launches_per_pass"],
                                                seconds_per_pass=r["seconds_per_pass"])
@@ -3609,10 +3833,6 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
     load_small = lambda w, h: mitsuba.load_mitsuba(small)[0]
     sz = L2_SMALL
     for name, make, limit in (
-            ("PathTracer", lambda s: pathmod.PathTracer(s, sz, sz, max_depth=L2_DEPTH),
-             CARD_CPU_LIMIT),
-            ("PathTracer_regularized", lambda s: pathmod.PathTracer(
-                s, sz, sz, max_depth=L2_DEPTH, regularize=True), CARD_CPU_LIMIT),
             ("BDPT", lambda s: bdptmod.BDPT(s, sz, sz, max_depth=L2_SMALL_DEPTH),
              CARD_CPU_LIMIT),
             ("VCM", lambda s: vcmmod.VCM(s, sz, sz, max_depth=L2_SMALL_DEPTH),
@@ -3623,6 +3843,7 @@ def _loader_phases(tmp, dev, card, cornell_mean, K1, K2, K3, K4, zero_counts,
                     scene="materials.xml")
 
     # L3. the loader at San Miguel scale: one serialized file
+    collect_cpu_sides()
     t0 = time.perf_counter()
     path, written = sm_loader_files(tmp, L3_SIZE, example_scenes, shapes)
     write_s = time.perf_counter() - t0
@@ -4004,6 +4225,43 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
     return out
 
 
+def phase8_alone():
+    """Phase 8's microbenchmarks alone on the card (about 2 minutes), on
+    inputs recorded as main() records them: one GameTracer frame and one
+    WavefrontPT pass on the San Miguel stand-in at 1024^2 (RecordTake),
+    veach-mis's root and leaf row and its bounce wavefront with 40% of the
+    rays dead; prints utils/microbench.measure's result as one JSON line:
+
+        python3 -c "import chip_smoke; chip_smoke.phase8_alone()"
+    """
+    from cudatracerlib_tpu_torch.models import game, tracer, wavefront
+    from cudatracerlib_tpu_torch.ops import cuda_build, hashgrid, texture, traversal8
+    from cudatracerlib_tpu_torch.ops.traversal import Rays
+    from cudatracerlib_tpu_torch.utils import example_scenes
+    from cudatracerlib_tpu_torch.utils import microbench as mb
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    dev = torch.device("cuda", 0)
+    cuda_build.build("traversal8.cu", "traversal_tt.cu", "microbench.cu")
+    sm = example_scenes.san_miguel_stand_in(SM_SIZE, SM_SIZE).build(dev)
+    with RecordTake("game_neighbors", hashgrid, "_gather_rows", lambda g: g.data):
+        game.GameTracer(sm, SM_SIZE, SM_SIZE).do_pass()
+    quads = sm.textures.texels_quad
+    with RecordTake("ewa_tap", texture, "_take_rows", lambda t: t if t is quads else None):
+        wavefront.WavefrontPT(sm, SM_SIZE, SM_SIZE, max_depth=5, lanes=WF_LANES).do_pass()
+    veach = example_scenes.veach_mis(VEACH_SIZE, VEACH_SIZE).build(dev)
+    table = veach.geom.wide
+    rr = veach_wavefronts(veach, table, traversal8.intersect_wide_cuda, tracer,
+                          Rays)["bounce_cut_dead"][0]
+    steps = traversal8.intersect_wide(table, rr, with_iters=True)[1]
+    res = mb.measure(dev, take_calls=dict(TAKE_CALLS), step_rows=mb.table_step_rows(table),
+                     queue_stream=(steps, rr.tmin.contiguous(), rr.tmax.contiguous()))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    emit(phase="microbench_alone", nvidia_smi=card, max_abs_err=mb.max_abs_err(res), **res)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4056,6 +4314,11 @@ def main():
             f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
         K1.launches_by_mode = dict.fromkeys(K1.launches_by_mode, 0)
         K1.launches_by_design = dict.fromkeys(K1.launches_by_design, 0)
+        mb.chase_rows_cuda.launches_by_mode = dict.fromkeys(mb.CHASE_MODES, 0)
+        mb.gather_take_cuda.launches_by_design = dict.fromkeys(mb.TAKE_DESIGNS, 0)
+        mb.step_only_cuda.launches_by_kind = dict.fromkeys(
+            mb.step_only_cuda.launches_by_kind, 0)
+        mb.queue_fetch_cuda.launches_by_form = dict.fromkeys(mb.QUEUE_FORMS, 0)
         for f in plains:
             f.cuda_calls = 0
 
@@ -4158,6 +4421,17 @@ def main():
                 for k in ("traverse_pool_shared_kernel", "traverse_pool_kernel")):
             fail(f"K4's kernels missing from the SASS: {sorted(loads)}")
 
+    # P2 (b)'s step_only runs its loop on registers alone: no load from
+    # memory (LDG, LDS, LDL, generic LD) inside a loop of its SASS
+    step_sass = sass_loop_loads(cuda_build.build_log["microbench.cu"]["path"],
+                                cuda_build.find_nvcc())
+    emit(phase="sass", kernel="step_only_kernel", kind="registers",
+         loops_and_loop_loads=step_sass,
+         ptxas=ptxas_lines(cuda_build.build_log["microbench.cu"]["ptxas"],
+                           "step_only_kernel"))
+    if len(step_sass) != 4 or any(n == 0 or loads for n, loads in step_sass.values()):
+        fail(f"step_only's loops load from memory, or were not found: {step_sass}")
+
     # 2. K1 against its plain version at the Cornell path's ray count
     scene512 = example_scenes.cornell_box(512, 512).build(dev)
     table = scene512.geom.wide
@@ -4249,6 +4523,11 @@ def main():
                                                 Rays).items():
         pool_sets(f"veach_{name}", vtable, rr, v_mask, K1, K4, traversal8, mb, card,
                   11, natural=natural, model=True)
+        if name == "bounce_cut_dead":
+            steps = traversal8.intersect_wide(vtable, rr, with_iters=True)[1]
+            MB_INPUTS["queue_stream"] = (steps.contiguous(), rr.tmin.contiguous(),
+                                         rr.tmax.contiguous())
+    MB_INPUTS["step_rows"] = mb.table_step_rows(vtable)
     big = veach_wavefronts(veach, vtable, K1, tracermod, Rays, POOL_RAYS_BIG)["bounce"][0]
     pool_sets("veach_bounce_1m", vtable, big,
               torch.from_numpy(np.random.default_rng(12).random(POOL_RAYS_BIG) < 0.5).to(dev),
@@ -4377,6 +4656,7 @@ def main():
                                          example_scenes, traversal8, mb))
 
     # 5. San Miguel at full width: host build, then K2, K3 and K1 on its tables
+    collect_cpu_sides()
     t0 = time.perf_counter()
     sm = example_scenes.san_miguel_stand_in(1024, 1024)
     gen_s = time.perf_counter() - t0
@@ -4728,33 +5008,86 @@ def main():
                                 traversal_tt, mb))
 
     # 7d. the San Miguel stand-in at 4.8M triangles: K2's split variant
+    collect_cpu_sides()
     sm48 = sm48_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls, pathmod,
                        tracermod, filmmod, example_scenes, traversal8, traversal_tt,
                        probe, mb, Rays)
 
-    # 8. P1-P3 at full size, each held to its plain version on its inputs
+    # 8. P1-P3 at full size, each held to its plain version on its inputs:
+    # P2's gathers on the index streams recorded in 7a and 7c, P2 (b) on
+    # veach-mis's rows and P3's threshold form on its bounce stream (4a)
+    missing = {"game_neighbors", "ewa_tap"} - set(TAKE_CALLS)
+    if missing:
+        fail(f"no {sorted(missing)} gather was recorded on the main path")
+    collect_cpu_sides()
     torch.cuda.synchronize()
     zero_counts()
-    mb.chase_rows_cuda.launches_by_mode = dict.fromkeys(mb.CHASE_MODES, 0)
-    res = mb.measure(dev)
+    res = mb.measure(dev, take_calls=dict(TAKE_CALLS), step_rows=MB_INPUTS["step_rows"],
+                     queue_stream=MB_INPUTS["queue_stream"])
+    TAKE_CALLS.clear()
     mb_launches = dict(P1=mb.chase_rows_cuda.launches,
-                       P2=mb.gather_rows_cuda.launches + mb.loop_only_cuda.launches,
+                       P2_rows=mb.gather_rows_cuda.launches,
+                       P2_loop=mb.loop_only_cuda.launches,
+                       P2_take=mb.gather_take_cuda.launches,
+                       P2_step_only=mb.step_only_cuda.launches,
                        P3=mb.queue_fetch_cuda.launches)
-    p1_by_mode = dict(mb.chase_rows_cuda.launches_by_mode)
+    by_kind = dict(P1=dict(mb.chase_rows_cuda.launches_by_mode),
+                   P2_take=dict(mb.gather_take_cuda.launches_by_design),
+                   P2_step_only=dict(mb.step_only_cuda.launches_by_kind),
+                   P3=dict(mb.queue_fetch_cuda.launches_by_form))
+    p1_by_mode = by_kind["P1"]
     emit(phase="microbench", nvidia_smi=card, launches=mb_launches,
-         p1_launches_by_mode=p1_by_mode, max_abs_err=mb.max_abs_err(res), **res)
+         launches_by_kind=by_kind, max_abs_err=mb.max_abs_err(res), **res)
     emit(phase="p1_ns_per_row", nvidia_smi=card, readings={
         f"{e['rows']} {e['mode']}{'' if not e['param'] else e['param']} "
         f"{e['occupancy']} w{e['words']}": e["ns_per_dependent_row"] for e in res["P1"]})
-    if min(mb_launches.values()) <= 0 or min(p1_by_mode.values()) <= 0:
-        fail(f"a microbenchmark kernel did not launch: {mb_launches}, {p1_by_mode}")
+    if min(mb_launches.values()) <= 0 or min(min(v.values()) for v in by_kind.values()) <= 0:
+        fail(f"a microbenchmark kernel did not launch: {mb_launches}, {by_kind}")
     if mb.max_abs_err(res) != 0:
         fail("a microbenchmark kernel disagrees with its plain version")
-    k2_sums = k2_call_lines(res["P1"], mb, card)
+    for call in ("game_neighbors", "ewa_tap"):
+        es = [e for e in res["take"] if e["call"] == call]
+        emit(phase="p2_take", nvidia_smi=card, call=call, rows=es[0]["rows"],
+             gathers=es[0]["gathers"], distinct_rows=es[0]["distinct_rows"],
+             index_select_ms=es[0]["library_ms"], port_take_ms=es[0]["plain_ms"],
+             index_select_ms_by_word=es[0]["index_select_ms_by_word"],
+             bound_ms=es[0]["bound_ms"],
+             kept=next(e["design"] for e in es if e["kept"]),
+             by_design={e["design"]: dict(ms=e["ms"], bound_share=e["bound_share"],
+                                          gbps=e["gbps"],
+                                          faster_than_index_select=e["faster_than_index_select"])
+                        for e in es})
+    arith_ns, arith_e = mb.step_arith_ns(res["step_only"])
+    lane_ns, lane_e = mb.step_arith_ns(res["step_only"], per_lane=True)
+    emit(phase="p2_step_only", nvidia_smi=card, step_arith_ns=arith_ns,
+         step_arith_of=arith_e and f"{arith_e['kind']} any_hit={arith_e['any_hit']}",
+         lane_arith_ns=lane_ns,
+         lane_arith_of=lane_e and f"{lane_e['kind']} any_hit={lane_e['any_hit']}",
+         readings={f"{e['kind']} {'any_hit' if e['any_hit'] else 'closest'} "
+                   f"{e['occupancy']}": dict(ns_per_step=e["ns_per_step"],
+                                             ns_per_lane_step=e["ns_per_lane_step"],
+                                             lanes=e["lanes"])
+                   for e in res["step_only"]})
+    # the threshold form's fetch cost beside K4's loss to K1 on the same set
+    # (pool_vs_k1, 4a: veach-mis bounce rays with 40% dead, closest)
+    cut = {r["design"]: r["device_ms"] for r in POOL_VS_K1
+           if r["set"] == "veach_bounce_cut_dead" and r["mode"] == "closest"}
+    thr = {e["occupancy"]: e for e in res["P3"] if e["form"] == "threshold"}
+    emit(phase="p3_forms", nvidia_smi=card,
+         readings={f"{e['form']} {e['occupancy']} {e['items']}": dict(
+             ms=e["ms"], ns_per_claim=e["ns_per_claim"], ns_per_item=e["ns_per_item"],
+             claims=e["claims"], warps=e["warps"]) for e in res["P3"]},
+         threshold_fetch_share={o: e["fetch_share"] for o, e in thr.items()},
+         threshold_fetch_ns_per_claim={o: e["fetch_ns_per_claim"] for o, e in thr.items()},
+         threshold_fetch_ms={o: e["fetch_share"] * e["ms"] for o, e in thr.items()},
+         k4_over_k1_cut_dead=cut["k4"] / cut["k1"] if {"k1", "k4"} <= set(cut) else None,
+         k4_minus_k1_ms_cut_dead=cut["k4"] - cut["k1"] if {"k1", "k4"} <= set(cut) else None)
+    k2_sums = k2_call_lines(res["P1"], mb, card, arith_ns)
 
     # 9a-9e. two-level instancing: the golden, bench.py's instanced scene
     # (K2 with per-lane roots, K3, the K1 fallback), the 530-instance grid
     # (K1 with per-lane roots), updates and skinning
+    collect_cpu_sides()
     inst_res = instanced_phases(dev, card, K1, K2, K3, K4, zero_counts, plain_calls,
                                 pathmod, tracermod, filmmod, example_scenes,
                                 traversal8, traversal_tt, mb)
@@ -4784,12 +5117,17 @@ def main():
     # K1 global on the San Miguel fallback batch at V=3 (the whole
     # 262,144-ray traversal under mixed_rays); K2 and K3 at V=3 (80 of their
     # 96 launches per headline), with both budgets under by_v
-    def row(name, src, replaces, launches_n, err, ms, plain_ms, bound, **extra):
+    collect_cpu_sides()
+    emit(phase="card_vs_cpu_time", card_seconds=CARD_CPU_SECONDS["card"],
+         wait_seconds=CARD_CPU_SECONDS["wait"])
+
+    def row(name, src, replaces, launches_n, err, ms, plain_ms, bound, library_ms=None,
+            **extra):
         return dict(name=name, route="cuda",
                     source=f"cudatracerlib_tpu_torch/csrc/{src}",
                     replaces=replaces, launches=launches_n, max_abs_err=err,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                    bound_by=bound[1], library_ms=None, **extra)
+                    bound_by=bound[1], library_ms=library_ms, **extra)
 
     def max_err(res, variant):
         return max(r["err"] for (_, v), r in res.items() if v == variant)
@@ -4912,7 +5250,61 @@ def main():
                             and (param is None or x["param"] == param)})
     p2 = next(e for e in res["P2"] if e["rows"] == mb.ROW_TABLE_ROWS
               and e["layout"] == "thread")
-    p3 = next(e for e in res["P3"] if e["items"] == mb.ROW_QUEUE_ITEMS)
+
+    def take_row(design):
+        """P2 (a) in `design` on the game frame's neighbourhood gather (the
+        row's shape), both recorded streams under by_shape, each with
+        index_select's and the port's time beside it."""
+        es = {e["call"]: e for e in res["take"] if e["design"] == design}
+        e = es["game_neighbors"]
+        return row(f"gather_take_{design}_kernel", "microbench.cu",
+                   "tools/microbench_r2c.py:67", by_kind["P2_take"][design],
+                   max(x["max_abs_err"] for x in es.values()), e["ms"], e["plain_ms"],
+                   (e["bound_ms"], e["bound_by"]), library_ms=e["library_ms"],
+                   library="torch.index_select (int32 index; building it untimed)",
+                   plain="the port's table[idx.long()]", design=design,
+                   by_shape={c: dict(rows=x["rows"], gathers=x["gathers"],
+                                     ms=x["ms"], library_ms=x["library_ms"],
+                                     port_take_ms=x["plain_ms"], bound_ms=x["bound_ms"],
+                                     bound_share=x["bound_share"], kept=x["kept"],
+                                     faster_than_index_select=x["faster_than_index_select"])
+                             for c, x in es.items()})
+
+    def step_row():
+        """P2 (b): a node step at one warp an SM (the row's shape; the
+        plain version's time there), every kind and occupancy under
+        by_kind."""
+        e = next(x for x in res["step_only"] if x["kind"] == "node"
+                 and not x["any_hit"] and x["occupancy"] == "warp")
+        return row("step_only_kernel<node|leaf,closest|any_hit>", "microbench.cu",
+                   "tools/microbench_r2c.py:37", mb_launches["P2_step_only"],
+                   max(x["max_abs_err"] for x in res["step_only"]), e["ms"],
+                   e["plain_ms"], (e["bound_ms"], e["bound_by"]),
+                   step_arith_ns=arith_ns,
+                   by_kind={f"{x['kind']} {'any_hit' if x['any_hit'] else 'closest'} "
+                            f"{x['occupancy']}": dict(
+                                ms=x["ms"], ns_per_step=x["ns_per_step"],
+                                ns_per_lane_step=x["ns_per_lane_step"], lanes=x["lanes"],
+                                launches_by_kind=by_kind["P2_step_only"][x["kind"]])
+                            for x in res["step_only"]})
+
+    def queue_row(name, form):
+        """P3 in `form` at full occupancy on ROW_QUEUE_ITEMS items (the
+        threshold form: the recorded veach-mis stream), every occupancy and
+        size under by_run. No PyTorch call computes a queue hand-out."""
+        es = [e for e in res["P3"] if e["form"] == form]
+        e = next(x for x in es if x["items"] == mb.ROW_QUEUE_ITEMS
+                 and x["occupancy"] == "full")
+        return row(name, "microbench.cu", "tools/probe_mosaic_pool.py:24",
+                   by_kind["P3"][form], max(x["max_abs_err"] for x in es), e["ms"],
+                   e["plain_ms"], (e["bound_ms"], e["bound_by"]), form=form,
+                   pallas_kernels="k_gather16 :40, k_gather8 :50, k_prefix :62, "
+                                  "k_dot :79, k_onehot :93",
+                   library="none: no PyTorch call hands out a queue",
+                   by_run={f"{x['occupancy']} {x['items']}": dict(
+                       ms=x["ms"], ns_per_claim=x["ns_per_claim"],
+                       ns_per_item=x["ns_per_item"], warps=x["warps"],
+                       fetch_share=x.get("fetch_share")) for x in es})
     # the instanced slice's shapes (9b, 9c, 9d): every call of one
     # traversal, summed, beside the launches of a pass of its path tracer
     def inst_entry(traversal, kind, pt):
@@ -4924,7 +5316,15 @@ def main():
     lc = loader_res["loader_cornell"]
     k1_rows[0 if lc["variant"] == "shared" else 2]["by_tracer"]["loader_cornell"] = lc
     # every K1 global call held, with its chain floor from this run's P1
-    k1_global = k1_global_lines(res["P1"], mb)
+    # and step_only
+    k1_global = k1_global_lines(res["P1"], mb, dict(thread=arith_ns, group=lane_ns))
+    ratios = [r for c in (*k1_global, *SM48_K2_LINES) for r in c["floor_ratio"].values()]
+    emit(phase="floor_summary", nvidia_smi=card, step_arith_ns=arith_ns,
+         lane_arith_ns=lane_ns,
+         calls=len(k1_global) + len(SM48_K2_LINES),
+         floor_ratio_min=min(ratios) if ratios else None,
+         floor_ratio_max=max(ratios) if ratios else None,
+         under_1=sum(r < 1 for r in ratios))
     k1_rows[1]["calls"] = len(k1_global)
     k2_shared = k2_row("top_visits_shared_kernel", None)
     # K2's split variant on the 4.8M pass: every K2 call of one pass
@@ -5001,9 +5401,12 @@ def main():
         p1_row("chase_rows_cluster_kernel<2>", "cluster", 2),
         p1_row("chase_rows_bulk_kernel", "bulk"),
         row("gather_rows_thread_kernel", "microbench.cu",
-            "tools/microbench_r2c.py:46", mb_launches["P2"], *mb_row(p2)),
-        row("queue_fetch_kernel", "microbench.cu",
-            "tools/probe_mosaic_pool.py:40", mb_launches["P3"], *mb_row(p3))])
+            "tools/microbench_r2c.py:67", mb_launches["P2_rows"], *mb_row(p2)),
+        *(take_row(d) for d in mb.TAKE_DESIGNS),
+        step_row(),
+        queue_row("queue_fetch_kernel", "memset"),
+        queue_row("queue_fetch_work_kernel", "work"),
+        queue_row("queue_fetch_threshold_kernel<8,4>", "threshold")])
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

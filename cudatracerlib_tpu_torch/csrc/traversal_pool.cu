@@ -63,10 +63,9 @@ namespace {
 
 using namespace ctl;
 
-// idle lanes a warp waits for before it claims rays
-constexpr int kFetchIdle = 8;
-// fetches a lane makes in one warp iteration while it draws dead rays
-constexpr int kFetchRounds = 4;
+// (kFetchIdle, the idle lanes a warp waits for before it claims rays, and
+// kFetchRounds, the fetches a lane makes in one warp iteration while it
+// draws dead rays, are in warp_queue.cuh)
 // the probe's first design (csrc/schedule_probe.cu): every ray stepped
 constexpr bool kStepDead = false;
 

@@ -20,6 +20,13 @@ namespace ctl {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// K4's claim (traversal_pool.cu), which P3's threshold form
+// (microbench.cu) times: a warp claims only when at least kFetchIdle of its
+// lanes are idle, and a lane fetches up to kFetchRounds times in one
+// iteration while it draws dead rays.
+constexpr int kFetchIdle = 8;
+constexpr int kFetchRounds = 4;
+
 // Returns the item this lane takes, or -1 (it did not ask, or the queue of
 // `n` items ran out). Sets `drained` once the queue has no item left.
 __device__ __forceinline__ int warp_fetch(int* counter, bool need, int n,

@@ -216,8 +216,114 @@ def test_pool_kernel_matches_k1_on_gpu(dev):
 def test_microbench_kernels_match_plain_on_gpu(dev):
     from cudatracerlib_tpu_torch.utils import microbench as mb
     res = mb.measure(dev, table_rows=(331, 4096), gathers=65536, loop_steps=512,
-                     queue_items=(65536,))
+                     queue_items=(65536,), step_iters=32)
     assert mb.max_abs_err(res) == 0, res
+
+
+@pytest.mark.gpu
+def test_p2_gather_designs_match_plain_on_gpu(dev):
+    """P2 (a)'s designs (thread, flat, bulk) against the port's own gather
+    bit for bit: the hash grid's run stream (clamped runs included) and a
+    random stream at rows of 12 float32, whole and cut to lengths that are
+    not a multiple of the bulk design's 128-row tiles (4,097, 1, none);
+    rows of 4, 8 and 16 float32, which every design refuses; each
+    launch counted under its design (an empty index launches nothing)."""
+    from cudatracerlib_tpu_torch.utils import microbench as mb
+    gen = torch.Generator(device=dev).manual_seed(9)
+    before = dict(mb.gather_take_cuda.launches_by_design)
+    for name, (table, idx) in mb.synthetic_take_calls(gen, dev, queries=777,
+                                                      rows=5000).items():
+        for n in (idx.shape[0], 4097, 1, 0):
+            i = idx[:n]
+            ref = mb.gather_take(table, i)
+            for design in mb.TAKE_DESIGNS:
+                got = mb.gather_take_cuda(table, i, design)
+                assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+                    (name, n, design)
+    for W in (4, 8, 16):
+        table = torch.rand((3000, W), generator=gen, device=dev)
+        i = torch.randint(0, 3000, (1000,), generator=gen, dtype=torch.int32, device=dev)
+        for design in mb.TAKE_DESIGNS:
+            with pytest.raises(ValueError):
+                mb.gather_take_cuda(table, i, design)
+    after = mb.gather_take_cuda.launches_by_design
+    assert [after[d] - before[d] for d in mb.TAKE_DESIGNS] == [6, 6, 6]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_step_only_matches_plain_on_gpu(dev):
+    """P2 (b)'s kernel, a traversal step on a row held in registers, in
+    every kind (node or leaf row, closest or any-hit) against the plain
+    version bit for bit (each lane's last origin and direction, the xor of
+    its steps' results), in blocks of 32 and 128 threads, on random rows
+    and on the Cornell table's root and a leaf row under it, 1,000 lanes
+    of 33 steps; other block sizes are refused."""
+    from cudatracerlib_tpu_torch.utils import microbench as mb
+    gen = torch.Generator(device=dev).manual_seed(6)
+    table = tscenes.cornell_box(32, 32).build(dev).geom.wide
+    for rows in (mb.synthetic_step_rows(gen, dev), mb.table_step_rows(table)):
+        rays = mb.step_rays(rows, 1000, gen)
+        for kind, any_hit in mb.STEP_KINDS:
+            node = kind == "node"
+            ref = mb.step_only(rows, rays, 33, node, any_hit)
+            for threads in (32, 128):
+                od, acc = mb.step_only_cuda(rows, rays, 33, node, any_hit, threads)
+                assert torch.equal(od.view(torch.int32), ref[0].view(torch.int32)), kind
+                assert torch.equal(acc, ref[1]), (kind, any_hit, threads)
+        assert mb.step_only_blocks(True, False) > 0 and mb.step_only_blocks(False, True) > 0
+    with pytest.raises(ValueError):
+        mb.step_only_cuda(rows, rays, 3, True, threads=64)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_p3_forms_match_plain_on_gpu(dev, monkeypatch):
+    """P3 in every form and occupancy: every item handed out once, and the
+    threshold form's payload equal to queue_threshold's, on queues of 1,
+    31, 1,000 and 131,073 items (the threshold form with no, 40% and all
+    items dead); the set of the stream's work area that the next launch
+    takes is zero after each launch. A launch the card refuses (a stand-in
+    library that returns an error) drops the stream's work area, so the
+    next launch starts on zeros and hands every item out once."""
+    from cudatracerlib_tpu_torch.utils import microbench as mb
+    gen = torch.Generator(device=dev).manual_seed(4)
+    half = traversal8.GROUP_WORK // 2
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    for occupancy in mb.QUEUE_OCCUPANCIES:
+        for n in (1, 31, 1000, 131073):
+            for form in ("memset", "work"):
+                counts, out, claims, stats = mb.queue_fetch_cuda(n, dev, form, occupancy)
+                assert torch.equal(counts, torch.ones_like(counts)), (form, occupancy, n)
+                assert out is None and stats is None and int(claims) >= -(-n // 32)
+            for dead in (0.0, 0.4, 1.0):
+                items = mb.synthetic_queue_items(n, gen, dev, dead)
+                counts, out, claims, stats = mb.queue_fetch_cuda(n, dev, "threshold",
+                                                                 occupancy, items)
+                want_counts, want = mb.queue_threshold(*items)
+                assert torch.equal(counts, want_counts), (occupancy, n, dead)
+                assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+                assert int(stats[0]) == int(claims) > 0
+                assert 0 < int(stats[1]) <= int(stats[2])
+            work, next_set = traversal8._group_work[key]
+            assert not work[next_set * half:(next_set + 1) * half].any()
+    real = mb._lib()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def ctl_queue_fetch(self, *args):
+            return 1    # cudaErrorInvalidValue: the launch did not run
+
+    monkeypatch.setattr(mb, "_lib", lambda: Refusing())
+    with pytest.raises(RuntimeError):
+        mb.queue_fetch_cuda(64, dev, "work")
+    assert key not in traversal8._group_work
+    monkeypatch.undo()
+    counts = mb.queue_fetch_cuda(4099, dev, "work")[0]
+    assert torch.equal(counts, torch.ones_like(counts))
+    torch.cuda.synchronize()
 
 
 def _big_top(dev):
