@@ -40,6 +40,7 @@ from ..core import spectrum as specmod
 from ..core import vecmath as vm
 from ..ops import shading, traversal, traversal8
 from ..scene import schema
+from ..utils import timers
 from . import bsdf as bsdfmod
 from . import film as filmmod
 from . import lights as lightsmod
@@ -176,10 +177,12 @@ def _roulette(state, beta_next, alive, do_rr):
 
 
 def _seq_dims(sampler_type, pixel_idx, sample_idx, dim0):
-    """(B, 3) sequence uniforms of dimensions dim0..dim0+2."""
-    return torch.stack([samplers.sample_1d_dyn(sampler_type, pixel_idx,
-                                               sample_idx, dim0 + j)
-                        for j in range(3)], -1)
+    """(B, 3) sequence uniforms of dimensions dim0..dim0+2 (the span
+    ``ctl.sampler``)."""
+    with timers.span("ctl.sampler"):
+        return torch.stack([samplers.sample_1d_dyn(sampler_type, pixel_idx,
+                                                   sample_idx, dim0 + j)
+                            for j in range(3)], -1)
 
 
 def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
@@ -203,7 +206,12 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
     7+6d..9+6d (sample index sample_idx). With regularize, the BSDF of a
     lane that has taken a smooth bounce is regularized (bsdf.regularize_ctx
     with regularize_alpha); active_types must then hold
-    bsdf.REGULARIZE_EXTRA_TYPES, as PathTracer's do."""
+    bsdf.REGULARIZE_EXTRA_TYPES, as PathTracer's do.
+
+    A bounce's stages are spans of ``utils/timers.RECORDER``: ``ctl.surface``
+    (the BSSRDF walk, media, escaped rays, the hit's geometry, emission and
+    BSDF context), ``ctl.nee`` and ``ctl.bsdf`` (the sample through Russian
+    roulette and the next ray); the traversals are ``ctl.traverse``."""
     if with_media is None:
         with_media = mediummod.has_media(scene.media)
     B, dev = rays.o.shape[0], rays.o.device
@@ -279,180 +287,183 @@ def pt_radiance(scene: schema.SceneData, rays: traversal.Rays, state: Tensor,
         nrows = nrows + rw1
         novf = novf + ov1
 
-        # --- BSSRDF random walk: lanes inside a subsurface material sample
-        # a homogeneous scattering distance against the surface exit;
-        # scatter events redirect the walk with the material's HG phase ---
-        if with_bssrdf:
-            imx = ins_mat.clamp(0, n_mat - 1).long()
-            sa_b = mp[imx, 25:28]
-            ss_b = mp[imx, 28:31]
-            g_b = mp[imx, 31]
-            sig_tb = sa_b + ss_b
-            sbar = sig_tb.mean(-1).clamp_min(1e-6)
-            state, u_b = rngmod.next_float(state)
-            t_s = -torch.log((1.0 - u_b).clamp_min(1e-9)) / sbar
-            t_exit = torch.where(hit.valid, hit.t, 1e7)
-            bss_scatter = ins_med & active & (t_s < t_exit)
-            bss_through = ins_med & active & ~bss_scatter
-            pdf_sc = sbar * torch.exp(-sbar * t_s)
-            w_sc = ss_b * torch.exp(-sig_tb * t_s[:, None]) / pdf_sc.clamp_min(1e-20)[:, None]
-            w_th = (torch.exp(-sig_tb * t_exit[:, None])
-                    / torch.exp(-sbar * t_exit).clamp_min(1e-20)[:, None])
-            beta = torch.where(bss_scatter[:, None], beta * up(w_sc),
-                               torch.where(bss_through[:, None], beta * up(w_th), beta))
-            bss_p = cur.o + cur.d * t_s[:, None]
-        else:
-            bss_scatter = false
-
-        # --- medium interaction on this segment? ---
-        if with_media:
-            t_seg = torch.where(hit.valid, hit.t * 0.999, 1e7)
-            ms, state = mediummod.sample_distance(scene.media, cur.o, cur.d,
-                                                  t_seg, state, active)
-            beta = beta * up(ms.weight)
-            med_event = ms.valid
-        else:
-            med_event = false
-
-        miss = active & ~hit.valid & ~med_event
-        if with_bssrdf:
-            miss = miss & ~ins_med
-
-        # --- escaped rays: environment ---
-        env_le, w_env = _escaped(scene, cur.d, prev_pdf, prev_delta, use_nee, up)
-        L = L + torch.where(miss[:, None], beta * env_le * w_env[:, None], 0.0)
-
-        si = _surface(scene, geom, trace_rays, hit, with_parallax, with_bump)
-        hit_l = active & hit.valid & ~med_event & ~bss_scatter
-        # stochastic alpha test: transparent lanes pass straight through
-        alpha_pass, hit_l, state = _alpha_test(scene, si, hit_l, state, with_alpha)
-
-        # --- emitted radiance at the hit (area lights) with MIS ---
-        le, w_hit = _emitted(scene, si, cur.o, prev_pdf, prev_delta, use_nee, up)
-        L = L + torch.where(hit_l[:, None], beta * le * w_hit[:, None], 0.0)
-
-        # --- surface shading setup ---
-        ctx, frame, wi_local = _shading(scene, si, hit, cur.d, cone,
-                                        active_types, with_textures)
-        if C:
-            # hero-wavelength dispersion: dielectrics refract with the
-            # continuous eta(lambda_hero) (nm -> um)
-            ctx = ctx._replace(lam_um=lam[:, 0] * 1e-3)
-        if regularize:
-            ctx = bsdfmod.regularize_ctx(ctx, had_smooth, regularize_alpha)
-
-        # --- next-event estimation (surface and medium vertices jointly);
-        # merged, occlusion resolves in the next bounce's traversal ---
-        if use_nee:
-            nee_active = hit_l | med_event
-            if with_bssrdf:      # inside lanes: light arrives via the walk only
-                nee_active = nee_active & ~ins_med
-            nee_p = torch.where(med_event[:, None], ms.p, si.p) if with_media else si.p
-            u_nee = (_seq_dims(sampler_type, pixel_idx, sample_idx, 4 + 6 * depth)
-                     if use_seq else None)
-            ed, f_nee, pdf_fwd, state = _nee_sample(
-                scene, ctx, frame, wi_local, nee_p, state, active_types,
-                u_nee, nee_active)
-            shadow_o = shading.offset_ray_origin(si.p, si.ng, ed.d)
-            if with_media:
-                ph = phasemod.eval_phase(ms.ptype, ms.g, cur.d, ed.d)
-                ph_pdf = phasemod.pdf_phase(ms.ptype, ms.g, cur.d, ed.d)
-                f_nee = torch.where(med_event[:, None], ph[:, None], f_nee)
-                pdf_fwd = torch.where(med_event, ph_pdf, pdf_fwd)
-                shadow_o = torch.where(med_event[:, None], nee_p, shadow_o)
-            do_shadow = nee_active & ((pdf_fwd + vm.length_sqr(f_nee)) > 0)
-            shadow = traversal.Rays(
-                o=shadow_o, d=ed.d, tmin=zero,
-                tmax=torch.where(do_shadow, ed.dist * 0.999, 0.0))
-            nrays = nrays + do_shadow.sum()
-            contrib = _nee_contrib(beta, f_nee, pdf_fwd, ed, up)
-            if merge:
-                p_contrib = torch.where(do_shadow[:, None], contrib, 0.0)
-                p_rays = shadow
-                p_act = nee_active
+        with timers.span("ctl.surface"):
+            # --- BSSRDF random walk: lanes inside a subsurface material sample
+            # a homogeneous scattering distance against the surface exit;
+            # scatter events redirect the walk with the material's HG phase ---
+            if with_bssrdf:
+                imx = ins_mat.clamp(0, n_mat - 1).long()
+                sa_b = mp[imx, 25:28]
+                ss_b = mp[imx, 28:31]
+                g_b = mp[imx, 31]
+                sig_tb = sa_b + ss_b
+                sbar = sig_tb.mean(-1).clamp_min(1e-6)
+                state, u_b = rngmod.next_float(state)
+                t_s = -torch.log((1.0 - u_b).clamp_min(1e-9)) / sbar
+                t_exit = torch.where(hit.valid, hit.t, 1e7)
+                bss_scatter = ins_med & active & (t_s < t_exit)
+                bss_through = ins_med & active & ~bss_scatter
+                pdf_sc = sbar * torch.exp(-sbar * t_s)
+                w_sc = ss_b * torch.exp(-sig_tb * t_s[:, None]) / pdf_sc.clamp_min(1e-20)[:, None]
+                w_th = (torch.exp(-sig_tb * t_exit[:, None])
+                        / torch.exp(-sbar * t_exit).clamp_min(1e-20)[:, None])
+                beta = torch.where(bss_scatter[:, None], beta * up(w_sc),
+                                   torch.where(bss_through[:, None], beta * up(w_th), beta))
+                bss_p = cur.o + cur.d * t_s[:, None]
             else:
-                occ_hit, it2, rw2, ov2 = traversal8.intersect_scene(
-                    geom, shadow, any_hit=True, with_iters=True)
-                occluded = occ_hit.valid
-                niters = niters + it2
-                nrows = nrows + rw2
-                novf = novf + ov2
-                if with_media:
-                    Tr, state = mediummod.transmittance(
-                        scene.media, shadow_o, ed.d, ed.dist * 0.999, state,
-                        do_shadow & ~occluded)
-                    contrib = contrib * up(Tr)
-                L = L + torch.where((nee_active & ~occluded)[:, None], contrib, 0.0)
+                bss_scatter = false
 
-        # --- continue the path: BSDF sample ---
-        u_bsdf = (_seq_dims(sampler_type, pixel_idx, sample_idx, 7 + 6 * depth)
-                  if use_seq else None)
-        s, state = bsdfmod.sample_with_rng(ctx, wi_local, state, active_types,
-                                           u_bsdf, hit_l)
-        wo_world = frame.to_world(s.wo)
-        is_delta = (s.sampled_type & records.T_DELTA) != 0
-        weight = s.weight
-        next_pdf = s.pdf
-        new_o = shading.offset_ray_origin(si.p, si.ng, wo_world)
-        if with_media:
-            # medium vertices continue by sampling the phase function
-            state, u_ph = rngmod.next_float2(state)
-            wo_ph, w_ph, pdf_ph = phasemod.sample_phase(ms.ptype, ms.g, cur.d, u_ph)
-            wo_world = torch.where(med_event[:, None], wo_ph, wo_world)
-            weight = torch.where(med_event[:, None], w_ph[:, None], weight)
-            next_pdf = torch.where(med_event, pdf_ph, next_pdf)
-            is_delta = torch.where(med_event, False, is_delta)
-            new_o = torch.where(med_event[:, None], ms.p, new_o)
-        if with_alpha:
-            wo_world, weight, is_delta, new_o = _pass_through(
-                alpha_pass, si, cur.d, wo_world, weight, is_delta, new_o)
-        if with_bssrdf:
-            # scatter events inside the medium: HG-redirect, keep walking
-            state, u_phb = rngmod.next_float2(state)
-            wo_b, w_phb, pdf_phb = phasemod.sample_phase(
-                torch.zeros(B, dtype=torch.int32, device=dev), g_b, cur.d, u_phb)
-            wo_world = torch.where(bss_scatter[:, None], wo_b, wo_world)
-            weight = torch.where(bss_scatter[:, None], w_phb[:, None], weight)
-            next_pdf = torch.where(bss_scatter, pdf_phb, next_pdf)
-            is_delta = torch.where(bss_scatter, False, is_delta)
-            new_o = torch.where(bss_scatter[:, None], bss_p, new_o)
-            # toggle inside/outside where a transmission lobe crosses a
-            # BSSRDF surface
-            trans = (s.sampled_type & _TRANSMISSION) != 0
-            bss_surf = mp[si.mat_id.clamp(0, n_mat - 1).long(), 25:31].sum(-1) > 0
-            toggle = hit_l & trans & bss_surf
-            ins_mat = torch.where(toggle & ~ins_med, si.mat_id, ins_mat)
-            ins_med = torch.where(toggle, ~ins_med, ins_med)
-        w_up = up(weight)
-        if C > 1:
-            # a dispersive delta event makes the path monochromatic: the
-            # direction is valid for the hero wavelength only. The first
-            # such event zeroes the companions and scales the hero by C
-            # (mono_done: a companion may legitimately be 0)
-            mono = (hit_l & ((s.sampled_type & records.T_DELTA) != 0)
-                    & (ctx.mat_type == schema.BSDF_DIELECTRIC)
-                    & (ctx.params[:, 23] > 0.0) & ~mono_done)
+            # --- medium interaction on this segment? ---
             if with_media:
-                mono = mono & ~med_event
+                t_seg = torch.where(hit.valid, hit.t * 0.999, 1e7)
+                ms, state = mediummod.sample_distance(scene.media, cur.o, cur.d,
+                                                      t_seg, state, active)
+                beta = beta * up(ms.weight)
+                med_event = ms.valid
+            else:
+                med_event = false
+
+            miss = active & ~hit.valid & ~med_event
+            if with_bssrdf:
+                miss = miss & ~ins_med
+
+            # --- escaped rays: environment ---
+            env_le, w_env = _escaped(scene, cur.d, prev_pdf, prev_delta, use_nee, up)
+            L = L + torch.where(miss[:, None], beta * env_le * w_env[:, None], 0.0)
+
+            si = _surface(scene, geom, trace_rays, hit, with_parallax, with_bump)
+            hit_l = active & hit.valid & ~med_event & ~bss_scatter
+            # stochastic alpha test: transparent lanes pass straight through
+            alpha_pass, hit_l, state = _alpha_test(scene, si, hit_l, state, with_alpha)
+
+            # --- emitted radiance at the hit (area lights) with MIS ---
+            le, w_hit = _emitted(scene, si, cur.o, prev_pdf, prev_delta, use_nee, up)
+            L = L + torch.where(hit_l[:, None], beta * le * w_hit[:, None], 0.0)
+
+            # --- surface shading setup ---
+            ctx, frame, wi_local = _shading(scene, si, hit, cur.d, cone,
+                                            active_types, with_textures)
+            if C:
+                # hero-wavelength dispersion: dielectrics refract with the
+                # continuous eta(lambda_hero) (nm -> um)
+                ctx = ctx._replace(lam_um=lam[:, 0] * 1e-3)
+            if regularize:
+                ctx = bsdfmod.regularize_ctx(ctx, had_smooth, regularize_alpha)
+
+        with timers.span("ctl.nee"):
+            # --- next-event estimation (surface and medium vertices jointly);
+            # merged, occlusion resolves in the next bounce's traversal ---
+            if use_nee:
+                nee_active = hit_l | med_event
+                if with_bssrdf:      # inside lanes: light arrives via the walk only
+                    nee_active = nee_active & ~ins_med
+                nee_p = torch.where(med_event[:, None], ms.p, si.p) if with_media else si.p
+                u_nee = (_seq_dims(sampler_type, pixel_idx, sample_idx, 4 + 6 * depth)
+                         if use_seq else None)
+                ed, f_nee, pdf_fwd, state = _nee_sample(
+                    scene, ctx, frame, wi_local, nee_p, state, active_types,
+                    u_nee, nee_active)
+                shadow_o = shading.offset_ray_origin(si.p, si.ng, ed.d)
+                if with_media:
+                    ph = phasemod.eval_phase(ms.ptype, ms.g, cur.d, ed.d)
+                    ph_pdf = phasemod.pdf_phase(ms.ptype, ms.g, cur.d, ed.d)
+                    f_nee = torch.where(med_event[:, None], ph[:, None], f_nee)
+                    pdf_fwd = torch.where(med_event, ph_pdf, pdf_fwd)
+                    shadow_o = torch.where(med_event[:, None], nee_p, shadow_o)
+                do_shadow = nee_active & ((pdf_fwd + vm.length_sqr(f_nee)) > 0)
+                shadow = traversal.Rays(
+                    o=shadow_o, d=ed.d, tmin=zero,
+                    tmax=torch.where(do_shadow, ed.dist * 0.999, 0.0))
+                nrays = nrays + do_shadow.sum()
+                contrib = _nee_contrib(beta, f_nee, pdf_fwd, ed, up)
+                if merge:
+                    p_contrib = torch.where(do_shadow[:, None], contrib, 0.0)
+                    p_rays = shadow
+                    p_act = nee_active
+                else:
+                    occ_hit, it2, rw2, ov2 = traversal8.intersect_scene(
+                        geom, shadow, any_hit=True, with_iters=True)
+                    occluded = occ_hit.valid
+                    niters = niters + it2
+                    nrows = nrows + rw2
+                    novf = novf + ov2
+                    if with_media:
+                        Tr, state = mediummod.transmittance(
+                            scene.media, shadow_o, ed.d, ed.dist * 0.999, state,
+                            do_shadow & ~occluded)
+                        contrib = contrib * up(Tr)
+                    L = L + torch.where((nee_active & ~occluded)[:, None], contrib, 0.0)
+
+        with timers.span("ctl.bsdf"):
+            # --- continue the path: BSDF sample ---
+            u_bsdf = (_seq_dims(sampler_type, pixel_idx, sample_idx, 7 + 6 * depth)
+                      if use_seq else None)
+            s, state = bsdfmod.sample_with_rng(ctx, wi_local, state, active_types,
+                                               u_bsdf, hit_l)
+            wo_world = frame.to_world(s.wo)
+            is_delta = (s.sampled_type & records.T_DELTA) != 0
+            weight = s.weight
+            next_pdf = s.pdf
+            new_o = shading.offset_ray_origin(si.p, si.ng, wo_world)
+            if with_media:
+                # medium vertices continue by sampling the phase function
+                state, u_ph = rngmod.next_float2(state)
+                wo_ph, w_ph, pdf_ph = phasemod.sample_phase(ms.ptype, ms.g, cur.d, u_ph)
+                wo_world = torch.where(med_event[:, None], wo_ph, wo_world)
+                weight = torch.where(med_event[:, None], w_ph[:, None], weight)
+                next_pdf = torch.where(med_event, pdf_ph, next_pdf)
+                is_delta = torch.where(med_event, False, is_delta)
+                new_o = torch.where(med_event[:, None], ms.p, new_o)
             if with_alpha:
-                mono = mono & ~alpha_pass
-            hero1 = (torch.arange(C, device=dev) == 0).to(torch.float32)[None, :] * C
-            w_up = torch.where(mono[:, None], w_up * hero1, w_up)
-            mono_done = mono_done | mono
-        beta_next = beta * w_up
-        cont = hit_l | med_event | alpha_pass | bss_scatter
-        alive = (cont & (weight.abs().amax(dim=-1) > 0) & (depth + 1 < max_depth))
+                wo_world, weight, is_delta, new_o = _pass_through(
+                    alpha_pass, si, cur.d, wo_world, weight, is_delta, new_o)
+            if with_bssrdf:
+                # scatter events inside the medium: HG-redirect, keep walking
+                state, u_phb = rngmod.next_float2(state)
+                wo_b, w_phb, pdf_phb = phasemod.sample_phase(
+                    torch.zeros(B, dtype=torch.int32, device=dev), g_b, cur.d, u_phb)
+                wo_world = torch.where(bss_scatter[:, None], wo_b, wo_world)
+                weight = torch.where(bss_scatter[:, None], w_phb[:, None], weight)
+                next_pdf = torch.where(bss_scatter, pdf_phb, next_pdf)
+                is_delta = torch.where(bss_scatter, False, is_delta)
+                new_o = torch.where(bss_scatter[:, None], bss_p, new_o)
+                # toggle inside/outside where a transmission lobe crosses a
+                # BSSRDF surface
+                trans = (s.sampled_type & _TRANSMISSION) != 0
+                bss_surf = mp[si.mat_id.clamp(0, n_mat - 1).long(), 25:31].sum(-1) > 0
+                toggle = hit_l & trans & bss_surf
+                ins_mat = torch.where(toggle & ~ins_med, si.mat_id, ins_mat)
+                ins_med = torch.where(toggle, ~ins_med, ins_med)
+            w_up = up(weight)
+            if C > 1:
+                # a dispersive delta event makes the path monochromatic: the
+                # direction is valid for the hero wavelength only. The first
+                # such event zeroes the companions and scales the hero by C
+                # (mono_done: a companion may legitimately be 0)
+                mono = (hit_l & ((s.sampled_type & records.T_DELTA) != 0)
+                        & (ctx.mat_type == schema.BSDF_DIELECTRIC)
+                        & (ctx.params[:, 23] > 0.0) & ~mono_done)
+                if with_media:
+                    mono = mono & ~med_event
+                if with_alpha:
+                    mono = mono & ~alpha_pass
+                hero1 = (torch.arange(C, device=dev) == 0).to(torch.float32)[None, :] * C
+                w_up = torch.where(mono[:, None], w_up * hero1, w_up)
+                mono_done = mono_done | mono
+            beta_next = beta * w_up
+            cont = hit_l | med_event | alpha_pass | bss_scatter
+            alive = (cont & (weight.abs().amax(dim=-1) > 0) & (depth + 1 < max_depth))
 
-        # --- Russian roulette on throughput ---
-        state, beta_next, alive = _roulette(state, beta_next, alive,
-                                            depth >= rr_depth)
+            # --- Russian roulette on throughput ---
+            state, beta_next, alive = _roulette(state, beta_next, alive,
+                                                depth >= rr_depth)
 
-        had_smooth = had_smooth | (cont & ~is_delta)
-        cur = traversal.Rays(o=new_o, d=wo_world, tmin=zero, tmax=zero + 1e30)
-        beta = torch.where(alive[:, None], beta_next, 0.0)
-        active = alive
-        prev_pdf = next_pdf
-        prev_delta = is_delta
+            had_smooth = had_smooth | (cont & ~is_delta)
+            cur = traversal.Rays(o=new_o, d=wo_world, tmin=zero, tmax=zero + 1e30)
+            beta = torch.where(alive[:, None], beta_next, 0.0)
+            active = alive
+            prev_pdf = next_pdf
+            prev_delta = is_delta
 
     if merge:
         # resolve the LAST bounce's pending shadow queue

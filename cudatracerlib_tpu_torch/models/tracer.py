@@ -14,6 +14,7 @@ import torch
 from ..core import rng as rngmod
 from ..scene import schema, sensors
 from ..ops import traversal
+from ..utils import timers
 from . import film as filmmod
 
 Tensor = torch.Tensor
@@ -35,8 +36,9 @@ def gen_camera_rays(scene: schema.SceneData, pixel_idx: Tensor, sample_idx,
     state, u_lens = rngmod.next_float2(state)
     if sampler_type != 0:
         from . import samplers
-        u_pix = samplers.sample_2d(sampler_type, pixel_idx, sample_idx, 0)
-        u_lens = samplers.sample_2d(sampler_type, pixel_idx, sample_idx, 2)
+        with timers.span("ctl.sampler"):
+            u_pix = samplers.sample_2d(sampler_type, pixel_idx, sample_idx, 0)
+            u_lens = samplers.sample_2d(sampler_type, pixel_idx, sample_idx, 2)
     jitter = _filter_jitter(filter_type, u_pix)
     p_film = torch.stack([px.to(torch.float32) + 0.5 + jitter[:, 0],
                           py.to(torch.float32) + 0.5 + jitter[:, 1]], dim=-1)
@@ -60,7 +62,11 @@ def _filter_jitter(filter_type: int, u: Tensor) -> Tensor:
 
 
 class TracerBase:
-    """Host-side pass loop: owns the film, pass counter and wall-clock stats."""
+    """Host-side pass loop: owns the film, pass counter and wall-clock stats.
+
+    Each pass is the span ``ctl.pass`` of ``utils/timers.RECORDER`` (with the
+    pass index as its request id) while a profiler records; the host seconds
+    of a tracer's first pass go to ``RECORDER.first_pass_s``."""
 
     progressive = True
 
@@ -75,6 +81,7 @@ class TracerBase:
         self.film = filmmod.new_film(width, height, scene.device)
         self.last_pass_seconds = 0.0
         self.accum_seconds = 0.0
+        self._first_pass = True
 
     # subclasses implement: render_pass(scene, film, pass_idx) -> film
     def render_pass(self, scene, film, pass_idx):
@@ -86,9 +93,13 @@ class TracerBase:
 
     def do_pass(self):
         t0 = time.perf_counter()
-        self.film = self.render_pass(self.scene, self.film, self.pass_idx)
-        self._sync()
+        with timers.RECORDER.pass_block(self.pass_idx):
+            self.film = self.render_pass(self.scene, self.film, self.pass_idx)
+            self._sync()
         self.last_pass_seconds = time.perf_counter() - t0
+        if self._first_pass:
+            timers.RECORDER.first_pass_s = self.last_pass_seconds
+            self._first_pass = False
         self.accum_seconds += self.last_pass_seconds
         self.film = self.film._replace(n_passes=self.film.n_passes + 1.0)
         self.pass_idx += 1

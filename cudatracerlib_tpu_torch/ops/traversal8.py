@@ -58,6 +58,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import timers
 from . import cuda_build
 from .traversal import Hit, Rays, _safe_inv
 
@@ -734,27 +735,30 @@ def intersect_scene(geom, rays: Rays, any_hit: bool = False,
     iters is the sum of the steps of every kernel the rays went through,
     rows the 512-byte rows they read (one per step, so equal to iters), and
     ovf a (2,) tensor holding the number of capped rays and visits and of
-    rays and visits whose stack overflowed."""
-    # the kernels take contiguous rays; camera rays share one expanded origin
-    rays = Rays(*(x.contiguous() for x in rays))
-    if geom.inst is not None:
-        from . import instanced
-        return instanced.intersect_instanced(geom, rays, any_hit=any_hit,
-                                             with_iters=with_iters,
-                                             any_mask=any_mask)
-    if treelet_would_dispatch(geom, coherent=coherent, roots=roots):
-        return intersect_treelet_exact(geom, rays, any_hit=any_hit,
-                                       coherent=coherent,
-                                       with_iters=with_iters,
-                                       any_mask=any_mask)
-    res = _wide_fn(geom.wide)(geom.wide, rays, any_hit=any_hit,
-                              roots=roots, with_iters=with_iters,
-                              any_mask=any_mask)
-    if not with_iters:
-        return res
-    hit, steps, flags = res
-    iters = steps.sum(dtype=torch.int64)
-    return hit, iters, iters, _flag_counts(flags)
+    rays and visits whose stack overflowed. The call is the span
+    ``ctl.traverse`` (``utils/timers``); an instanced scene's BLAS visits
+    nest theirs inside it."""
+    with timers.span("ctl.traverse"):
+        # the kernels take contiguous rays; camera rays share one expanded origin
+        rays = Rays(*(x.contiguous() for x in rays))
+        if geom.inst is not None:
+            from . import instanced
+            return instanced.intersect_instanced(geom, rays, any_hit=any_hit,
+                                                 with_iters=with_iters,
+                                                 any_mask=any_mask)
+        if treelet_would_dispatch(geom, coherent=coherent, roots=roots):
+            return intersect_treelet_exact(geom, rays, any_hit=any_hit,
+                                           coherent=coherent,
+                                           with_iters=with_iters,
+                                           any_mask=any_mask)
+        res = _wide_fn(geom.wide)(geom.wide, rays, any_hit=any_hit,
+                                  roots=roots, with_iters=with_iters,
+                                  any_mask=any_mask)
+        if not with_iters:
+            return res
+        hit, steps, flags = res
+        counts = _step_and_flag_counts(steps, flags)
+        return hit, counts[0], counts[0], counts[1:]
 
 
 def _wide_fn(table: Tensor, pool: bool = False):
@@ -766,8 +770,28 @@ def _wide_fn(table: Tensor, pool: bool = False):
 
 
 def _flag_counts(flags: Tensor) -> Tensor:
-    return torch.stack([(flags & FLAG_CAPPED).ne(0).sum(),
-                        (flags & FLAG_OVERFLOW).ne(0).sum()])
+    """(2,) int64: the lanes whose flags hold FLAG_CAPPED and FLAG_OVERFLOW
+    (three launches on the card)."""
+    bits, div = _count_rows(flags.device)
+    return (flags & bits[1:]).sum(1) // div[1:]
+
+
+def _step_and_flag_counts(steps: Tensor, flags: Tensor) -> Tensor:
+    """(3,) int64: the steps of a call's rays and ``_flag_counts``, from one
+    reduction over the rows [steps, flags & FLAG_CAPPED, flags &
+    FLAG_OVERFLOW] (four launches on the card)."""
+    bits, div = _count_rows(flags.device)
+    rows = flags & bits
+    rows[0] += steps
+    return rows.sum(1) // div
+
+
+@functools.lru_cache(maxsize=None)
+def _count_rows(dev):
+    """The count rows' flag bits, int64 so that the rows sum with no cast
+    (row 0, the steps, takes none), and each row's divisor."""
+    bits = torch.tensor([[0], [FLAG_CAPPED], [FLAG_OVERFLOW]], dtype=torch.int64, device=dev)
+    return bits, bits[:, 0].clamp_min(1)
 
 
 def intersect_treelet_exact(geom, rays: Rays, any_hit: bool = False,

@@ -1,22 +1,31 @@
-"""Timing and counters (port of ``cudatracerlib_tpu/utils/timers.py``; the
-reference's ``Base/Timer.h`` InstructionTimer / PerformanceTimer scoped
-block profiler, and the TracerBase rays/s counters).
+"""Timing, and the port's span recorder (port of
+``cudatracerlib_tpu/utils/timers.py``; the reference's ``Base/Timer.h``
+InstructionTimer / PerformanceTimer scoped block profiler).
 
-PyTorch returns before the card finishes, so every reading here first
-waits for the card (``torch.cuda.synchronize()``) once CUDA is in use.
+``RECORDER``, a PerformanceTimer, records the spans that the tracers open at
+their stage boundaries (``span``, ``RECORDER.pass_block``). It is on exactly
+while a ``torch.profiler`` session records: run a pass under the profiler to
+turn it on. When it is off a span costs one check and a shared null context.
 """
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
+
+_recording = torch._C._autograd._profiler_enabled
+_NULL = nullcontext()
+
+
+def _cuda_in_use() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
 
 
 def _now() -> float:
     """The host clock after the card's queued work has finished."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    if _cuda_in_use():
         torch.cuda.synchronize()
     return time.perf_counter()
 
@@ -33,23 +42,115 @@ class InstructionTimer:
         return _now() - self._t0
 
 
+class Span:
+    """One recorded span: its name, host start and end (``perf_counter_ns``),
+    the span open around it, the pass it belongs to (the request), and on
+    the card a timing event pair on the stream it was opened on."""
+
+    __slots__ = ("name", "parent", "pass_id", "t0_ns", "t1_ns", "_events", "_device_s")
+
+    def __init__(self, name, parent, pass_id, events):
+        self.name, self.parent, self.pass_id = name, parent, pass_id
+        self._events, self._device_s = events, None
+        self.t0_ns = time.perf_counter_ns()
+        self.t1_ns = None
+
+    def device_s(self) -> float:
+        """Seconds on the device's clock between the span's events (resolved
+        on the first call; the host clock's where no events were recorded)."""
+        if self._device_s is None:
+            if self._events is None:
+                self._device_s = (self.t1_ns - self.t0_ns) * 1e-9
+            else:
+                self._events[1].synchronize()
+                self._device_s = self._events[0].elapsed_time(self._events[1]) * 1e-3
+                self._events = None
+        return self._device_s
+
+
 class PerformanceTimer:
-    """Scoped block profiler: accumulate wall time per named block
-    (START_PERF_BLOCK equivalent is the `block` context manager)."""
+    """Scoped block profiler. ``block(name)`` is a span: it enters
+    ``torch.profiler.record_function(name)``, so the span and the kernels it
+    launches sit in the profiler's trace on the device trace's clock, and on
+    the card records a timing-enabled ``torch.cuda.Event`` pair on the
+    current stream, with no synchronize. It adds the block's host seconds to
+    ``totals`` and one to ``counts``; ``device_totals()`` sums the device
+    seconds of the spans, resolved when asked.
+
+    ``spans`` keeps, in the order they opened, at most ``MAX_SPANS`` spans
+    of the latest stretch of traced passes: ``pass_block`` starts a new
+    stretch at the first traced pass after an untraced one.
+    ``first_pass_s`` is the host seconds of the newest tracer's first pass,
+    recorded whether or not spans are."""
+
+    MAX_SPANS = 1 << 16
 
     def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
+        self.spans = []
+        self.first_pass_s = None
+        self._open = []
+        self._pass_id = None
+        self._in_stretch = False
+        self._device_done = defaultdict(float)
 
     @contextmanager
-    def block(self, name: str):
-        t0 = _now()
+    def block(self, name: str, pass_id=None):
+        if pass_id is None:
+            pass_id = self._pass_id
+        kept = len(self.spans) < self.MAX_SPANS
+        events = None
+        if kept and _cuda_in_use():
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        span = Span(name, self._open[-1] if self._open else None, pass_id, events)
+        if kept:
+            self.spans.append(span)
+        self._open.append(span)
+        outer_pass, self._pass_id = self._pass_id, pass_id
         try:
-            yield
+            with torch.profiler.record_function(name):
+                if events:
+                    events[0].record()
+                try:
+                    yield span
+                finally:
+                    if events:
+                        events[1].record()
         finally:
-            dt = _now() - t0
-            self.totals[name] += dt
+            span.t1_ns = time.perf_counter_ns()
+            self._open.pop()
+            self._pass_id = outer_pass
+            self.totals[name] += (span.t1_ns - span.t0_ns) * 1e-9
             self.counts[name] += 1
+
+    def pass_block(self, pass_id):
+        """The span of one pass, ``ctl.pass``, while a profiler records;
+        otherwise the null context, and the next traced pass starts a new
+        stretch."""
+        if not _recording():
+            self._in_stretch = False
+            return _NULL
+        if not self._in_stretch:
+            self._in_stretch = True
+            self._retire()
+        return self.block("ctl.pass", pass_id)
+
+    def _retire(self):
+        """Move the kept spans' device seconds into the totals and forget
+        them."""
+        for s in self.spans:
+            if s.t1_ns is not None:
+                self._device_done[s.name] += s.device_s()
+        self.spans = []
+
+    def device_totals(self) -> dict:
+        out = defaultdict(float, self._device_done)
+        for s in self.spans:
+            if s.t1_ns is not None:
+                out[s.name] += s.device_s()
+        return dict(out)
 
     def report(self) -> str:
         lines = []
@@ -60,18 +161,12 @@ class PerformanceTimer:
         return "\n".join(lines)
 
 
-class RayCounter:
-    """Host-side rays-traced accounting (the tracers' int64 device counters,
-    read once per pass, feed add_pass)."""
+RECORDER = PerformanceTimer()
 
-    def __init__(self):
-        self.rays = 0
-        self.seconds = 0.0
 
-    def add_pass(self, n_rays: int, seconds: float):
-        self.rays += n_rays
-        self.seconds += seconds
-
-    @property
-    def mrays_per_second(self) -> float:
-        return self.rays / max(self.seconds, 1e-9) / 1e6
+def span(name: str):
+    """A span of the recorder while a profiler records; otherwise the shared
+    null context."""
+    if not _recording():
+        return _NULL
+    return RECORDER.block(name)

@@ -193,10 +193,6 @@ def test_timers():
     assert "x:" in pt.report() and "2 calls" in pt.report()
     it = ttimers.InstructionTimer()
     assert it.elapsed() >= 0.0
-    rc = ttimers.RayCounter()
-    rc.add_pass(2_000_000, 0.5)
-    rc.add_pass(2_000_000, 1.5)
-    assert rc.mrays_per_second == pytest.approx(2.0)
 
 
 def test_debug_viz_as_jax():

@@ -989,3 +989,27 @@ def test_two_ranks_on_one_card_refused(dev, tmp_path):
     p = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                        text=True, timeout=120)
     assert p.returncode != 0 and "would share a card" in p.stderr, p.stderr[-2000:]
+
+
+@pytest.mark.gpu
+def test_stage_spans_on_gpu(dev, monkeypatch):
+    """Under the profiler on the card, a Sobol' PT pass (veach-mis 32²,
+    depth 3) and a game frame (Cornell 32²) time their spans with CUDA
+    events: each stage under ``ctl.pass`` lasts a positive time on the
+    device's clock, and together they last at most the pass."""
+    from torch.profiler import ProfilerActivity, profile
+    from cudatracerlib_tpu_torch.models import game as tgame
+    from cudatracerlib_tpu_torch.models import path as tpath
+    from cudatracerlib_tpu_torch.utils import timers
+    rec = timers.PerformanceTimer()
+    monkeypatch.setattr(timers, "RECORDER", rec)
+    for tr in (tpath.PathTracer(tscenes.veach_mis(32, 32).build(dev), 32, 32, max_depth=3,
+                                sampler_type=2),
+               tgame.GameTracer(tscenes.cornell_box(32, 32).build(dev), 32, 32)):
+        tr.do_pass()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            tr.do_pass()
+        (p,) = [s for s in rec.spans if s.name == "ctl.pass"]
+        stages = [s for s in rec.spans if s.parent is p]
+        assert len(stages) >= 4 and all(s.device_s() > 0 for s in stages)
+        assert sum(s.device_s() for s in stages) <= p.device_s()
