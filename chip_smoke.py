@@ -28,8 +28,9 @@ kernel table, so that no timing runs beside a CPU half:
 
 1. the card's name and power limit; build every kernel (csrc/traversal8.cu:
    K1; csrc/traversal_tt.cu: K2, K3; csrc/traversal_pool.cu: K4;
-   csrc/microbench.cu: P1-P3; and csrc/schedule_probe.cu, the designs the
-   shared variants of K1 and K2, and K3, were measured against), one nvcc
+   csrc/microbench.cu: P1-P3; csrc/psf_gather.cu: the game filter's kernel;
+   and csrc/schedule_probe.cu, the designs the shared variants of K1 and
+   K2, and K3, were measured against), one nvcc
    each, all started together, and print ptxas's registers, stack and
    spills; from cuobjdump's SASS, each traversal kernel's 128-bit loads:
    the shared variants of K1 and K2 must read rows with LDS (no generic
@@ -174,7 +175,11 @@ kernel table, so that no timing runs beside a CPU half:
    frame, 4 timed frames, s/frame, live rays, K2 (V=6 camera, V=3
    shadow), K3 and K1-fallback launches a frame, the cache's valid rows
    and occupied cells, peak memory; one frame profiled; both traversals of
-   a recorded frame held kernel by kernel to the plain versions; the game
+   a recorded frame held kernel by kernel to the plain versions; the
+   filter's kernel (ops/psf.py, csrc/psf_gather.cu, one launch a frame) on
+   that frame's grid and queries (psf_gather line): device ms beside its
+   bound, the range search's and the plain version's ms, counts equal away
+   from the hard tests' thresholds and sums within PSF_RTOL; the game
    tracer on Cornell 32^2 against the CPU, frame by frame;
 7d. (sm48_phases) the San Miguel stand-in at 4,800,000 triangles, built on
    the card (its top table of 998-999 rows is past one block's shared
@@ -203,8 +208,10 @@ kernel table, so that no timing runs beside a CPU half:
    between 256 and 512 steps (p1_ns_per_row). P2 (a) times the port's
    row gathers as table.index_select(0, idx) in three designs (a thread a
    row, a thread a float4, TMA both ways) on two index streams recorded on
-   the main path (RecordTake): the game frame's neighbourhood gather of
-   7c (1,048,576 queries x 8 runs of 16 rows of 48 bytes) and one EWA
+   the main path: the game frame's neighbourhood of 7c (RecordPsf and
+   psf_take: the index stream of 1,048,576 queries x 8 runs of 16 rows of
+   48 bytes that the plain filter gathers; the card's filter runs
+   psf_gather) and one EWA
    texel-quad tap of a WavefrontPT iteration of 7a, beside
    torch.index_select and the port's table[idx.long()] (p2_take). P2 (b)
    times step_only, a traversal step on a node or leaf row held in
@@ -489,6 +496,11 @@ ADAPT_CARD_CPU_LIMIT = 1e-5
 GAME_FRAMES = 4
 GAME_CARD_CPU_FRAMES = 3
 GAME_CARD_CPU_LIMIT = 1e-4
+# the filter's kernel (psf_gather_call): its sums' largest relative
+# distance from the plain version's: two sums of the same up to 128
+# non-negative float32 terms in other orders, each within 127 x 2^-24 of
+# the exact sum
+PSF_RTOL = 2 * 127 * 2.0 ** -24
 # two-level instancing (9a-9e): the instanced golden's passes (card and
 # CPU, tests/test_goldens_family.py's 8); bench.py's instanced scene at
 # INST_SIZE^2 with INST_RAYS camera rays (bench.py:436-438) and its path
@@ -800,11 +812,11 @@ class RowFetches:
 
 # the inputs of phase 8's new microbenchmarks, each from the main path:
 # TAKE_CALLS, P2's index streams ({name: (table, int32 index)}: the game
-# frame's neighbourhood gather of 7c and one EWA tap of a WavefrontPT
-# iteration of 7a, recorded by RecordTake); MB_INPUTS, P2 (b)'s rows (the
-# veach-mis table's root and a leaf row, 4a) and P3's threshold stream
-# (the steps, tmin and tmax of 4a's veach-mis bounce wavefront with 40% of
-# its rays dead)
+# frame's neighbourhood of 7c, recorded by RecordPsf and psf_take, and one
+# EWA tap of a WavefrontPT iteration of 7a, recorded by RecordTake);
+# MB_INPUTS, P2 (b)'s rows (the veach-mis table's root and a leaf row, 4a)
+# and P3's threshold stream (the steps, tmin and tmax of 4a's veach-mis
+# bounce wavefront with 40% of its rays dead)
 TAKE_CALLS = {}
 MB_INPUTS = {}
 
@@ -834,6 +846,121 @@ class RecordTake:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.orig)
+
+
+class RecordPsf:
+    """While entered, every ops/psf.psf_gather call appends its arguments
+    (grid, p, ns, radius) to `self.calls` and runs as before."""
+
+    def __init__(self, psf):
+        self.psf, self.calls = psf, []
+
+    def __enter__(self):
+        self.orig = orig = self.psf.psf_gather
+
+        def rec(grid, p, ns, radius):
+            self.calls.append((grid, p.clone(), ns.clone(), radius.clone()))
+            return orig(grid, p, ns, radius)
+        self.psf.psf_gather = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.psf.psf_gather = self.orig
+
+
+def psf_take(call, psf):
+    """Records as TAKE_CALLS["game_neighbors"] P2's index stream of a
+    recorded filter call (grid, p, ns, radius): the rows that the plain
+    filter gathers (hashgrid.gather_neighbors' slots: each query's 8 ranges
+    of psf.MAX_PER_CELL rows, clamped into the table)."""
+    grid, p, _, radius = call
+    start = psf.neighbor_ranges(grid, p, radius)[0]
+    k = torch.arange(psf.MAX_PER_CELL, dtype=torch.int32, device=p.device)
+    idx = (start[:, :, None] + k).clamp_max(grid.data.shape[0] - 1)
+    TAKE_CALLS.setdefault("game_neighbors", (grid.data, idx.reshape(-1).contiguous()))
+
+
+def psf_walk(grid, p, ns, radius, psf, ulps=2):
+    """csrc/psf_gather.cu's walk modelled in PyTorch: (acc (B, 3), cnt (B,),
+    near (B,), slots (B,)). Cells in order, slots k < min(count,
+    psf.MAX_PER_CELL), the distance ((dx*dx + dy*dy) + dz*dz) <= r*r and
+    the normal dot ((n.x*ns.x + n.y*ns.y) + n.z*ns.z) > 0.8, sums in slot
+    order. `near` marks the queries with a walked slot whose distance lies
+    within `ulps` ulp of r^2 or, inside it, whose normal dot lies within
+    `ulps` ulp of 0.8: there another order of the plain version's sums may
+    decide the test otherwise, and its count differ from the kernel's.
+    `slots` counts each query's walked slots."""
+    start, count = psf.neighbor_ranges(grid, p, radius)
+    B, rows, dev = p.shape[0], grid.data, p.device
+    r2 = radius * radius
+    tol_r2 = ulps * (torch.nextafter(r2, torch.full_like(r2, float("inf"))) - r2)
+    cos = torch.tensor(psf.NORMAL_COS, dtype=torch.float32, device=dev)
+    tol_cos = ulps * float(torch.nextafter(cos, cos + 1) - cos)
+    acc = torch.zeros((B, 3), dtype=torch.float32, device=dev)
+    cnt = torch.zeros(B, dtype=torch.float32, device=dev)
+    near = torch.zeros(B, dtype=torch.bool, device=dev)
+    for j in range(8):
+        for k in range(psf.MAX_PER_CELL):
+            walked = k < count[:, j]
+            row = rows[(start[:, j] + k).clamp_max(rows.shape[0] - 1).long()]
+            d = row[:, 0:3] - p
+            n = row[:, psf.NORMAL]
+            d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+            dn = (n[:, 0] * ns[:, 0] + n[:, 1] * ns[:, 1]) + n[:, 2] * ns[:, 2]
+            ok = walked & (d2 <= r2) & (dn > psf.NORMAL_COS)
+            acc = acc + torch.where(ok[:, None], row[:, psf.LI], 0.0)
+            cnt = cnt + ok.to(torch.float32)
+            near |= walked & (((d2 - r2).abs() <= tol_r2) | (
+                (d2 <= r2) & ((dn - psf.NORMAL_COS).abs() <= tol_cos)))
+    return acc, cnt, near, count.clamp_max(psf.MAX_PER_CELL).sum(1)
+
+
+def psf_gather_call(label, call, psf, mb, card):
+    """The filter's kernel on one recorded frame's call (grid, p, ns,
+    radius) against its plain version: counts equal but where psf_walk
+    says a hard test sits within 2 ulp of its threshold, sums within
+    PSF_RTOL of the plain's (relative) elsewhere; device ms of the kernel
+    alone (on the call's ranges), of the range search and of the plain
+    version, the kernel's bound (the queries, their ranges and the outputs
+    once, and each distinct row once, over the memory rate; the walked
+    slots' distance tests and the passing rows' normal tests and sums over
+    the float32 rate: 8 and 9 operations). Emits a psf_gather line and
+    returns it."""
+    grid, p, ns, r = call
+    B = p.shape[0]
+    start, count = psf.neighbor_ranges(grid, p, r)
+    acc, cnt = psf.psf_gather_ranges(grid, start, count, p, ns, r)
+    ref_acc, ref_cnt = psf.psf_gather_plain(grid, p, ns, r)
+    torch.cuda.synchronize()
+    differ = torch.nonzero(cnt != ref_cnt).flatten()
+    near = psf_walk(grid, p[differ], ns[differ], r[differ], psf)[2]
+    far = torch.ones(B, dtype=torch.bool, device=p.device)
+    far[differ] = False
+    err = (acc - ref_acc)[far].abs()
+    rel = float((err / ref_acc[far].abs().clamp_min(1e-30)).max()) if err.numel() else 0.0
+    walked = count.clamp_max(psf.MAX_PER_CELL)
+    cells = torch.unique(torch.stack([start.flatten(), walked.flatten()], 1), dim=0)
+    distinct = int(cells[:, 1].sum())
+    n_bytes = B * (12 + 12 + 4 + 64 + 12 + 4) + distinct * 4 * psf.ROW_WIDTH
+    n_ops = 8 * int(walked.sum()) + 9 * int(ref_cnt.sum())
+    bound = mb.bound_ms(n_bytes, n_ops)
+    kernel_ms = device_ms(lambda: psf.psf_gather_ranges(grid, start, count, p, ns, r))
+    out = dict(phase="psf_gather", nvidia_smi=card, call=label, queries=B,
+               rows=grid.data.shape[0], walked_slots=int(walked.sum()),
+               distinct_rows=distinct, passing=int(ref_cnt.sum()),
+               device_ms=kernel_ms, bound_ms=bound[0], bound_by=bound[1],
+               bound_share=bound[0] / kernel_ms,
+               ms=cuda_median_ms(lambda: psf.psf_gather(grid, p, ns, r)),
+               ranges_device_ms=device_ms(lambda: psf.neighbor_ranges(grid, p, r)),
+               plain_device_ms=device_ms(lambda: psf.psf_gather_plain(grid, p, ns, r),
+                                         reps=3),
+               cnt_unequal=int(differ.numel()), cnt_unequal_near=int(near.sum()),
+               max_abs_err=float(err.max()) if err.numel() else 0.0, max_rel_err=rel)
+    emit(**out)
+    if not bool(near.all()) or rel > PSF_RTOL:
+        fail(f"the filter's kernel disagrees with its plain version on {label}: "
+             f"{int((~near).sum())} counts away from a threshold, sums {rel:.3g} apart")
+    return out
 
 
 def trav_bound(table_bytes, B, steps, mixed, mb, traversal8, live=None,
@@ -2527,18 +2654,22 @@ def feature_phases(dev, K1, zero_counts, plain_calls, pathmod, wfmod, example_sc
         fail(f"spectral Cornell against RGB: channels {chan}, mean {total}")
 
 
-def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
+def game_phases(dev, card, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
                 hashgrid, filmmod, example_scenes, traversal8, traversal_tt, mb):
     """7c. GameTracer on San Miguel 1024^2 (the scene of phase 7): a warm-up
     frame, then GAME_FRAMES timed frames: s/frame, live rays (camera rays
-    and the shadow rays traced), K2 (V=6 camera, V=3 shadow), K3 and
-    K1-fallback launches per frame, the cache's valid rows and occupied
-    cells; one frame profiled; every traversal of one recorded frame held
-    kernel by kernel to the plain versions (treelet_on_call). Then the game
+    and the shadow rays traced), K2 (V=6 camera, V=3 shadow), K3,
+    K1-fallback and filter (psf_gather) launches per frame, the cache's
+    valid rows and occupied cells; one frame profiled; every traversal of
+    one recorded frame held kernel by kernel to the plain versions
+    (treelet_on_call), and its filter call to the plain filter
+    (psf_gather_call). Then the game
     tracer on Cornell 32^2, GAME_CARD_CPU_FRAMES frames, card against CPU
     (GAME_CARD_CPU_LIMIT). The peak memory is the game's: the scene's
     tables and the frames (the statistics reset before the warm-up frame).
-    Returns {"game": dict(launches_per_pass, calls)}."""
+    Returns {"game": dict(launches_per_pass, calls, psf_gather)}, the last
+    with the timed frames' psf_gather launches."""
+    from cudatracerlib_tpu_torch.ops import psf
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     grids = []
     orig_build = hashgrid.build_grid
@@ -2568,11 +2699,13 @@ def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
     c = dict(K1=K1.launches, K1_by_variant=dict(K1.launches_by_variant),
              K1_by_design=dict(K1.launches_by_design),
              K2_by_v=dict(K2.launches_by_v), K2_by_variant=dict(K2.launches_by_variant),
-             K3_by_v=dict(K3.launches_by_v), K4=K4.launches, plain=plain_calls())
+             K3_by_v=dict(K3.launches_by_v), K4=K4.launches, plain=plain_calls(),
+             psf_gather=psf.psf_gather.launches)
     img = filmmod.develop(tr.film).cpu().numpy()
     per_frame = dict(K2=sum(c["K2_by_v"].values()) / GAME_FRAMES,
                      K3=sum(c["K3_by_v"].values()) / GAME_FRAMES,
-                     K1_fallback=c["K1"] / GAME_FRAMES)
+                     K1_fallback=c["K1"] / GAME_FRAMES,
+                     psf_gather=c["psf_gather"] / GAME_FRAMES)
     g = grids[-1] if grids else None
     emit(phase="headline", scene="san_miguel_stand_in", tracer="GameTracer",
          size=SM_SIZE, frames=GAME_FRAMES, radius=tr.radius,
@@ -2589,18 +2722,24 @@ def game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls, gamemod,
     if (c["K2_by_v"] != want or c["K3_by_v"] != want or c["K1"] != 2 * GAME_FRAMES
             or c["K1_by_variant"]["global"] != c["K1"]
             or c["K1_by_design"]["group"] != c["K1"]
-            or c["K2_by_variant"]["shared"] != 2 * GAME_FRAMES or c["K4"] or c["plain"]):
+            or c["K2_by_variant"]["shared"] != 2 * GAME_FRAMES or c["K4"] or c["plain"]
+            or c["psf_gather"] != GAME_FRAMES):
         fail(f"the game run took the wrong kernels: {c}")
     profile_pass(tr, "san_miguel_stand_in", tracer="GameTracer")
-    with RecordTake("game_neighbors", hashgrid, "_gather_rows", lambda g: g.data):
+    with RecordPsf(psf) as rec_psf:
         calls = record_scene(tr.do_pass, traversal8, Rays)
-    if len(calls) != 2:
-        fail(f"a game frame traced {len(calls)} times, not 2")
+    if len(calls) != 2 or len(rec_psf.calls) != 1:
+        fail(f"a game frame traced {len(calls)} times, not 2, and filtered "
+             f"{len(rec_psf.calls)} times, not once")
+    psf_take(rec_psf.calls[0], psf)
     out = dict(launches_per_pass=per_frame, calls={
         label: treelet_on_call(f"game_{label}_san_miguel_1024", scene.geom, call, K1,
                                K2, K3, traversal8, traversal_tt, mb)
         for label, call in zip(("camera", "shadow"), calls)})
     del tr, calls
+    out["psf_gather"] = dict(psf_gather_call("game_san_miguel_1024", rec_psf.calls[0],
+                                             psf, mb, card), launches=c["psf_gather"])
+    del rec_psf
     card_vs_cpu("GameTracer", lambda s: gamemod.GameTracer(s, 32, 32),
                 example_scenes.cornell_box, 32, GAME_CARD_CPU_FRAMES, dev,
                 limit=GAME_CARD_CPU_LIMIT)
@@ -4228,24 +4367,26 @@ def parallel_phases(dev, card, sm_scene, K1, K2, K3, K4, zero_counts, plain_call
 def phase8_alone():
     """Phase 8's microbenchmarks alone on the card (about 2 minutes), on
     inputs recorded as main() records them: one GameTracer frame and one
-    WavefrontPT pass on the San Miguel stand-in at 1024^2 (RecordTake),
-    veach-mis's root and leaf row and its bounce wavefront with 40% of the
-    rays dead; prints utils/microbench.measure's result as one JSON line:
+    WavefrontPT pass on the San Miguel stand-in at 1024^2 (RecordPsf and
+    psf_take, RecordTake), veach-mis's root and leaf row and its bounce
+    wavefront with 40% of the rays dead; prints utils/microbench.measure's result as one JSON line:
 
         python3 -c "import chip_smoke; chip_smoke.phase8_alone()"
     """
     from cudatracerlib_tpu_torch.models import game, tracer, wavefront
-    from cudatracerlib_tpu_torch.ops import cuda_build, hashgrid, texture, traversal8
+    from cudatracerlib_tpu_torch.ops import cuda_build, psf, texture, traversal8
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     from cudatracerlib_tpu_torch.utils import example_scenes
     from cudatracerlib_tpu_torch.utils import microbench as mb
     if not torch.cuda.is_available():
         fail("no CUDA device")
     dev = torch.device("cuda", 0)
-    cuda_build.build("traversal8.cu", "traversal_tt.cu", "microbench.cu")
+    cuda_build.build("traversal8.cu", "traversal_tt.cu", "microbench.cu", "psf_gather.cu")
     sm = example_scenes.san_miguel_stand_in(SM_SIZE, SM_SIZE).build(dev)
-    with RecordTake("game_neighbors", hashgrid, "_gather_rows", lambda g: g.data):
+    with RecordPsf(psf) as rec_psf:
         game.GameTracer(sm, SM_SIZE, SM_SIZE).do_pass()
+    psf_take(rec_psf.calls[0], psf)
+    del rec_psf
     quads = sm.textures.texels_quad
     with RecordTake("ewa_tap", texture, "_take_rows", lambda t: t if t is quads else None):
         wavefront.WavefrontPT(sm, SM_SIZE, SM_SIZE, max_depth=5, lanes=WF_LANES).do_pass()
@@ -4282,7 +4423,8 @@ def main():
     from cudatracerlib_tpu_torch.models import tracer as tracermod
     from cudatracerlib_tpu_torch.models import vcm as vcmmod
     from cudatracerlib_tpu_torch.models import wavefront as wfmod
-    from cudatracerlib_tpu_torch.ops import cuda_build, hashgrid, traversal8, traversal_tt
+    from cudatracerlib_tpu_torch.ops import (cuda_build, hashgrid, psf, traversal8,
+                                             traversal_tt)
     from cudatracerlib_tpu_torch.ops.traversal import Rays
     from cudatracerlib_tpu_torch.utils import example_scenes
     from cudatracerlib_tpu_torch.utils import microbench as mb
@@ -4306,7 +4448,7 @@ def main():
               traversal_tt.treelet_hits)
 
     def zero_counts():
-        for f in (K1, K2, K3, K4, *mb.KERNELS):
+        for f in (K1, K2, K3, K4, psf.psf_gather, *mb.KERNELS):
             f.launches = 0
         for f in (K2, K3):
             f.launches_by_v = dict.fromkeys(f.launches_by_v, 0)
@@ -4359,7 +4501,7 @@ def main():
     # 1. build every kernel from the checkout's sources, in parallel
     t0 = time.perf_counter()
     sources = ("traversal8.cu", "traversal_tt.cu", "traversal_pool.cu",
-               "microbench.cu", "schedule_probe.cu")
+               "microbench.cu", "schedule_probe.cu", "psf_gather.cu")
     cuda_build.build(*sources)
     build_s = time.perf_counter() - t0
     for src in sources:
@@ -5003,7 +5145,7 @@ def main():
                                plain_calls, wfmod, fastmod, filmmod, traversal8,
                                traversal_tt, mb)
     # 7c. the game tracer on the same scene, and on Cornell against the CPU
-    sm_slice.update(game_phases(dev, scene, K1, K2, K3, K4, zero_counts, plain_calls,
+    sm_slice.update(game_phases(dev, card, scene, K1, K2, K3, K4, zero_counts, plain_calls,
                                 gamemod, hashgrid, filmmod, example_scenes, traversal8,
                                 traversal_tt, mb))
 
@@ -5184,6 +5326,20 @@ def main():
                                  for V in k2_res} for d in probe.DESIGNS}
                     if variant is None else None,
                     by_tracer=sm_by_tracer("K2", "K2") if variant is None else None)
+
+    def psf_row():
+        """The filter's kernel on 7c's recorded game frame: its device ms
+        (ms: synchronised, the range search included), the plain filter's
+        device ms, its launches in 7c's timed frames (one a frame)."""
+        e = sm_slice["game"]["psf_gather"]
+        return row("psf_gather_kernel", "psf_gather.cu",
+                   "none: the JAX filter (cudatracerlib_tpu/models/game.py:70 accum) is jnp",
+                   e["launches"], e["max_abs_err"], e["ms"], e["plain_device_ms"],
+                   (e["bound_ms"], e["bound_by"]), device_ms=e["device_ms"],
+                   plain="ops/psf.psf_gather_plain (the gather whole, then the sums)",
+                   **{k: e[k] for k in ("queries", "rows", "walked_slots", "distinct_rows",
+                                        "passing", "bound_share", "ranges_device_ms",
+                                        "cnt_unequal", "cnt_unequal_near", "max_rel_err")})
 
     k1_shared_n = sum(k1_by_variant[sc]["shared"] for sc in k1_by_variant)
     k1_rows = [
@@ -5403,6 +5559,7 @@ def main():
         row("gather_rows_thread_kernel", "microbench.cu",
             "tools/microbench_r2c.py:67", mb_launches["P2_rows"], *mb_row(p2)),
         *(take_row(d) for d in mb.TAKE_DESIGNS),
+        psf_row(),
         step_row(),
         queue_row("queue_fetch_kernel", "memset"),
         queue_row("queue_fetch_work_kernel", "work"),

@@ -4,9 +4,10 @@ Port of ``cudatracerlib_tpu/models/game.py`` (the reference's
 ``Integrators/GameTracer`` with ``Kernel/PathSpaceFilteringBuffer``): each
 frame traces the camera rays (coherent) and one NEE shadow ray per primary
 hit, caches the hit's incident direct light as (position, light, normal)
-rows in the sort-based hash grid (ops/hashgrid.py, cells of twice the
-radius), re-gathers them at each primary hit within a footprint-adaptive
-radius (one gather over the whole (B, 128, 12) neighbourhood), and blends
+rows (ops/psf.cache_rows) in the sort-based hash grid (ops/hashgrid.py,
+cells of twice the radius), sums them at each primary hit within a
+footprint-adaptive radius (ops/psf.psf_gather: the plain gather over the
+whole (B, 128, 12) neighbourhood on the CPU, one kernel on the card), and blends
 the result with the previous frame's film where the pixel's hit point and
 normal stayed put.
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import vecmath as vm
-from ..ops import hashgrid, shading, traversal, traversal8
+from ..ops import hashgrid, psf, shading, traversal, traversal8
 from ..scene import schema
 from ..utils import timers
 from . import bsdf as bsdfmod
@@ -70,9 +71,8 @@ def psf_pass(scene: schema.SceneData, film: filmmod.Film, prev_p, prev_ns,
         Li = torch.where((alive & ~occ)[:, None], lob.f * ed.radiance_over_pdf, 0.0)
 
     with timers.span("ctl.filter"):
-        rows = torch.cat([si.p, Li, si.ns, torch.zeros((B, 3), dtype=torch.float32,
-                                                       device=dev)], -1)
-        grid = hashgrid.build_grid(rows, si.p, alive, scene.world_lo, scene.world_hi,
+        grid = hashgrid.build_grid(psf.cache_rows(si.p, Li, si.ns), si.p, alive,
+                                   scene.world_lo, scene.world_hi,
                                    torch.tensor(2.0 * radius, dtype=torch.float32,
                                                 device=dev))
 
@@ -82,16 +82,7 @@ def psf_pass(scene: schema.SceneData, film: filmmod.Film, prev_p, prev_ns,
         cone = 2.0 * torch.tan(0.5 * params[0]) / params[5].clamp_min(1.0)
         r_lane = (4.0 * cone * hit.t).clamp(radius / 16.0, radius)
 
-        def accum(carry, prows, mask):
-            # vectorised over the whole (B, K, W) neighbourhood
-            acc, cnt = carry
-            ok = mask & ((prows[..., 6:9] * si.ns[:, None, :]).sum(-1) > 0.8)
-            return (acc + torch.where(ok[..., None], prows[..., 3:6], 0.0).sum(1),
-                    cnt + ok.to(torch.float32).sum(1))
-
-        acc, cnt = hashgrid.gather_neighbors(
-            grid, si.p, r_lane, accum,
-            (torch.zeros((B, 3), dtype=torch.float32, device=dev), zero))
+        acc, cnt = psf.psf_gather(grid, si.p, si.ns, r_lane)
         filtered = acc / cnt.clamp_min(1.0)[:, None]
         le = lightsmod.eval_hit_emitter(scene, si.light_id, si.ng, si.wi)
         Lout = torch.where(alive[:, None], filtered + le,

@@ -716,12 +716,44 @@ def test_sensors_on_gpu(dev):
 @pytest.mark.gpu
 def test_game_on_gpu(dev):
     """GameTracer on Cornell 16x16, 3 frames: two K1 launches a frame
-    (camera rays, shadow rays); the card image within GAME_LIMIT of the CPU
-    image."""
+    (camera rays, shadow rays) and one psf_gather launch; the card image
+    within GAME_LIMIT of the CPU image."""
     from cudatracerlib_tpu_torch.models import game as tgame
+    from cudatracerlib_tpu_torch.ops import psf
+    before = psf.psf_gather.launches
     card, cpu, n = _card_and_cpu(tgame.GameTracer, tscenes.cornell_box, 16, 3)
     assert n == 2 * 3 and np.isfinite(card).all() and card.mean() > 0
+    assert psf.psf_gather.launches - before == 3      # one filter launch a frame
     assert _rel(card, cpu) < GAME_LIMIT, _rel(card, cpu)
+
+
+@pytest.mark.gpu
+def test_psf_gather_matches_plain_on_gpu(dev):
+    """csrc/psf_gather.cu against its plain version on the card, on the
+    edge cases of tests/test_torch_psf.py (cells with no row and with more
+    than 16, queries clipped at the grid's border, dead pixels, rows
+    exactly on the hard tests' thresholds) and a Cornell 64x64 frame's
+    recorded grid and queries: counts equal where no walked slot lies
+    within 2 ulp of a threshold (everywhere on the exact rows, whose tests
+    no order of the sums moves), sums within ACC_RTOL relative there; one
+    launch a call."""
+    from cudatracerlib_tpu_torch.ops import psf
+    import chip_smoke
+    from test_torch_psf import assert_sums_agree, edge_case_inputs, game_frame_inputs
+    before = psf.psf_gather.launches
+    cases = dict(edge_case_inputs(dev), cornell_64=game_frame_inputs(64, dev))
+    assert psf.psf_gather.launches - before == 2          # the frame's two passes
+    for name, (grid, p, ns, r) in cases.items():
+        acc, cnt = psf.psf_gather(grid, p, ns, r)
+        ref_acc, ref_cnt = psf.psf_gather_plain(grid, p, ns, r)
+        near = chip_smoke.psf_walk(grid, p, ns, r, psf)[2]
+        assert_sums_agree(acc, cnt, ref_acc, ref_cnt, near, name)
+        if name == "exact":
+            assert torch.equal(cnt, ref_cnt)
+        if name in ("overfull", "border", "cornell_64"):
+            assert float(ref_cnt.sum()) > 0, name
+    assert psf.psf_gather.launches - before == 2 + len(cases)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
